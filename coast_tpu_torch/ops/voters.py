@@ -1,0 +1,60 @@
+"""Voters: TMR majority and DWC compare over the lane axis, in plain torch.
+
+The counterpart of ``coast_tpu/ops/voters.py`` ``tmr_vote`` / ``dwc_check``
+/ ``vote``, over an explicit leading batch axis: a replica set is
+``[R, n, *leaf]`` and a voter returns ``(voted [R, *leaf], miscompare
+bool [R])``.
+
+Compares are in the leaf's dtype: IEEE equality for float32 (``+0 == -0``,
+``NaN != NaN``), as the reference does.  A bitwise compare would disagree
+with it on float leaves.
+
+This is the plain version of the Hopper kernel in ``ops/hopper_voters.py``;
+the engine always calls that wrapper, which comes here only for a tensor
+that lies on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _all_rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).all(dim=1)
+
+
+def tmr_vote(lanes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``select(l0 == l1, l0, l2)``; miscompare when any lane disagreed."""
+    l0, l1, l2 = lanes[:, 0], lanes[:, 1], lanes[:, 2]
+    agree01 = l0 == l1
+    voted = torch.where(agree01, l0, l2)
+    miscompare = ~(_all_rows(agree01) & _all_rows(l1 == l2))
+    return voted, miscompare
+
+
+def dwc_check(lanes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Detection only: lane 0, and whether lanes 0 and 1 differ."""
+    return lanes[:, 0], ~_all_rows(lanes[:, 0] == lanes[:, 1])
+
+
+def vote(lanes: torch.Tensor,
+         num_clones: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch on replica count: 3 -> TMR majority, 2 -> DWC compare."""
+    if num_clones == 3:
+        return tmr_vote(lanes)
+    if num_clones == 2:
+        return dwc_check(lanes)
+    raise ValueError(
+        f"unsupported replica count {num_clones} (COAST supports 2 or 3)")
+
+
+def window(leaf: torch.Tensor, offsets: torch.Tensor,
+           width: int) -> torch.Tensor:
+    """Words ``[offsets[r], offsets[r] + width)`` of every lane of row
+    ``r`` of a ``[R, n, L]`` replica set, as ``[R, n, width]``.  A start
+    clamps into ``[0, L - width]``, so the window lies inside the lane."""
+    start = offsets.to(torch.int64).clamp(0, leaf.shape[2] - width)
+    idx = start[:, None] + torch.arange(width, device=leaf.device)
+    return leaf.gather(2, idx[:, None, :].expand(-1, leaf.shape[1], -1))
