@@ -21,7 +21,22 @@ Phases, in order; any failure exits non-zero:
      must go through the kernel (launch count > 0);
   5. the first 8 rows of each schedule again on the CPU (plain voters):
      records equal outside the rows whose f32 rounding order may differ;
-  6. matrixMultiply (9x9) TMR, 16384 injections.
+  6. matrixMultiply (9x9) TMR, 16384 injections;
+  7. the fused engine (fuse_step=True) and K2, the fused commit kernel:
+     (a) K2 against its plain version on the card, bit-equal: seeded
+         replica sets, n in {2, 3}, int32 and float32 with +-0, NaN and
+         subnormals, no mask and masks with several flipped words a row,
+         widths 1 to 1048579, and the fused path's shapes ([4096, 3, 81]
+         results, [4096, 3, 1] scalars, [4096, 3, 13] crc16 msg); then its
+         time at [128, 3, 1048576] f32 and [4096, 3, 81] int32 beside its
+         bytes bound, the plain version's time and the time of what it
+         replaces (K1 + the materialised repair);
+     (b) the fused path: matrixMultiply and crc16 under TMR and DWC, 16384
+         injections at batch 4096, five pairs of unfused and fused runs
+         in alternating order; records equal on every row, K2 launched by
+         the fused TMR campaigns;
+     (c) the float gate: matrixMultiply1024 under fuse_step=True keeps the
+         unfused program.
 
 It prints the kernel table as one JSON line before the last and
 ``{"ok": true, "device": {...}}`` as the last line.  It imports nothing of
@@ -91,17 +106,24 @@ def replica_set(rng, rows: int, n: int, width: int, dtype: str):
     return lanes
 
 
-def compare(torch, kernel, plain, what: str) -> float:
-    """Fail unless the kernel's ``(voted, flags)`` are bit-equal to the
-    plain version's; return the max |difference| of the voted values."""
-    (kv, km), (pv, pm) = kernel, plain
+def compare(torch, kernel, plain, what: str, name: str = "K1") -> float:
+    """Fail unless the kernel's outputs (words..., flags) are bit-equal to
+    the plain version's; return the max |difference| of the words."""
     torch.cuda.synchronize()
-    if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
-            and torch.equal(km, pm)):
-        fail(f"K1 differs from its plain version: {what}")
-    diff = (kv.double() - pv.double()).abs()
-    diff = diff[~diff.isnan()]
-    return float(diff.max()) if diff.numel() else 0.0
+    worst = 0.0
+    *kwords, km = kernel
+    *pwords, pm = plain
+    if not torch.equal(km, pm):
+        fail(f"{name} flags differ from its plain version: {what}")
+    for kv, pv in zip(kwords, pwords):
+        if kv.shape != pv.shape or not torch.equal(kv.view(torch.int32),
+                                                   pv.view(torch.int32)):
+            fail(f"{name} differs from its plain version: {what}")
+        diff = (kv.double() - pv.double()).abs()
+        diff = diff[~diff.isnan()]
+        if diff.numel():
+            worst = max(worst, float(diff.max()))
+    return worst
 
 
 def check_k1(torch, hv, voters) -> float:
@@ -195,6 +217,172 @@ def time_k1(torch, hv, voters) -> dict:
     return res
 
 
+def commit_set(rng, rows: int, n: int, width: int, dtype: str):
+    """Seeded ``[rows, n, width]`` words and int32 flip masks for K2: the
+    replica set of :func:`replica_set`, three mask flips in every row, and
+    for float32 a subnormal beside zeros in one lane and a mask flip that
+    turns a zero into a subnormal (both agree under the reference's
+    compare)."""
+    lanes = replica_set(rng, rows, n, width, dtype)
+    bits = lanes.view(np.uint32)
+    masks = np.zeros(lanes.shape, np.uint32)
+    row = np.repeat(np.arange(rows), 3)
+    np.bitwise_xor.at(masks, (row, rng.integers(n, size=3 * rows),
+                              rng.integers(width, size=3 * rows)),
+                      np.left_shift(np.uint32(1), rng.integers(
+                          32, size=3 * rows).astype(np.uint32)))
+    if dtype == "float32":
+        r = np.arange(rows)
+
+        def subnormals():
+            return np.left_shift(np.uint32(1), rng.integers(
+                23, size=rows).astype(np.uint32))
+
+        w = rng.integers(width, size=rows)
+        bits[r, :, w] = 0
+        bits[r, r % n, w] = subnormals()
+        w = rng.integers(width, size=rows)
+        bits[r, :, w] = 0
+        masks[r, (r + 1) % n, w] ^= subnormals()
+    return lanes, masks.view(np.int32)
+
+
+def check_k2(torch, fs) -> float:
+    """Phase 7a: K2 vs its plain version, bit-equal, with and without masks.
+    Returns the max |difference| of the output words."""
+    rng = np.random.default_rng(4321)
+    worst = 0.0
+    cases = 0
+    sets = [(64, width) for width in (1, 13, 81)]
+    sets += [(8, 131072), (4, 1048576 + 3)]
+    # The fused path's shapes: mm's results and scalars, crc16's message.
+    sets += [(4096, 81), (4096, 1), (4096, 13)]
+    for rows, width in sets:
+        for n in (2, 3):
+            for dtype in ("int32", "float32"):
+                host, host_masks = commit_set(rng, rows, n, width, dtype)
+                lanes = torch.from_numpy(host).cuda()
+                masks = torch.from_numpy(host_masks).cuda()
+                if width == 1:
+                    lanes, masks = lanes[:, :, 0], masks[:, :, 0]
+                for m in (None, masks):
+                    worst = max(worst, compare(
+                        torch, fs.vote_flip_commit(lanes, m, n),
+                        fs.plain_vote_flip_commit(lanes, m, n),
+                        f"[{rows}, {n}, {width}] {dtype} "
+                        f"{'masked' if m is not None else 'no mask'}", "K2"))
+                    cases += 1
+    log(f"K2 bit-equal to its plain version on {cases} seeded cases (n 2/3, "
+        "int32/float32 with +-0, NaN and subnormals, with and without "
+        "masks, widths 1..1048579, the fused path's [4096, n, 81/1/13])")
+    return worst
+
+
+K2_SHAPES = ((128, 1048576, "float32"), (4096, 81, "int32"))
+
+
+def time_k2(torch, fs, hv, repair, card: str) -> dict:
+    """Phase 7a, timing: K2 (TMR, as the engine calls it, and masked) at
+    [128, 3, 1048576] f32 and at the fused path's [4096, 3, 81] int32,
+    beside its bytes bound, its plain version and K1 + the materialised
+    repair it replaces.  Returns the last shape's (the path's) numbers."""
+    rng = np.random.default_rng(11)
+    res = {}
+    for rows, width, dtype in K2_SHAPES:
+        if dtype == "float32":
+            one = rng.standard_normal((rows, 1, width), dtype=np.float32)
+        else:
+            one = rng.integers(-2**31, 2**31, (rows, 1, width),
+                               dtype=np.int32)
+        lanes = torch.from_numpy(one).cuda().expand(rows, 3, width)
+        lanes = lanes.contiguous()
+        lanes.view(torch.int32)[1::2, 1, 7 % width] ^= 1 << 9
+        masks = torch.zeros_like(lanes, dtype=torch.int32)
+        masks[::3, 2, 3 % width] = 1 << 4
+        what = f"[{rows}, 3, {width}] {dtype}"
+        err = max(compare(torch, fs.vote_flip_commit(lanes, None, 3),
+                          fs.plain_vote_flip_commit(lanes, None, 3), what,
+                          "K2"),
+                  compare(torch, fs.vote_flip_commit(lanes, masks, 3),
+                          fs.plain_vote_flip_commit(lanes, masks, 3),
+                          what + " masked", "K2"))
+        iters = 20 if width > 81 else 200
+        ms = time_ms(torch, lambda: fs.vote_flip_commit(lanes, None, 3),
+                     iters)
+        plain_ms = time_ms(
+            torch, lambda: fs.plain_vote_flip_commit(lanes, None, 3), iters)
+        k1_ms = time_ms(torch, lambda: repair(hv.vote(lanes, 3)[0],
+                                              lanes.shape), iters)
+        masked_ms = time_ms(torch, lambda: fs.vote_flip_commit(lanes, masks,
+                                                               3), iters)
+        words = rows * width
+        # 3W read, 3W repaired + W voted written, a flag word a row; a
+        # mask adds 3W read.
+        bound_ms = (words * 4 * 7 + rows * 4) / H100_BYTES_PER_S * 1e3
+        masked_bound = bound_ms + words * 4 * 3 / H100_BYTES_PER_S * 1e3
+        log(f"K2 TMR {what}: bit-equal, {ms:.4f} ms (bound {bound_ms:.4f} "
+            f"ms by bytes, {bound_ms / ms:.1%} of it); plain version "
+            f"{plain_ms:.4f} ms; K1 + repair (what it replaces) "
+            f"{k1_ms:.4f} ms; masked {masked_ms:.4f} ms (bound "
+            f"{masked_bound:.4f} ms) [{card}]")
+        res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "k1_repair_ms": k1_ms, "max_abs_err": err}
+        del lanes, masks, one
+        torch.cuda.empty_cache()
+    return res
+
+
+def fused_path(torch, TMR, DWC, CampaignRunner, REGISTRY, hv, hc,
+               card: str, pairs: int = 5) -> None:
+    """Phase 7b: the fused engine on matrixMultiply and crc16.  After a
+    warm-up of each engine, ``pairs`` pairs of campaigns, unfused and
+    fused, alternating which runs first.  Fails unless every run's records
+    equal the first run's and the fused TMR campaigns launched K2."""
+    cols = ("codes", "errors", "corrected", "steps")
+    for bench in ("matrixMultiply", "crc16"):
+        region = REGISTRY[bench]()
+        for strat in (TMR, DWC):
+            name = f"{bench} {strat.__name__}"
+            progs = {False: strat(region), True: strat(region,
+                                                       fuse_step=True)}
+            if progs[True]._fuse_plan is None:
+                fail(f"{name}: fuse_step=True built no fused plan")
+            runners = {f: CampaignRunner(p, strategy_name=strat.__name__)
+                       for f, p in progs.items()}
+            for f in (False, True):
+                runners[f].run(4096, seed=0, batch_size=4096)
+            rates = {False: [], True: []}
+            launches = {False: [0, 0], True: [0, 0]}
+            base = None
+            for i in range(pairs):
+                for f in ((False, True) if i % 2 == 0 else (True, False)):
+                    k1, k2 = hv.LAUNCHES, hc.LAUNCHES
+                    res = runners[f].run(16384, seed=1, batch_size=4096)
+                    launches[f][0] += hv.LAUNCHES - k1
+                    launches[f][1] += hc.LAUNCHES - k2
+                    rates[f].append(res.injections_per_sec)
+                    if base is None:
+                        base = res
+                    elif res.counts != base.counts or not all(
+                            np.array_equal(getattr(res, c), getattr(base, c))
+                            for c in cols):
+                        fail(f"{name}: fuse_step={f} records differ from "
+                             "the unfused engine's")
+            if strat is TMR and launches[True][1] <= 0:
+                fail(f"{name}: the fused campaigns launched K2 no time")
+            if launches[False][1] or (strat is DWC and launches[True][1]):
+                fail(f"{name}: K2 launched outside a fused TMR campaign")
+            wins = sum(f > u for u, f in zip(rates[False], rates[True]))
+            log(f"{name} {pairs} x 16384 inj at batch 4096 per engine: "
+                f"{base.counts}; records equal fused vs unfused; "
+                f"fused faster in {wins} of {pairs} pairs [{card}]")
+            for f, label in ((False, "unfused"), (True, "fused")):
+                log(f"  {label}: median "
+                    f"{statistics.median(rates[f]):.1f} inj/s, runs "
+                    f"{' / '.join(f'{r:.1f}' for r in rates[f])}; K1 "
+                    f"{launches[f][0]}, K2 {launches[f][1]} launches")
+
+
 def main() -> None:
     try:
         import torch
@@ -207,9 +395,12 @@ def main() -> None:
         from coast_tpu_torch.inject.campaign import CampaignRunner
         from coast_tpu_torch.models import REGISTRY
         from coast_tpu_torch.models.mm256 import order_sensitive
+        from coast_tpu_torch.ops import fused_step as fs
+        from coast_tpu_torch.ops import hopper_commit as hc
         from coast_tpu_torch.ops import hopper_voters as hv
         from coast_tpu_torch.ops import voters
         from coast_tpu_torch.ops.bitflip import noop_fault
+        from coast_tpu_torch.passes.dataflow_protection import _repair
     except ImportError as e:
         fail(f"coast_tpu_torch is not importable ({e}); run from the root of "
              "a checkout")
@@ -302,16 +493,42 @@ def main() -> None:
     log(f"matrixMultiply TMR: {mm.counts} {mm.injections_per_sec:.1f} inj/s "
         f"({mm.seconds:.2f} s), K1 launches {hv.LAUNCHES} [{card}]")
 
+    # 7. The fused engine and K2.
+    k2 = time_k2(torch, fs, hv, _repair, card)
+    k2["max_abs_err"] = max(k2["max_abs_err"], check_k2(torch, fs))
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    fused_path(torch, TMR, DWC, CampaignRunner, REGISTRY, hv, hc, card)
+    fused_launches = hc.LAUNCHES
+    if fused_launches <= 0 or hv.LAUNCHES <= 0:
+        fail("the fused path launched K1 or K2 no time")
+    big = TMR(region, fuse_step=True)
+    if big._fuse_plan is not None or big.fuse_plan_info.exact_dataflow:
+        fail("matrixMultiply1024 (float32 leaves) built a fused plan")
+    log("matrixMultiply1024 TMR fuse_step=True: no fused plan (float "
+        "leaves), the unfused program runs")
+
     log(json.dumps({"kernels": [{
         "name": "vote",
         "route": "cuda",
         "source": "coast_tpu_torch/csrc/vote.cu",
-        "replaces": "coast_tpu/ops/pallas_voters.py:86",
+        "replaces": "coast_tpu/ops/pallas_voters.py:87",
         "launches": main_launches,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "commit",
+        "route": "cuda",
+        "source": "coast_tpu_torch/csrc/commit.cu",
+        "replaces": "coast_tpu/ops/fused_step.py:373",
+        "launches": fused_launches,
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

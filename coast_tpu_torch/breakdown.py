@@ -5,7 +5,8 @@ once plain (its wall clock gives the rate) and once under ``torch.profiler``
 (device activity only).  It prints the device time of every kernel,
 grouped into the layers of the port: the region's product (cuBLAS), the
 region's and the engine's elementwise tensor work (copies, selects, casts,
-row indexing, the flip), and the K1 vote kernel.  The device's busy share is
+row indexing, the flip), and the K1 vote and K2 commit kernels
+(``--fuse-step`` runs the fused engine).  The device's busy share is
 the summed kernel time over the campaign's wall clock.  The JSON record
 goes to ``--out``.
 
@@ -30,6 +31,7 @@ from coast_tpu_torch.models import REGISTRY
 from coast_tpu_torch.passes import strategies
 
 LAYERS = (("K1 vote", ("vote_kernel",)),
+          ("K2 commit", ("commit_kernel",)),
           ("product (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
           ("memcpy/memset", ("memcpy", "memset")))
 SEED = 1   # the campaign seed chip_smoke.py uses
@@ -71,6 +73,8 @@ def main(argv=None) -> int:
                     choices=("TMR", "DWC", "unprotected"))
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--batch-size", type=int, default=128)
+    ap.add_argument("--fuse-step", action="store_true",
+                    help="run the fused engine (fuse_step=True)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -79,7 +83,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    prog = getattr(strategies, args.strategy)(REGISTRY[args.bench]())
+    prog = getattr(strategies, args.strategy)(REGISTRY[args.bench](),
+                                              fuse_step=args.fuse_step)
     runner = CampaignRunner(prog, strategy_name=args.strategy)
     runner.run(args.batch_size, seed=0, batch_size=args.batch_size)  # warm
     torch.cuda.synchronize()
@@ -105,7 +110,9 @@ def main(argv=None) -> int:
     for k in kernels:
         layers[k["layer"]] = layers.get(k["layer"], 0.0) + k["us"]
     record = {
-        "bench": args.bench, "strategy": args.strategy, "n": res.n,
+        "bench": args.bench, "strategy": args.strategy,
+        "fuse_step": args.fuse_step, "fused": prog._fuse_plan is not None,
+        "n": res.n,
         "batch_size": args.batch_size, "seed": SEED, "card": card,
         "wall_s": wall_s, "unprofiled_wall_s": plain_wall_s,
         "injections_per_sec": res.n / plain_wall_s,
@@ -116,7 +123,8 @@ def main(argv=None) -> int:
         "kernels": kernels[:25],
         "counts": res.counts,
     }
-    print(f"{args.bench} {args.strategy} n={res.n} batch={args.batch_size} "
+    print(f"{args.bench} {args.strategy} fused={record['fused']} "
+          f"n={res.n} batch={args.batch_size} "
           f"[{card}]: wall {wall_s:.4f} s profiled, {plain_wall_s:.4f} s "
           f"not; device busy {busy_us / 1e6:.4f} s "
           f"({record['device_busy_share']:.1%} of the profiled wall)")

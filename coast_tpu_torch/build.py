@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``csrc/`` at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface, loaded with ``ctypes``.  No
+a shared library with a plain C interface, loaded with ``ctypes``; the
+``csrc/*.cuh`` headers they share are part of every library's hash.  No
 PyTorch headers are involved, so a build takes seconds.  Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so a changed source is rebuilt and an unchanged one
@@ -48,6 +49,8 @@ def sources() -> List[str]:
 def _target(name: str) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -9,9 +9,10 @@
 //   DWC (n = 2): voted = l0,  mis = any(l0 != l1)
 //
 // over a replica set of R batch rows x n lanes x W 32-bit words.  Compares
-// are in the leaf's type: one instantiation compares as float (IEEE:
-// +0 == -0, NaN != NaN), one as int32 (int32 and uint32 leaves); the voted
-// word is always copied as raw bits.
+// are in the leaf's type (vote_word.cuh): one instantiation compares as
+// float (IEEE: +0 == -0, NaN != NaN, subnormal operands read as zero, as
+// the reference's XLA compare does), one as int32 (int32 and uint32
+// leaves); the voted word is always copied as raw bits.
 //
 // What bounds it: bytes.  It reads R*n*W*4 bytes and writes R*W*4 + 4*R;
 // it does no arithmetic worth counting, so its least time on an H100 is
@@ -39,25 +40,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vote_word.cuh"
+
 namespace {
 
-template <bool IS_FLOAT>
-__device__ __forceinline__ bool same(uint32_t a, uint32_t b) {
-  if (IS_FLOAT) return __uint_as_float(a) == __uint_as_float(b);
-  return a == b;
-}
-
-template <bool IS_FLOAT, int N>
-__device__ __forceinline__ uint32_t vote_word(uint32_t a, uint32_t b,
-                                              uint32_t c, bool& bad) {
-  const bool ab = same<IS_FLOAT>(a, b);
-  if (N == 3) {
-    bad |= !ab || !same<IS_FLOAT>(b, c);
-    return ab ? a : c;
-  }
-  bad |= !ab;
-  return a;
-}
+using coast::vote_word;
 
 template <bool IS_FLOAT, int N>
 __global__ void vote_kernel(const uint32_t* __restrict__ src,

@@ -20,4 +20,5 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "matrixMultiply256": _lazy("mm256"),
     "matrixMultiply1024": _lazy("mm256", "make_region_1024"),
     "matrixMultiply1024b512": _lazy("mm256", "make_region_1024_b512"),
+    "crc16": _lazy("crc16"),
 }

@@ -18,10 +18,11 @@ product runs in full float32, so importing this module pins it:
 A flip into a mantissa bit of ``first``, ``second`` or ``acc`` adds a
 non-integer term, and whether the row sum rounds back onto the golden then
 depends on the summation order, which differs between XLA, MKL and cuBLAS.
-The same flip into a zero entry makes a subnormal, which XLA's CPU backend
-(like the TPU) flushes to zero and torch keeps, so the boundary vote sees
-it in the port and not in the reference.  :func:`order_sensitive` names
-those rows; every other row is exact.
+The same flip into a zero entry makes a subnormal.  The port's voters read
+a subnormal as zero, as the reference's do (``ops/voters.py``), but the
+step's own float ops do not: XLA's CPU backend (like the TPU) flushes a
+subnormal operand of a product or sum and torch keeps it.
+:func:`order_sensitive` names those rows; every other row is exact.
 """
 
 from __future__ import annotations
@@ -180,7 +181,8 @@ def order_sensitive(leaf_order, leaf_id: np.ndarray,
                     bit: np.ndarray) -> np.ndarray:
     """Rows of a schedule whose record may legitimately differ between
     frameworks: a flip below the f32 exponent of ``first``, ``second`` or
-    ``acc`` (summation order, subnormal flush; module docstring)."""
+    ``acc`` (summation order, and the subnormal flush of the step's float
+    ops; module docstring)."""
     ids = [leaf_order.index(n) for n in ORDER_SENSITIVE_LEAVES
            if n in leaf_order]
     return np.isin(np.asarray(leaf_id), ids) & (np.asarray(bit)

@@ -7,7 +7,10 @@ bool [R])``.
 
 Compares are in the leaf's dtype: IEEE equality for float32 (``+0 == -0``,
 ``NaN != NaN``), as the reference does.  A bitwise compare would disagree
-with it on float leaves.
+with it on float leaves.  The reference's compare also treats subnormal
+inputs as zero (XLA flushes them on the CPU, and so does the TPU), so a
+float32 compare here reads each subnormal operand as zero (:func:`same`).
+The voted word is always a lane's raw bits.
 
 This is the plain version of the Hopper kernel in ``ops/hopper_voters.py``;
 the engine always calls that wrapper, which comes here only for a tensor
@@ -20,23 +23,38 @@ from typing import Tuple
 
 import torch
 
+_EXPONENT = 0x7F800000
+
 
 def _all_rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).all(dim=1)
 
 
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals -> 0.0; other words as they are."""
+    return torch.where((x.view(torch.int32) & _EXPONENT) == 0, 0.0, x)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Word-wise equality as the reference compares: int words exactly,
+    float32 words as IEEE floats with subnormal operands read as zero."""
+    if a.dtype.is_floating_point:
+        return _flush(a) == _flush(b)
+    return a == b
+
+
 def tmr_vote(lanes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``select(l0 == l1, l0, l2)``; miscompare when any lane disagreed."""
     l0, l1, l2 = lanes[:, 0], lanes[:, 1], lanes[:, 2]
-    agree01 = l0 == l1
+    agree01 = same(l0, l1)
     voted = torch.where(agree01, l0, l2)
-    miscompare = ~(_all_rows(agree01) & _all_rows(l1 == l2))
+    miscompare = ~(_all_rows(agree01) & _all_rows(same(l1, l2)))
     return voted, miscompare
 
 
 def dwc_check(lanes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Detection only: lane 0, and whether lanes 0 and 1 differ."""
-    return lanes[:, 0], ~_all_rows(lanes[:, 0] == lanes[:, 1])
+    return lanes[:, 0], ~_all_rows(same(lanes[:, 0], lanes[:, 1]))
 
 
 def vote(lanes: torch.Tensor,

@@ -20,13 +20,22 @@ a halted row is frozen, so a trip after it halts changes nothing.  A vote
 is pure, so votes nothing reads are not made: the views ``done()`` and the
 store-slice hint read are voted leaf by leaf on first read, and the final
 view reuses the boundary votes.
+
+``fuse_step=True`` builds the fused engine (``ops/fused_step.py``) when
+every leaf is integer: the latches packed into one word per row, the
+``done()`` view voted only on the leaves it reads, the freeze only on
+leaves a step can change, the bounded loop when ``max_steps ==
+nominal_steps``, and every TMR vote a repair follows (the pre-step load
+sync, the whole-leaf commit vote) as one fused commit, K2 on the card.
+Its run records equal the unfused engine's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Callable, Dict, FrozenSet, Iterator, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -35,7 +44,7 @@ from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.interop import fault_from_numpy
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO, Region,
                                        State, rows)
-from coast_tpu_torch.ops import bitflip, hopper_voters
+from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters
 from coast_tpu_torch.passes.verification import analyze, verify_options
 
 Flags = Dict[str, torch.Tensor]
@@ -54,7 +63,6 @@ _LATER_FIELDS = {
     "protected_lib_fns": "item 13 (function-scope wrappers)",
     "runtime_init_globals": "item 13 (the rest of passes/)",
     "cfcss": "item 13 (CFCSS)",
-    "fuse_step": "item 11 (the -fuseStep engine and K2)",
     "pallas_voters": "item 7: every vote on the card already runs the "
                      "Hopper K1 kernel; the TPU kernel switch has no "
                      "counterpart",
@@ -208,6 +216,24 @@ class ProtectedProgram:
         self.leaf_order = [n for n in region.spec if region.spec[n].inject]
         one = {k: v.unsqueeze(0) for k, v in image.items()}
         self.output_words = int(region.output(one).shape[1])
+        # Fused-step plan, made last so it sees the final sync tables.  It
+        # activates only for exact (integer) dataflow; a float region keeps
+        # the unfused program while cfg.fuse_step stays set.
+        self._fuse_plan: Optional[fused_step.FusePlan] = None
+        self.fuse_plan_info: Optional[fused_step.FusePlan] = None
+        if cfg.fuse_step:
+            self.fuse_plan_info = fused_step.build_plan(self)
+            if self.fuse_plan_info.exact_dataflow:
+                self._fuse_plan = self.fuse_plan_info
+
+    def unfused_twin(self) -> "ProtectedProgram":
+        """The same build with ``fuse_step`` off (itself when it is off).
+        The fused engine's records equal this twin's."""
+        if not self.cfg.fuse_step:
+            return self
+        return ProtectedProgram(
+            self.region, dataclasses.replace(self.cfg, fuse_step=False),
+            self.device)
 
     # -- the memory map's view ---------------------------------------------
     def lanes_of(self, name: str) -> int:
@@ -231,6 +257,9 @@ class ProtectedProgram:
             lead = (batch, n) if self.replicated[name] else (batch,)
             pstate[name] = arr.expand(*lead, *arr.shape).clone(
                 memory_format=torch.contiguous_format)
+
+        if self._fuse_plan is not None:
+            return pstate, fused_step.flags_init(batch, self.device)
 
         def zeros(dtype):
             return torch.zeros(batch, dtype=dtype, device=self.device)
@@ -318,26 +347,47 @@ class ProtectedProgram:
         return out, mis, active
 
     # -- one protected step -------------------------------------------------
+    def _halted(self, flags: Flags) -> torch.Tensor:
+        """Rows that stopped evolving: completed or aborted."""
+        if "latch" in flags:
+            return flags["latch"] != 0
+        return flags["done"] | flags["dwc_fault"]
+
+    def _vote_repair(self, lanes: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A TMR vote and the repair after it -> ``(repaired lanes, voted,
+        miscompare)``.  The fused engine makes both one fused commit (K2
+        on the card)."""
+        if self._fuse_plan is None:
+            voted, mis = self._vote(lanes, 3)
+            return _repair(voted, lanes.shape), voted, mis
+        return fused_step.vote_flip_commit(lanes, None, 3)
+
     def step(self, pstate: State, flags: Flags, t: int) -> Tuple[State, Flags]:
         cfg = self.cfg
         n = cfg.num_clones
-        batch = flags["done"].shape[0]
-        halted = flags["done"] | flags["dwc_fault"]
+        plan = self._fuse_plan
+        batch = flags["steps"].shape[0]
+        halted = self._halted(flags)
         region_state = dict(pstate)
         miscompares = []
         syncs = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        # Voted values of this step's commit votes (the fused done() view
+        # reuses them).
+        commits: Dict[str, torch.Tensor] = {}
 
         # Pre-step load sync: vote address-forming ctrl state before any
         # load in this step reads it; TMR repairs the lanes.
         if n > 1:
             for name in self.region.spec:
                 if self.pre_sync.get(name, False):
-                    voted, mis = self._vote(region_state[name], n)
+                    if n == 3:
+                        region_state[name], _, mis = self._vote_repair(
+                            region_state[name])
+                    else:
+                        _, mis = self._vote(region_state[name], n)
                     miscompares.append(mis)
                     syncs += 1
-                    if n == 3:
-                        region_state[name] = _repair(
-                            voted, region_state[name].shape)
 
         laned = self._run_lanes(region_state, t, batch)
         slice_view = (self._slice_view(region_state)
@@ -355,11 +405,12 @@ class ProtectedProgram:
                             name, out, written, hint, slice_view, t, batch)
                         syncs += (1 if active is None
                                   else active.to(torch.int32))
-                    else:
-                        voted, mis = self._vote(out, n)
+                    elif n == 3:
+                        out, commits[name], mis = self._vote_repair(out)
                         syncs += 1
-                        if n == 3:
-                            out = _repair(voted, out.shape)
+                    else:
+                        _, mis = self._vote(out, n)
+                        syncs += 1
                     miscompares.append(mis)
                 new_state[name] = out
             elif not written:
@@ -388,7 +439,11 @@ class ProtectedProgram:
         flags = dict(flags)
         if miscompares and n == 2:
             fault_now = ~halted & torch.stack(miscompares).any(dim=0)
-            flags["dwc_fault"] = flags["dwc_fault"] | fault_now
+            if plan is not None:
+                flags["latch"] = fused_step.latch_or(
+                    flags["latch"], fused_step.LATCH_DWC, fault_now)
+            else:
+                flags["dwc_fault"] = flags["dwc_fault"] | fault_now
         elif miscompares and n == 3 and cfg.count_errors:
             mis_cnt = torch.stack(miscompares).to(torch.int32).sum(dim=0)
             flags["tmr_cnt"] = flags["tmr_cnt"] + torch.where(
@@ -398,35 +453,54 @@ class ProtectedProgram:
                 halted, 0, syncs).to(torch.int32)
 
         # Terminator: done() on the voted view, before committing, so one
-        # corrupted lane cannot steer control flow.
+        # corrupted lane cannot steer control flow.  The fused view votes
+        # only the leaves done() reads and takes a fused commit's voted
+        # value as it is (a vote of the repaired lanes gives those bits).
         commit_halt = halted | fault_now
-        done_now = self.region.done(self.voted_view(new_state))
-        flags["done"] = flags["done"] | (~commit_halt & done_now)
+        if plan is None:
+            done_now = self.region.done(self.voted_view(new_state))
+            flags["done"] = flags["done"] | (~commit_halt & done_now)
+        else:
+            done_now = self.region.done(self.voted_view(
+                new_state, only=plan.done_leaves, votes=commits))
+            flags["latch"] = fused_step.latch_or(
+                flags["latch"], fused_step.LATCH_DONE, ~commit_halt & done_now)
         flags["steps"] = flags["steps"] + (~commit_halt).to(torch.int32)
 
         # Freeze halted rows: the row's image stops evolving the step it
-        # halts (and a DWC fault step never commits).
+        # halts (and a DWC fault step never commits).  The fused build
+        # freezes only the leaves a step can change and commits the rest's
+        # pre-step tensors.
         for name, new in new_state.items():
-            if new is not pstate[name]:
+            if plan is not None and name not in plan.frozen_leaves:
+                new_state[name] = pstate[name]
+            elif new is not pstate[name]:
                 new_state[name] = torch.where(rows(commit_halt, new),
                                               pstate[name], new)
         return new_state, flags
 
     # -- whole-program runners ---------------------------------------------
-    def voted_view(self, pstate: State) -> _LazyView:
+    def voted_view(self, pstate: State,
+                   only: Optional[FrozenSet[str]] = None,
+                   votes: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> _LazyView:
         """Lanes collapsed for the unprotected consumer of the state: TMR
-        votes, DWC reads lane 0.  Leaves are voted on first read."""
+        votes, DWC reads lane 0.  Leaves are voted on first read.  ``only``
+        (fused builds): leaves outside it read lane 0.  ``votes``: voted
+        values already made for these lanes, taken as they are."""
         def leaf(name, arr):
             if not self.replicated[name]:
                 return arr
-            if self.cfg.num_clones == 3:
+            if self.cfg.num_clones == 3 and (only is None or name in only):
+                if votes and name in votes:
+                    return votes[name]
                 return self._vote(arr, 3)[0]
             return arr[:, 0]
 
         return _LazyView(pstate, leaf)
 
     def _all_halted(self, flags: Flags) -> bool:
-        return bool((flags["done"] | flags["dwc_fault"]).all())
+        return bool(self._halted(flags).all())
 
     def run_batch(self, fault: Optional[Mapping[str, np.ndarray]] = None,
                   batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -454,14 +528,17 @@ class ProtectedProgram:
             fire_at = set(int(v) for v in fault["t"])
             fault_t = fault_from_numpy({"t": fault["t"]}, self.device)["t"]
 
+        # The bounded loop (fused, max_steps == nominal_steps) runs every
+        # trip with no host sync; the others stop once every row halted.
+        bounded = self._fuse_plan is not None and self._fuse_plan.bounded_scan
         for t in range(self.region.max_steps):
             if site and t in fire_at:
                 # No injection once halted: a flip into a finished or
                 # aborted row's frozen image would mis-classify it.
-                live = ~(flags["done"] | flags["dwc_fault"])
+                live = ~self._halted(flags)
                 bitflip.apply_site(pstate, site, (fault_t == t) & live)
             pstate, flags = self.step(pstate, flags, t)
-            if self._all_halted(flags):
+            if not bounded and self._all_halted(flags):
                 break
 
         # Region-boundary sync: every replicated leaf is compared/voted
@@ -469,6 +546,7 @@ class ProtectedProgram:
         # without a detected fault reaches it.  Its votes are the final
         # view.
         n = self.cfg.num_clones
+        fused = self._fuse_plan is not None
         view: Mapping[str, torch.Tensor] = pstate
         if n > 1:
             view = dict(pstate)
@@ -477,13 +555,22 @@ class ProtectedProgram:
                 if self.replicated[name]:
                     view[name], m = self._vote(arr, n)
                     mis_cnt += m.to(torch.int32)
-            reached_call = flags["done"] & ~flags["dwc_fault"]
+            # The packed latch makes the gate one compare: done set and no
+            # fault bit.
+            reached_call = (flags["latch"] == fused_step.LATCH_DONE_ONLY
+                            if fused else flags["done"] & ~flags["dwc_fault"])
             if n == 2:
-                flags["dwc_fault"] = flags["dwc_fault"] | (reached_call
-                                                           & (mis_cnt > 0))
+                bad = reached_call & (mis_cnt > 0)
+                if fused:
+                    flags["latch"] = fused_step.latch_or(
+                        flags["latch"], fused_step.LATCH_DWC, bad)
+                else:
+                    flags["dwc_fault"] = flags["dwc_fault"] | bad
             elif self.cfg.count_errors:
                 flags["tmr_cnt"] = flags["tmr_cnt"] + torch.where(
                     reached_call, mis_cnt, 0).to(torch.int32)
+        if fused:
+            flags = fused_step.unpack_latch(flags)
 
         no = torch.zeros(batch, dtype=torch.bool, device=self.device)
         return {
@@ -493,9 +580,9 @@ class ProtectedProgram:
             "sync_count": flags["sync_cnt"],
             "done": flags["done"],
             "dwc_fault": flags["dwc_fault"],
-            "cfc_fault": no,
-            "stack_fault": no,
-            "assert_fault": no,
+            "cfc_fault": flags.get("cfc_fault", no),
+            "stack_fault": flags.get("stack_fault", no),
+            "assert_fault": flags.get("assert_fault", no),
             "output": self.region.output(view),
         }
 

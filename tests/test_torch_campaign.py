@@ -3,8 +3,9 @@ port's package rules.
 
 ``CampaignRunner(prog).run(256, seed=3, batch_size=64)`` of the port must
 give the reference's codes, errors, corrected and steps arrays and counts
-dict: exact on mm under every strategy, exact on the mm256 family outside
-the rows a float32 summation order may decide (``mm256.order_sensitive``).
+dict: exact on mm and crc16 under every strategy, exact on the mm256 family
+outside the rows a float32 summation order may decide
+(``mm256.order_sensitive``).
 """
 
 import os
@@ -18,10 +19,11 @@ import torch
 import coast_tpu
 import coast_tpu_torch as ct
 from coast_tpu.inject.campaign import CampaignRunner as JCampaignRunner
+from coast_tpu.models import crc16 as jcrc16
 from coast_tpu.models import mm as jmm
 from coast_tpu.models import mm256 as jmm256
 from coast_tpu_torch.inject.campaign import CampaignRunner
-from coast_tpu_torch.models import mm, mm256
+from coast_tpu_torch.models import crc16, mm, mm256
 
 # The suite runs under xdist, several workers to a host: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -35,12 +37,13 @@ REGIONS = {
     "mm256_128_bf16": (
         lambda: jmm256.make_region(side=128, block=32, bf16_matmul=True),
         lambda: mm256.make_region(side=128, block=32, bf16_matmul=True)),
+    "crc16": (jcrc16.make_region, crc16.make_region),
 }
 STRATEGIES = {"unprotected": (coast_tpu.unprotected, ct.unprotected),
               "DWC": (coast_tpu.DWC, ct.DWC),
               "TMR": (coast_tpu.TMR, ct.TMR)}
 COLUMNS = ("codes", "errors", "corrected", "steps")
-CASES = ([("mm", s, 256) for s in sorted(STRATEGIES)]
+CASES = ([(r, s, 256) for r in ("mm", "crc16") for s in sorted(STRATEGIES)]
          + [(r, s, 256) for r in ("mm256_64", "mm256_128_bf16")
             for s in ("DWC", "TMR")]
          + [("mm", "TMR", 200), ("mm256_64", "DWC", 200)])   # ragged tail
@@ -60,7 +63,7 @@ def test_campaign_parity(region, strategy, n):
         np.testing.assert_array_equal(getattr(res.schedule, col),
                                       getattr(ref.schedule, col))
     exempt = np.zeros(n, bool)
-    if region != "mm":
+    if region.startswith("mm256"):
         exempt = mm256.order_sensitive(prog.leaf_order, res.schedule.leaf_id,
                                        res.schedule.bit)
     for col in COLUMNS:

@@ -1,8 +1,8 @@
 """The PyTorch port's regions, memory map and schedules against the JAX
 reference.
 
-For mm, mm256(side=64, block=16) and mm256(side=128, block=32, bf16):
-the init image (through ``interop``), the leaf order, the injectable
+For mm, mm256(side=64, block=16), mm256(side=128, block=32, bf16) and
+crc16: the init image (through ``interop``), the leaf order, the injectable
 sections, the declared dataflow (against the reference's ``analyze()``)
 and the fault-free unprotected final state must be equal, bit for bit;
 so must the memory map and the seeded schedule columns.
@@ -19,6 +19,7 @@ import coast_tpu_torch as ct
 from coast_tpu.inject.mem import MemoryMap as JMemoryMap
 from coast_tpu.inject.schedule import generate as jgenerate
 from coast_tpu.models import common as jcommon
+from coast_tpu.models import crc16 as jcrc16
 from coast_tpu.models import mm as jmm
 from coast_tpu.models import mm256 as jmm256
 from coast_tpu.native import splitmix_fill as jsplitmix_fill
@@ -28,7 +29,7 @@ from coast_tpu_torch.inject.mem import MemoryMap
 from coast_tpu_torch.inject.schedule import generate, splitmix_fill
 from coast_tpu_torch.interop import (fault_from_numpy, state_from_numpy,
                                      state_to_numpy)
-from coast_tpu_torch.models import REGISTRY, common, mm, mm256
+from coast_tpu_torch.models import REGISTRY, common, crc16, mm, mm256
 from coast_tpu_torch.ops import indexing
 from coast_tpu_torch.passes.verification import SoRViolation, analyze
 
@@ -43,6 +44,7 @@ REGIONS = {
     "mm256_128_bf16": (
         lambda: jmm256.make_region(side=128, block=32, bf16_matmul=True),
         lambda: mm256.make_region(side=128, block=32, bf16_matmul=True)),
+    "crc16": (jcrc16.make_region, crc16.make_region),
 }
 STRATEGIES = {"unprotected": (coast_tpu.unprotected, ct.unprotected),
               "DWC": (coast_tpu.DWC, ct.DWC),
@@ -136,8 +138,10 @@ def test_registry_names_match_reference():
     from coast_tpu.models import REGISTRY as JREGISTRY
     assert set(REGISTRY) <= set(JREGISTRY)
     assert set(REGISTRY) == {"matrixMultiply", "matrixMultiply256",
-                             "matrixMultiply1024", "matrixMultiply1024b512"}
+                             "matrixMultiply1024", "matrixMultiply1024b512",
+                             "crc16"}
     assert REGISTRY["matrixMultiply"]().name == "matrixMultiply"
+    assert REGISTRY["crc16"]().name == "crc16"
 
 
 @pytest.mark.parametrize("i", [-20, -9, -3, -1, 0, 4, 8, 9, 17, 2**31 - 1,
@@ -197,8 +201,9 @@ def test_scope_lists_verified_like_reference():
 def test_unported_features_refuse_with_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 15"):
         ct.LeafSpec(kind="stack")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ct.ProtectionConfig(fuse_step=True)
+    assert ct.ProtectionConfig(fuse_step=True).fuse_step    # item 11 landed
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ct.ProtectionConfig(protect_stack=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         ct.ProtectionConfig(cfcss=True)
     with pytest.raises(NotImplementedError):

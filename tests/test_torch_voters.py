@@ -96,17 +96,25 @@ def test_float_specials_follow_ieee():
 
 
 def test_subnormals_compare_exactly_unlike_the_xla_cpu_reference():
-    # A known divergence (ROADMAP Queue C): XLA's CPU backend flushes
-    # subnormals, so the reference votes a subnormal equal to 0.0; the
-    # port, on the CPU and on the card, compares IEEE-exactly.
-    arr = np.zeros((1, 3, 4), np.float32)
-    arr[0, 1, 2] = np.float32(2.2959e-41)           # bit 14 of +0.0
-    assert bits(arr)[0, 1, 2] == 1 << 14
-    voted, mis = voters.vote(to_port(arr), 3)
-    assert mis.tolist() == [True]
-    assert bits(voted)[0, 2] == 0                  # lanes 0 and 2 agree
-    _, ref_mis = reference(arr, 3)
-    assert ref_mis.tolist() == [False]
+    # The name records the divergence this test once pinned (ROADMAP
+    # Queue C): the reference's compare reads subnormal operands as zero
+    # (XLA flushes them on the CPU, as the TPU does), and the port's voters
+    # now do the same, so a mantissa flip of a zero word agrees.  The voted
+    # word keeps its raw bits.
+    arr = np.zeros((5, 3, 4), np.float32)
+    words = arr.view(np.uint32)
+    words[0, 1, 2] = 1 << 14                 # bit 14 of +0.0 in lane 1
+    words[1, 0, 1] = 7                       # lane 0 subnormal: voted raw
+    words[2, 2, 3] = 0x80000001              # -subnormal in lane 2
+    words[3, 0, 0], words[3, 1, 0] = 0x00000300, 0x80000005   # two of them
+    words[4, 1, 3] = 0x00800000              # the smallest normal differs
+    for n in (2, 3):
+        ref_voted, ref_mis = reference(arr[:, :n], n)
+        voted, mis = voters.vote(to_port(arr[:, :n]), n)
+        np.testing.assert_array_equal(bits(voted), bits(ref_voted))
+        np.testing.assert_array_equal(mis.numpy(), ref_mis)
+    assert ref_mis.tolist() == [False, False, False, False, True]
+    assert bits(ref_voted)[1, 1] == 7 and bits(ref_voted)[3, 0] == 0x300
 
 
 @pytest.mark.parametrize("n", [2, 3])
