@@ -6,9 +6,10 @@ once plain (its wall clock gives the rate) and once under ``torch.profiler``
 grouped into the layers of the port: the region's product (cuBLAS), the
 region's and the engine's elementwise tensor work (copies, selects, casts,
 row indexing, the flip), and the K1 vote and K2 commit kernels
-(``--fuse-step`` runs the fused engine).  The device's busy share is
-the summed kernel time over the campaign's wall clock.  The JSON record
-goes to ``--out``.
+(``--fuse-step`` runs the fused engine), each kernel layer with its
+launches a loop trip (one grouped launch per sync point that has sites).
+The device's busy share is the summed kernel time over the campaign's
+wall clock.  The JSON record goes to ``--out``.
 
     python3 -m coast_tpu_torch.breakdown --bench matrixMultiply1024 \\
         --strategy TMR --n 256 --batch-size 128 --out breakdown.json
@@ -28,8 +29,13 @@ import torch
 from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.inject.campaign import CampaignRunner
 from coast_tpu_torch.models import REGISTRY
+from coast_tpu_torch.ops import hopper_commit, hopper_voters
 from coast_tpu_torch.passes import strategies
 
+_WRAPPERS = (("K1 vote", hopper_voters), ("K2 commit", hopper_commit))
+
+# Kernel names: csrc/vote.cu ``vote_kernel<N>``, csrc/commit.cu
+# ``commit_kernel<N>``; ``LAUNCHES`` is their wrappers' launch count.
 LAYERS = (("K1 vote", ("vote_kernel",)),
           ("K2 commit", ("commit_kernel",)),
           ("product (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
@@ -95,11 +101,22 @@ def main(argv=None) -> int:
     # Device activity only: host-side op tracing would slow the host and
     # move the busy share it is meant to show.
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    trips = [0]
+    step = prog.step
+
+    def counting(*a):
+        trips[0] += 1
+        return step(*a)
+
+    prog.step = counting
+    before = {layer: mod.LAUNCHES for layer, mod in _WRAPPERS}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         res = runner.run(args.n, seed=SEED, batch_size=args.batch_size)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    launches = {layer: mod.LAUNCHES - before[layer]
+                for layer, mod in _WRAPPERS}
     kernels = kernel_times(prof)
     busy_us = sum(k["us"] for k in kernels)
     if busy_us <= 0:
@@ -122,6 +139,8 @@ def main(argv=None) -> int:
             layers.items(), key=lambda kv: -kv[1])},
         "kernels": kernels[:25],
         "counts": res.counts,
+        "loop_trips": trips[0],
+        "launches": launches,
     }
     print(f"{args.bench} {args.strategy} fused={record['fused']} "
           f"n={res.n} batch={args.batch_size} "
@@ -129,8 +148,13 @@ def main(argv=None) -> int:
           f"not; device busy {busy_us / 1e6:.4f} s "
           f"({record['device_busy_share']:.1%} of the profiled wall)")
     for layer, s in record["layers_s"].items():
-        print(f"  {layer:24s} {s:.4f} s  {s / (busy_us / 1e6):6.1%} of "
-              "device time")
+        line = (f"  {layer:24s} {s:.4f} s  {s / (busy_us / 1e6):6.1%} of "
+                "device time")
+        if layer in launches:
+            line += (f", {launches[layer]} launches, "
+                     f"{launches[layer] / max(1, trips[0]):.2f} a loop trip "
+                     f"({trips[0]} trips)")
+        print(line)
     for k in kernels[:12]:
         print(f"    {k['us'] / 1e3:10.3f} ms  x{k['count']:<6d} "
               f"{k['kernel'][:90]}")

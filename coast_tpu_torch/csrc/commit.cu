@@ -1,10 +1,12 @@
-// K2 for Hopper: the fused commit -- flip, vote, repair in one pass.
+// K2 for Hopper: the fused commit -- flip, vote, repair in one pass, one
+// grouped launch per sync point.
 //
 // Replaces the Pallas TPU kernel coast_tpu/ops/fused_step.py
 // `_commit_kernel` (launched by `_vote_flip_call`).  It computes what that
-// kernel computes, for a whole campaign batch in one launch, over a replica
-// set of R batch rows x n lanes x W 32-bit words and an optional flip mask
-// of the same shape:
+// kernel computes, for a whole campaign batch and for every replica set
+// ("site") of one engine sync point in one launch, over each site's R batch
+// rows x n lanes x W 32-bit words and an optional flip mask of the same
+// shape:
 //
 //   f = lanes ^ mask                                   (every lane)
 //   TMR (n = 3): voted = (f0 == f1) ? f0 : f2,  repaired[l] = voted,
@@ -13,35 +15,35 @@
 //
 // Compares are those of K1 (vote_word.cuh): float32 as IEEE floats with
 // subnormal operands read as zero, int words as integers; every output word
-// is raw bits.
+// is raw bits.  Sites of one launch may differ in width, type and mask.
 //
-// What bounds it: bytes.  Without a mask it reads n*W words and writes
-// (n + 1)*W per row (TMR: 3W in, 4W out), with a mask it reads 2n*W; it does
-// no arithmetic worth counting, so its least time on an H100 is those bytes
-// / 3.35 TB/s.  The design follows from that:
-//   * each thread moves 4 consecutive words of every lane with 16-byte
-//     loads and stores when they are 16-byte aligned, neighbouring threads on
-//     neighbouring addresses (a scalar tail otherwise), so the voted value is
-//     written to all n lanes and to `voted` from registers: the repair
-//     broadcast costs no second read;
-//   * grid = (ceil(W / (threads*4)), R): the whole batch is one launch, the
-//     batch axis the TPU kernel got from vmap is written out;
-//   * the miscompare flag: the TPU kernel writes an (8,128) flag block per
-//     grid step and the host ORs them.  Here blocks run in parallel in no
-//     order, so each block reduces its flag with __syncthreads_or and issues
-//     at most one atomicOr(&mis[r], 1);
-//   * HAS_MASK is a template flag: the engine flips sparsely before the
-//     step and calls K2 with no mask, and that instantiation reads no mask
-//     bytes;
-//   * no shape gate: any W runs (the engine's leaves are 1 to 81 words).
+// What bounds it: bytes.  Without a mask a site reads n*W words and writes
+// (n + 1)*W per row (TMR: 3W in, 4W out) and a flag word; a mask adds n*W
+// words read.  It does no arithmetic worth counting, so its least time on
+// an H100 is those bytes / 3.35 TB/s.  At the fused engine's shapes the
+// sites are small (an 81-word leaf and scalar control words at batch 4096),
+// where a launch per site and its host work cost far more than the bytes.
+// The design follows from that:
+//   * one launch per sync point: a table of up to 16 sites passed by value,
+//     walked by a flat block index, with the row-group path for small sites
+//     and the 16-byte tile path for wide ones (vote_word.cuh);
+//   * flags are written by the kernel as a 0/1 int32 [S, R] block: a plain
+//     store per row on the row-group path; on the tile path an atomicOr per
+//     block into words the launcher zeroes with one cudaMemsetAsync;
+//   * each thread holds the voted words in registers and stores them to
+//     every lane and to `voted`: the repair broadcast costs no second read;
+//   * HAS_MASK is chosen per site: the engine flips sparsely before the step
+//     and commits with no mask, and that path reads no mask bytes.
 //
-// `repaired` is a buffer of its own, never the input: the engine keeps the
-// pre-step image to freeze halted rows, and a later in-place flip must hit
-// one lane only.
+// `out` (the repaired lanes) is a buffer of its own, never the input: the
+// engine keeps the pre-step image to freeze halted rows, and a later
+// in-place flip must hit one lane only.
 //
 // C interface for ctypes (no PyTorch headers, so nvcc builds it in
-// seconds).  The caller allocates `repaired` [R, n, W] and `voted` [R, W],
-// and zeroes `mis` [R].  Returns cudaGetLastError() after the launch.
+// seconds): coast_commit_sites(sites, count, rows, n, device, stream) takes
+// a host array of coast::Site with dense lanes (lane_stride = W, row_stride
+// = n*W, no offsets), `out` and `voted` already allocated.  Returns
+// cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +52,9 @@
 
 namespace {
 
+using coast::Site;
+using coast::Table;
+using coast::kThreads;
 using coast::vote_word;
 
 __device__ __forceinline__ uint4 load4(const uint32_t* p) {
@@ -64,141 +69,147 @@ __device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
 }
 
+// One word i of row r: flip, vote, write voted and the repaired lanes.
 template <bool IS_FLOAT, int N, bool HAS_MASK>
-__global__ void commit_kernel(const uint32_t* __restrict__ src,
-                              const uint32_t* __restrict__ masks,
-                              uint32_t* __restrict__ repaired,
-                              uint32_t* __restrict__ voted,
-                              int* __restrict__ mis, int rows,
-                              long long width) {
-  const long long i0 =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
-    const long long base = static_cast<long long>(r) * N * width;
-    const uint32_t* l0 = src + base;
-    const uint32_t* l1 = l0 + width;
-    const uint32_t* l2 = N == 3 ? l1 + width : l1;
-    const uint32_t* m0 = HAS_MASK ? masks + base : nullptr;
-    uint32_t* o0 = repaired + base;
-    uint32_t* out = voted + static_cast<long long>(r) * width;
-    bool bad = false;
-    // The lanes of a row lie width words apart, and so do the masks' and
-    // the outputs': every pointer below is aligned when these are and
-    // width is a multiple of 4.
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(l0 + i0) |
-                           reinterpret_cast<uintptr_t>(o0 + i0) |
-                           reinterpret_cast<uintptr_t>(out + i0) |
-                           (HAS_MASK ? reinterpret_cast<uintptr_t>(m0 + i0)
-                                     : 0) |
-                           static_cast<uintptr_t>(width * 4);
-    if (i0 + 4 <= width && (addr & 15) == 0) {
-      uint4 a = load4(l0 + i0);
-      uint4 b = load4(l1 + i0);
-      uint4 c = N == 3 ? load4(l2 + i0) : b;
-      if (HAS_MASK) {
-        a = xor4(a, load4(m0 + i0));
-        b = xor4(b, load4(m0 + width + i0));
-        if (N == 3) c = xor4(c, load4(m0 + 2 * width + i0));
-      }
-      uint4 v;
-      v.x = vote_word<IS_FLOAT, N>(a.x, b.x, c.x, bad);
-      v.y = vote_word<IS_FLOAT, N>(a.y, b.y, c.y, bad);
-      v.z = vote_word<IS_FLOAT, N>(a.z, b.z, c.z, bad);
-      v.w = vote_word<IS_FLOAT, N>(a.w, b.w, c.w, bad);
-      store4(out + i0, v);
-      if (N == 3) {
-        store4(o0 + i0, v);
-        store4(o0 + width + i0, v);
-        store4(o0 + 2 * width + i0, v);
-      } else {
-        store4(o0 + i0, a);
-        store4(o0 + width + i0, b);
-      }
-    } else {
-      for (int j = 0; j < 4; ++j) {
-        const long long i = i0 + j;
-        if (i < width) {
-          uint32_t a = l0[i];
-          uint32_t b = l1[i];
-          uint32_t c = N == 3 ? l2[i] : b;
-          if (HAS_MASK) {
-            a ^= m0[i];
-            b ^= m0[width + i];
-            if (N == 3) c ^= m0[2 * width + i];
-          }
-          const uint32_t v = vote_word<IS_FLOAT, N>(a, b, c, bad);
-          out[i] = v;
-          if (N == 3) {
-            o0[i] = v;
-            o0[width + i] = v;
-            o0[2 * width + i] = v;
-          } else {
-            o0[i] = a;
-            o0[width + i] = b;
-          }
-        }
-      }
-    }
-    // Every thread of the block reaches this (the row loop is uniform).
-    if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(mis + r, 1);
+__device__ __forceinline__ void commit_word(const uint32_t* l0,
+                                            const uint32_t* m0, uint32_t* o0,
+                                            uint32_t* out, long long w,
+                                            long long i, bool& bad) {
+  uint32_t a = l0[i];
+  uint32_t b = l0[w + i];
+  uint32_t c = N == 3 ? l0[2 * w + i] : b;
+  if (HAS_MASK) {
+    a ^= m0[i];
+    b ^= m0[w + i];
+    if (N == 3) c ^= m0[2 * w + i];
+  }
+  const uint32_t v = vote_word<IS_FLOAT, N>(a, b, c, bad);
+  out[i] = v;
+  if (N == 3) {
+    o0[i] = v;
+    o0[w + i] = v;
+    o0[2 * w + i] = v;
+  } else {
+    o0[i] = a;
+    o0[w + i] = b;
   }
 }
 
-template <bool IS_FLOAT, int N>
-void launch_n(bool has_mask, dim3 grid, int threads, cudaStream_t stream,
-              const uint32_t* src, const uint32_t* masks, uint32_t* repaired,
-              uint32_t* voted, int* mis, int rows, long long width) {
-  if (has_mask)
-    commit_kernel<IS_FLOAT, N, true><<<grid, threads, 0, stream>>>(
-        src, masks, repaired, voted, mis, rows, width);
-  else
-    commit_kernel<IS_FLOAT, N, false><<<grid, threads, 0, stream>>>(
-        src, nullptr, repaired, voted, mis, rows, width);
+template <bool IS_FLOAT, int N, bool HAS_MASK>
+__device__ void commit_rows(const Site& s, long long lb, int rows) {
+  const long long r = coast::group_row(s, lb);
+  const long long w = s.width;
+  bool bad = false;
+  if (r < rows) {
+    const long long base = r * N * w;
+    const uint32_t* m0 = HAS_MASK ? s.mask + base : nullptr;
+    for (long long i = threadIdx.x & (s.group - 1); i < w; i += s.group)
+      commit_word<IS_FLOAT, N, HAS_MASK>(s.src + base, m0, s.out + base,
+                                         s.voted + r * w, w, i, bad);
+  }
+  coast::store_group_flag(s, r, rows, bad);
 }
 
-template <bool IS_FLOAT>
-void launch(int n_lanes, bool has_mask, dim3 grid, int threads,
-            cudaStream_t stream, const uint32_t* src, const uint32_t* masks,
-            uint32_t* repaired, uint32_t* voted, int* mis, int rows,
-            long long width) {
-  if (n_lanes == 3)
-    launch_n<IS_FLOAT, 3>(has_mask, grid, threads, stream, src, masks,
-                          repaired, voted, mis, rows, width);
+template <bool IS_FLOAT, int N, bool HAS_MASK>
+__device__ void commit_tile(const Site& s, long long lb) {
+  long long r, i0;
+  coast::tile_of(s, lb, r, i0);
+  const long long w = s.width;
+  const long long base = r * N * w;
+  const uint32_t* l0 = s.src + base;
+  const uint32_t* m0 = HAS_MASK ? s.mask + base : nullptr;
+  uint32_t* o0 = s.out + base;
+  uint32_t* out = s.voted + r * w;
+  bool bad = false;
+  // The lanes of a row lie w words apart, and so do the masks' and the
+  // outputs': every pointer below is aligned when these are and w is a
+  // multiple of 4.
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(l0 + i0) |
+                         reinterpret_cast<uintptr_t>(o0 + i0) |
+                         reinterpret_cast<uintptr_t>(out + i0) |
+                         (HAS_MASK ? reinterpret_cast<uintptr_t>(m0 + i0)
+                                   : 0) |
+                         static_cast<uintptr_t>(w * 4);
+  if (i0 + 4 <= w && (addr & 15) == 0) {
+    uint4 a = load4(l0 + i0);
+    uint4 b = load4(l0 + w + i0);
+    uint4 c = N == 3 ? load4(l0 + 2 * w + i0) : b;
+    if (HAS_MASK) {
+      a = xor4(a, load4(m0 + i0));
+      b = xor4(b, load4(m0 + w + i0));
+      if (N == 3) c = xor4(c, load4(m0 + 2 * w + i0));
+    }
+    uint4 v;
+    v.x = vote_word<IS_FLOAT, N>(a.x, b.x, c.x, bad);
+    v.y = vote_word<IS_FLOAT, N>(a.y, b.y, c.y, bad);
+    v.z = vote_word<IS_FLOAT, N>(a.z, b.z, c.z, bad);
+    v.w = vote_word<IS_FLOAT, N>(a.w, b.w, c.w, bad);
+    store4(out + i0, v);
+    if (N == 3) {
+      store4(o0 + i0, v);
+      store4(o0 + w + i0, v);
+      store4(o0 + 2 * w + i0, v);
+    } else {
+      store4(o0 + i0, a);
+      store4(o0 + w + i0, b);
+    }
+  } else {
+    for (long long i = i0; i < i0 + 4 && i < w; ++i)
+      commit_word<IS_FLOAT, N, HAS_MASK>(l0, m0, o0, out, w, i, bad);
+  }
+  // The whole block works on this site (block-uniform branch).
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(s.flag + r, 1);
+}
+
+template <bool IS_FLOAT, int N, bool HAS_MASK>
+__device__ __forceinline__ void commit_site(const Site& s, long long lb,
+                                            int rows) {
+  if (s.group)
+    commit_rows<IS_FLOAT, N, HAS_MASK>(s, lb, rows);
   else
-    launch_n<IS_FLOAT, 2>(has_mask, grid, threads, stream, src, masks,
-                          repaired, voted, mis, rows, width);
+    commit_tile<IS_FLOAT, N, HAS_MASK>(s, lb);
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    commit_kernel(const __grid_constant__ Table t) {
+  const long long b = blockIdx.x;
+  const Site& s = coast::site_of(t, b);
+  const long long lb = b - s.first_block;
+  if (s.is_float) {
+    if (s.mask)
+      commit_site<true, N, true>(s, lb, t.rows);
+    else
+      commit_site<true, N, false>(s, lb, t.rows);
+  } else if (s.mask) {
+    commit_site<false, N, true>(s, lb, t.rows);
+  } else {
+    commit_site<false, N, false>(s, lb, t.rows);
+  }
 }
 
 }  // namespace
 
-extern "C" int coast_commit(const void* src, const void* masks,
-                            void* repaired, void* voted, int* mis, int rows,
-                            int n_lanes, long long width, int is_float,
-                            int device, void* stream) {
-  if (rows <= 0 || width <= 0 || (n_lanes != 2 && n_lanes != 3))
+extern "C" int coast_commit_sites(const Site* sites, int count, int rows,
+                                  int n_lanes, int device, void* stream) {
+  if ((n_lanes != 2 && n_lanes != 3) || count <= 0 ||
+      count > coast::kMaxSites)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Small leaves (the scalar control words, the 81-word results) get a
-  // narrow block; large ones 256 threads x 4 words.
-  int threads = 32;
-  while (threads < 256 && static_cast<long long>(threads) * 4 < width)
-    threads *= 2;
-  const long long per_block = static_cast<long long>(threads) * 4;
-  const long long bx = (width + per_block - 1) / per_block;
-  if (bx > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(bx),
-                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
-  const auto* s = static_cast<const uint32_t*>(src);
-  const auto* m = static_cast<const uint32_t*>(masks);
-  auto* rep = static_cast<uint32_t*>(repaired);
-  auto* v = static_cast<uint32_t*>(voted);
+  for (int i = 0; i < count; ++i) {
+    const Site& s = sites[i];
+    if (!s.out || !s.voted || s.offsets || s.lane_stride != s.width ||
+        s.row_stride != n_lanes * s.width)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Table t;
+  long long blocks = 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (is_float)
-    launch<true>(n_lanes, m != nullptr, grid, threads, st, s, m, rep, v, mis,
-                 rows, width);
+  const int err = coast::prepare(sites, count, rows, device, st, &t, &blocks);
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (n_lanes == 3)
+    commit_kernel<3><<<grid, kThreads, 0, st>>>(t);
   else
-    launch<false>(n_lanes, m != nullptr, grid, threads, st, s, m, rep, v, mis,
-                  rows, width);
+    commit_kernel<2><<<grid, kThreads, 0, st>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

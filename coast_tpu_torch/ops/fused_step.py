@@ -31,18 +31,20 @@ False): the reference measured that any restructuring of a float program
 can re-round it, so it fuses only exact (integer) dataflow, and the port
 follows it.
 
-:func:`vote_flip_commit` is the data plane: the per-site XOR flip, the
-vote or compare, the miscompare flag and the TMR repair broadcast in one
-pass.  On the card it is K2 (``ops/hopper_commit.py``,
-``csrc/commit.cu``); for a CPU tensor it is :func:`plain_vote_flip_commit`.
-The engine calls it at every TMR vote a repair follows: the pre-step load
-sync and the whole-leaf commit vote.
+:func:`commit_sites` is the data plane: the per-site XOR flip, the vote
+or compare, the miscompare flag and the TMR repair broadcast in one pass,
+for every replica set of one sync point.  On the card it is one K2 launch
+(``ops/hopper_commit.py``, ``csrc/commit.cu``); for a CPU tensor it is
+:func:`plain_commit_sites`.  The engine calls it once at each sync point
+whose TMR votes a repair follows: the pre-step load sync and the
+whole-leaf commit votes.  :func:`vote_flip_commit` is a group of one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, Iterator, Mapping, Optional, Set, Tuple
+from typing import (Dict, FrozenSet, Iterator, List, Mapping, Optional,
+                    Sequence, Set, Tuple)
 
 import torch
 
@@ -215,4 +217,30 @@ def vote_flip_commit(lanes: torch.Tensor, masks: Optional[torch.Tensor],
     raises."""
     if lanes.device.type == "cpu":
         return plain_vote_flip_commit(lanes, masks, num_clones)
-    return hopper_commit.launch(lanes, masks, num_clones)
+    (repaired,), (voted,), flags = hopper_commit.commit_sites(
+        [(lanes, masks)], num_clones)
+    return repaired, voted, flags[0].bool()
+
+
+def plain_commit_sites(sites: Sequence[hopper_commit.CommitSite],
+                       num_clones: int
+                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                  torch.Tensor]:
+    """K2's plain version over a group: :func:`plain_vote_flip_commit` per
+    ``(lanes, masks)`` site, the flags as one int32 ``[S, R]`` block."""
+    outs = [plain_vote_flip_commit(lanes, masks, num_clones)
+            for lanes, masks in sites]
+    return ([o[0] for o in outs], [o[1] for o in outs],
+            torch.stack([o[2] for o in outs]).to(torch.int32))
+
+
+def commit_sites(sites: Sequence[hopper_commit.CommitSite], num_clones: int
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                            torch.Tensor]:
+    """Fused commit of every ``(lanes, masks)`` site of one sync point ->
+    ``(repaired per site, voted per site, flags int32 [S, R])``, each as
+    :func:`vote_flip_commit` gives it.  A CPU tensor takes the plain
+    version; a CUDA tensor makes one K2 launch or raises."""
+    if sites[0][0].device.type == "cpu":
+        return plain_commit_sites(sites, num_clones)
+    return hopper_commit.commit_sites(sites, num_clones)

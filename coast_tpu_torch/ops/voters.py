@@ -14,12 +14,13 @@ The voted word is always a lane's raw bits.
 
 This is the plain version of the Hopper kernel in ``ops/hopper_voters.py``;
 the engine always calls that wrapper, which comes here only for a tensor
-that lies on the CPU.
+that lies on the CPU.  :func:`vote_sites` is the plain version of one
+grouped launch: every replica set of one sync point, one flag row each.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,3 +77,39 @@ def window(leaf: torch.Tensor, offsets: torch.Tensor,
     start = offsets.to(torch.int64).clamp(0, leaf.shape[2] - width)
     idx = start[:, None] + torch.arange(width, device=leaf.device)
     return leaf.gather(2, idx[:, None, :].expand(-1, leaf.shape[1], -1))
+
+
+class Site(NamedTuple):
+    """One replica set of a grouped vote (:func:`vote_sites`).
+
+    ``lanes`` is ``[R, n, *leaf]``.  With ``offsets`` (int32 ``[R]``) the
+    vote covers words ``[offsets[r], offsets[r] + width)`` of every lane
+    of a ``[R, n, L]`` set (:func:`window`).  ``copy`` (DWC only) writes
+    lane 0 out as a fresh tensor; without it a DWC vote is a flags-only
+    check whose voted value is the lane-0 view of a whole leaf and None
+    for a window.  A TMR vote always writes its voted value."""
+
+    lanes: torch.Tensor
+    offsets: Optional[torch.Tensor] = None
+    width: Optional[int] = None
+    copy: bool = False
+
+
+def vote_sites(sites: Sequence[Site], num_clones: int
+               ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
+    """Vote every site -> ``(voted per site, flags int32 [S, R])``, flag
+    ``[s, r]`` 1 where site ``s`` miscompared in row ``r``, else 0."""
+    voted, flags = [], []
+    for site in sites:
+        lanes = site.lanes
+        if site.offsets is not None:
+            lanes = window(lanes, site.offsets, site.width)
+        value, mis = vote(lanes, num_clones)
+        if num_clones == 2:
+            if site.copy:
+                value = value.clone(memory_format=torch.contiguous_format)
+            elif site.offsets is not None:
+                value = None
+        voted.append(value)
+        flags.append(mis)
+    return voted, torch.stack(flags).to(torch.int32)

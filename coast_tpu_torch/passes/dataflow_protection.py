@@ -8,8 +8,9 @@ The counterpart of ``coast_tpu/passes/dataflow_protection.py``:
     axis of ``R = B * n`` rows (replicated leaves are viewed, shared leaves
     expanded on first read);
   * insertVoters -> the pre-step load vote, the commit votes (store data,
-    control, SoR crossing) and the region-boundary vote, every one through
-    the K1 wrapper ``ops/hopper_voters.py`` (the kernel on the card, its
+    control, SoR crossing) and the region-boundary vote, each sync point
+    one grouped call of the K1 wrapper ``ops/hopper_voters.py``
+    ``vote_sites`` over all its leaves (one kernel launch on the card, its
     plain version for a CPU tensor);
   * error handling -> DWC's abort is a latched per-row flag that freezes
     the row; TMR's correction counter and ``-countSyncs`` are per-row int32
@@ -25,17 +26,17 @@ view reuses the boundary votes.
 every leaf is integer: the latches packed into one word per row, the
 ``done()`` view voted only on the leaves it reads, the freeze only on
 leaves a step can change, the bounded loop when ``max_steps ==
-nominal_steps``, and every TMR vote a repair follows (the pre-step load
-sync, the whole-leaf commit vote) as one fused commit, K2 on the card.
-Its run records equal the unfused engine's.
+nominal_steps``, and the TMR votes a repair follows (the pre-step load
+sync, the whole-leaf commit votes) as one fused commit per sync point,
+one K2 launch on the card.  Its run records equal the unfused engine's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import (Callable, Dict, FrozenSet, Iterator, Mapping, Optional,
-                    Tuple)
+from typing import (Callable, Dict, FrozenSet, Iterator, List, Mapping,
+                    NamedTuple, Optional, Tuple)
 
 import numpy as np
 import torch
@@ -44,7 +45,8 @@ from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.interop import fault_from_numpy
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO, Region,
                                        State, rows)
-from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters
+from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters, site_table
+from coast_tpu_torch.ops.voters import Site
 from coast_tpu_torch.passes.verification import analyze, verify_options
 
 Flags = Dict[str, torch.Tensor]
@@ -152,6 +154,34 @@ def _repair(voted: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     return voted.unsqueeze(1).expand(shape).contiguous()
 
 
+def _vote_one(lanes: torch.Tensor) -> torch.Tensor:
+    """The TMR voted value of one replica set (a group of one)."""
+    return hopper_voters.vote_sites([Site(lanes)], 3)[0][0]
+
+
+def _grouped(fn, sites: list, num_clones: int):
+    """``fn(sites, num_clones)`` (a grouped K1 or K2 call), in launches of
+    at most ``MAX_SITES`` sites: every output list joined, the flag blocks
+    stacked as one ``[S, R]``."""
+    if len(sites) <= site_table.MAX_SITES:
+        return fn(sites, num_clones)
+    parts = [fn(sites[i:i + site_table.MAX_SITES], num_clones)
+             for i in range(0, len(sites), site_table.MAX_SITES)]
+    lists = [[x for part in parts for x in part[k]]
+             for k in range(len(parts[0]) - 1)]
+    return (*lists, torch.cat([part[-1] for part in parts]))
+
+
+class _Window(NamedTuple):
+    """A store-slice window: per-row start block, block count, words a
+    block and the per-row ``active`` flag (None: every row stored)."""
+
+    start0: torch.Tensor
+    size0: int
+    rest: int
+    active: Optional[torch.Tensor]
+
+
 class ProtectedProgram:
     """A region after dataflowProtection: an n-lane stepped program plus
     per-row flags, run as a batch of campaign rows on ``device``."""
@@ -212,7 +242,9 @@ class ProtectedProgram:
                         "dead code")
         else:
             self._store_slice = {}
-        self._vote = hopper_voters.vote
+        # The pre-step load sync's leaves, in spec order.
+        self._pre_names = [name for name in region.spec
+                           if cfg.num_clones > 1 and self.pre_sync.get(name)]
         self.leaf_order = [n for n in region.spec if region.spec[n].inject]
         one = {k: v.unsqueeze(0) for k, v in image.items()}
         self.output_words = int(region.output(one).shape[1])
@@ -298,16 +330,17 @@ class ProtectedProgram:
             if not self.replicated[name]:
                 return arr
             if self.region.spec[name].kind == KIND_CTRL and tmr:
-                return self._vote(arr, 3)[0]
+                return _vote_one(arr)
             return arr[:, 0]
 
         return _LazyView(region_state, leaf)
 
-    def _vote_slice(self, name: str, out: torch.Tensor, fresh: bool,
-                    hint, view: Mapping, t: int, batch: int):
-        """The store-slice vote of one leaf: vote the window each row
-        stored, repair it in every lane (TMR).  Returns ``(out, mis,
-        active)`` with ``active`` None for a 2-tuple hint."""
+    def _slice_site(self, name: str, out: torch.Tensor, hint, view: Mapping,
+                    t: int, batch: int) -> Tuple[Site, _Window]:
+        """The store-slice vote of one leaf as a K1 site: the window each
+        row stored, read in place at per-row word offsets.  The offsets
+        come from the hint on the pre-step view, so they are made before
+        the sync point's vote."""
         n = self.cfg.num_clones
         hint_out = hint(view, t)
         if len(hint_out) == 3:
@@ -327,24 +360,27 @@ class ProtectedProgram:
         start0 = start0.to(torch.int64).expand(batch)
         start0 = torch.clamp(torch.where(start0 < 0, start0 + shape[0],
                                          start0), 0, shape[0] - size0)
-        flat = out.view(batch, n, -1)
-        voted, mis = hopper_voters.vote_window(
-            flat, (start0 * rest).to(torch.int32), size0 * rest, n)
-        if n == 3:
-            if not fresh:
-                out = out.clone()
-            blocks = out.view(batch, n, shape[0], rest)
-            index = (start0[:, None] + torch.arange(size0, device=self.device)
-                     )[:, None, :, None].expand(batch, n, size0, rest)
-            new = voted.view(batch, 1, size0, rest).expand(batch, n, size0,
-                                                           rest)
-            if active is not None:
-                new = torch.where(rows(active, new), new,
-                                  blocks.gather(2, index))
-            blocks.scatter_(2, index, new)
+        site = Site(out.view(batch, n, -1), (start0 * rest).to(torch.int32),
+                    size0 * rest)
+        return site, _Window(start0, size0, rest, active)
+
+    def _slice_repair(self, name: str, out: torch.Tensor, fresh: bool,
+                      window: _Window, voted: torch.Tensor
+                      ) -> torch.Tensor:
+        """TMR: the window's voted words into every lane of the rows that
+        stored (all rows without an ``active`` flag)."""
+        batch, n = out.shape[:2]
+        start0, size0, rest, active = window
+        if not fresh:
+            out = out.clone()
+        blocks = out.view(batch, n, self._shapes[name][0], rest)
+        index = (start0[:, None] + torch.arange(size0, device=self.device)
+                 )[:, None, :, None].expand(batch, n, size0, rest)
+        new = voted.view(batch, 1, size0, rest).expand(batch, n, size0, rest)
         if active is not None:
-            mis = mis & active
-        return out, mis, active
+            new = torch.where(rows(active, new), new, blocks.gather(2, index))
+        blocks.scatter_(2, index, new)
+        return out
 
     # -- one protected step -------------------------------------------------
     def _halted(self, flags: Flags) -> torch.Tensor:
@@ -353,15 +389,18 @@ class ProtectedProgram:
             return flags["latch"] != 0
         return flags["done"] | flags["dwc_fault"]
 
-    def _vote_repair(self, lanes: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """A TMR vote and the repair after it -> ``(repaired lanes, voted,
-        miscompare)``.  The fused engine makes both one fused commit (K2
-        on the card)."""
+    def _vote_repair(self, lanes: List[torch.Tensor]
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                torch.Tensor]:
+        """TMR votes of one sync point and the repairs after them ->
+        ``(repaired lanes, voted, flags [S, R])``.  The fused engine makes
+        them one fused commit (one K2 launch on the card)."""
         if self._fuse_plan is None:
-            voted, mis = self._vote(lanes, 3)
-            return _repair(voted, lanes.shape), voted, mis
-        return fused_step.vote_flip_commit(lanes, None, 3)
+            voted, mis = _grouped(hopper_voters.vote_sites,
+                                  [Site(x) for x in lanes], 3)
+            return ([_repair(v, x.shape) for v, x in zip(voted, lanes)],
+                    voted, mis)
+        return _grouped(fused_step.commit_sites, [(x, None) for x in lanes], 3)
 
     def step(self, pstate: State, flags: Flags, t: int) -> Tuple[State, Flags]:
         cfg = self.cfg
@@ -370,49 +409,66 @@ class ProtectedProgram:
         batch = flags["steps"].shape[0]
         halted = self._halted(flags)
         region_state = dict(pstate)
-        miscompares = []
-        syncs = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        # One int32 [S, R] flag block per grouped vote, a row per site.
+        miscompares: List[torch.Tensor] = []
+        # Sync points every row passes, and the per-row ones (a store-slice
+        # window with an ``active`` flag).
+        syncs = 0
+        sync_rows: List[torch.Tensor] = []
         # Voted values of this step's commit votes (the fused done() view
         # reuses them).
         commits: Dict[str, torch.Tensor] = {}
 
         # Pre-step load sync: vote address-forming ctrl state before any
-        # load in this step reads it; TMR repairs the lanes.
-        if n > 1:
-            for name in self.region.spec:
-                if self.pre_sync.get(name, False):
-                    if n == 3:
-                        region_state[name], _, mis = self._vote_repair(
-                            region_state[name])
-                    else:
-                        _, mis = self._vote(region_state[name], n)
-                    miscompares.append(mis)
-                    syncs += 1
+        # load in this step reads it; TMR repairs the lanes.  One grouped
+        # vote for every such leaf.
+        if self._pre_names:
+            lanes = [region_state[name] for name in self._pre_names]
+            if n == 3:
+                repaired, _, mis = self._vote_repair(lanes)
+                region_state.update(zip(self._pre_names, repaired))
+            else:
+                _, mis = _grouped(hopper_voters.vote_sites,
+                                  [Site(x) for x in lanes], n)
+            miscompares.append(mis)
+            syncs += len(self._pre_names)
 
         laned = self._run_lanes(region_state, t, batch)
         slice_view = (self._slice_view(region_state)
                       if self._store_slice and n > 1 else None)
 
+        # The commit sync point: gather its sites, then vote them in one
+        # grouped call (two on the fused engine when K1 sites remain beside
+        # its K2 commit: store-slice windows, SoR crossings).
         new_state: State = {}
+        repair: List[str] = []      # whole-leaf TMR votes a repair follows
+        sites: List[Site] = []      # the other votes, on K1
+        roles: List[Tuple[str, Optional[_Window]]] = []
         for name in self.region.spec:
             written = name in laned
             if self.replicated[name]:
                 out = laned[name] if written else region_state[name]
+                new_state[name] = out
                 if self.step_sync[name] and n > 1:
                     hint = self._store_slice.get(name)
                     if hint is not None:
-                        out, mis, active = self._vote_slice(
-                            name, out, written, hint, slice_view, t, batch)
-                        syncs += (1 if active is None
-                                  else active.to(torch.int32))
-                    elif n == 3:
-                        out, commits[name], mis = self._vote_repair(out)
+                        site, window = self._slice_site(
+                            name, out, hint, slice_view, t, batch)
+                        sites.append(site)
+                        roles.append((name, window))
+                        if window.active is None:
+                            syncs += 1
+                        else:
+                            sync_rows.append(window.active)
+                    elif n == 3 and plan is not None:
+                        repair.append(name)
                         syncs += 1
                     else:
-                        _, mis = self._vote(out, n)
+                        # TMR: the repair follows the grouped vote; DWC: a
+                        # flags-only check.
+                        sites.append(Site(out))
+                        roles.append((name, None))
                         syncs += 1
-                    miscompares.append(mis)
-                new_state[name] = out
             elif not written:
                 # Unwritten shared leaf: all lanes see the same value, so
                 # its SoR-crossing vote (below) agrees by construction.
@@ -426,31 +482,61 @@ class ProtectedProgram:
                 new_state[name] = laned[name][:, 0]
             else:
                 # A store crossing the sphere of replication: vote before
-                # the single store.
-                voted, mis = self._vote(laned[name], n)
-                miscompares.append(mis)
+                # the single store.  Its value becomes committed state, so
+                # DWC writes lane 0 out: an in-place flip must not reach
+                # into the lanes' storage.
+                sites.append(Site(laned[name], copy=True))
+                roles.append((name, None))
                 syncs += 1
-                new_state[name] = voted
+        if repair:
+            repaired, voted, mis = self._vote_repair(
+                [new_state[name] for name in repair])
+            for name, lanes, value in zip(repair, repaired, voted):
+                new_state[name] = lanes
+                commits[name] = value
+            miscompares.append(mis)
+        if sites:
+            voted, mis = _grouped(hopper_voters.vote_sites, sites, n)
+            for j, ((name, window), value) in enumerate(zip(roles, voted)):
+                if window is not None:
+                    if n == 3:
+                        new_state[name] = self._slice_repair(
+                            name, new_state[name], name in laned, window,
+                            value)
+                    if window.active is not None:
+                        mis[j] &= window.active
+                elif not self.replicated[name]:
+                    new_state[name] = value
+                elif n == 3:
+                    new_state[name] = _repair(value, new_state[name].shape)
+                    commits[name] = value
+            miscompares.append(mis)
 
         # Latch fault/correction accounting.  DWC checks before the store
         # commits: a miscompare this step freezes the row at its pre-step
         # image.
         fault_now = torch.zeros_like(halted)
         flags = dict(flags)
+        if miscompares:
+            mis = (miscompares[0] if len(miscompares) == 1
+                   else torch.cat(miscompares))
         if miscompares and n == 2:
-            fault_now = ~halted & torch.stack(miscompares).any(dim=0)
+            fault_now = ~halted & mis.any(dim=0)
             if plan is not None:
                 flags["latch"] = fused_step.latch_or(
                     flags["latch"], fused_step.LATCH_DWC, fault_now)
             else:
                 flags["dwc_fault"] = flags["dwc_fault"] | fault_now
         elif miscompares and n == 3 and cfg.count_errors:
-            mis_cnt = torch.stack(miscompares).to(torch.int32).sum(dim=0)
             flags["tmr_cnt"] = flags["tmr_cnt"] + torch.where(
-                halted, 0, mis_cnt).to(torch.int32)
+                halted, 0, mis.sum(dim=0)).to(torch.int32)
         if cfg.count_syncs:
+            per_row = torch.full((batch,), syncs, dtype=torch.int32,
+                                 device=self.device)
+            for active in sync_rows:
+                per_row += active.to(torch.int32)
             flags["sync_cnt"] = flags["sync_cnt"] + torch.where(
-                halted, 0, syncs).to(torch.int32)
+                halted, 0, per_row).to(torch.int32)
 
         # Terminator: done() on the voted view, before committing, so one
         # corrupted lane cannot steer control flow.  The fused view votes
@@ -494,10 +580,26 @@ class ProtectedProgram:
             if self.cfg.num_clones == 3 and (only is None or name in only):
                 if votes and name in votes:
                     return votes[name]
-                return self._vote(arr, 3)[0]
+                return _vote_one(arr)
             return arr[:, 0]
 
         return _LazyView(pstate, leaf)
+
+    def boundary_votes(self, pstate: State
+                       ) -> Tuple[State, Optional[torch.Tensor]]:
+        """The region-boundary sync: every replicated leaf voted (TMR) or
+        compared (DWC, flags only: its value is the lane-0 view of
+        ``pstate``) in one grouped vote.  Returns ``(view, miscompares a
+        row)``, the count None when nothing is replicated."""
+        names = [name for name in pstate if self.replicated[name]]
+        if self.cfg.num_clones == 1 or not names:
+            return pstate, None
+        voted, mis = _grouped(hopper_voters.vote_sites,
+                              [Site(pstate[name]) for name in names],
+                              self.cfg.num_clones)
+        view = dict(pstate)
+        view.update(zip(names, voted))
+        return view, mis.sum(dim=0)
 
     def _all_halted(self, flags: Flags) -> bool:
         return bool(self._halted(flags).all())
@@ -547,14 +649,11 @@ class ProtectedProgram:
         # view.
         n = self.cfg.num_clones
         fused = self._fuse_plan is not None
-        view: Mapping[str, torch.Tensor] = pstate
+        view, mis_cnt = self.boundary_votes(pstate)
         if n > 1:
-            view = dict(pstate)
-            mis_cnt = torch.zeros(batch, dtype=torch.int32, device=self.device)
-            for name, arr in pstate.items():
-                if self.replicated[name]:
-                    view[name], m = self._vote(arr, n)
-                    mis_cnt += m.to(torch.int32)
+            if mis_cnt is None:
+                mis_cnt = torch.zeros(batch, dtype=torch.int32,
+                                      device=self.device)
             # The packed latch makes the gate one compare: done set and no
             # fault bit.
             reached_call = (flags["latch"] == fused_step.LATCH_DONE_ONLY

@@ -164,3 +164,48 @@ def test_tmr_repair_is_materialised_per_lane():
                                "bit": np.array([3, 3])}, "cpu")
     bitflip.apply_site(pstate, site, torch.tensor([True, False]))
     assert pstate["i"].tolist() == [[0, 8, 0], [0, 0, 0]]
+
+
+def test_dwc_boundary_view_is_lane_zero_and_a_flip_stays_in_its_row():
+    """The DWC boundary compares flags only and reads lane 0 of the final
+    state in place (no copy is written).  The view aliases ``pstate``, so
+    a flip after it shows in its own row's lane 0 and nowhere else."""
+    prog = ct.DWC(mm.make_region(), device="cpu")
+    pstate, _ = prog.init_pstate(4)
+    before = {k: v.clone() for k, v in pstate.items()}
+    view, mis = prog.boundary_votes(pstate)
+    assert mis.tolist() == [0, 0, 0, 0]
+    for name, arr in pstate.items():
+        if prog.replicated[name]:
+            assert view[name].data_ptr() == arr[:, 0].data_ptr()
+    before_view = {k: v.clone() for k, v in view.items()}
+    pstate["results"][2, 0, 4, 5] ^= 1 << 7            # row 2, lane 0
+    for name, arr in pstate.items():
+        changed = (arr != before[name]).nonzero().tolist()
+        assert changed == ([[2, 0, 4, 5]] if name == "results" else [])
+    diff = (view["results"] != before_view["results"]).nonzero().tolist()
+    assert diff == [[2, 4, 5]]
+    # A flip in lane 1 reaches no view, and the next compare sees it.
+    pstate["i"][1, 1] ^= 1
+    assert torch.equal(view["i"], before_view["i"])
+    assert prog.boundary_votes(pstate)[1].tolist() == [0, 1, 1, 0]
+
+
+def test_grouped_calls_launch_at_most_16_sites_in_order():
+    """A sync point with more sites than a launch takes is split into
+    launches of at most ``MAX_SITES``, outputs and flag rows in order."""
+    from coast_tpu_torch.ops import site_table
+    from coast_tpu_torch.passes.dataflow_protection import _grouped
+    launches = []
+
+    def fake(sites, n):
+        assert len(sites) <= site_table.MAX_SITES and n == 3
+        launches.append(len(sites))
+        return (list(sites), [-x for x in sites],
+                torch.tensor([[x] for x in sites], dtype=torch.int32))
+
+    first, second, flags = _grouped(fake, list(range(37)), 3)
+    assert launches == [16, 16, 5]
+    assert first == list(range(37)) and second == [-x for x in range(37)]
+    assert flags[:, 0].tolist() == list(range(37))
+    assert _grouped(fake, [1, 2], 3)[2].shape == (2, 1)

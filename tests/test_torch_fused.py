@@ -29,7 +29,8 @@ import coast_tpu_torch as ct
 from coast_tpu_torch.inject.campaign import CampaignRunner
 from coast_tpu_torch.inject.schedule import FaultSchedule
 from coast_tpu_torch.models import crc16, mm, mm256
-from coast_tpu_torch.ops import bitflip, fused_step, hopper_commit
+from coast_tpu_torch.ops import (bitflip, fused_step, hopper_commit,
+                                 hopper_voters)
 
 # The suite runs under xdist, several workers to a host: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -156,26 +157,76 @@ def test_bounded_scan_parity(strategy):
     assert_same_records(got, base, "bounded port fused vs port unfused")
 
 
+def count_calls(monkeypatch, module, name):
+    """Record the site shapes of every call of ``module.name``."""
+    calls = []
+    real = getattr(module, name)
+
+    def counting(sites, num_clones):
+        calls.append([tuple((s[0] if isinstance(s, tuple) else s.lanes).shape)
+                      for s in sites])
+        return real(sites, num_clones)
+
+    monkeypatch.setattr(module, name, counting)
+    return calls
+
+
+def count_trips(prog):
+    """Count the engine's step() calls (loop trips) on ``prog``."""
+    trips = [0]
+    step = prog.step
+
+    def counting(*args):
+        trips[0] += 1
+        return step(*args)
+
+    prog.step = counting
+    return trips
+
+
 def test_fused_tmr_commits_through_vote_flip_commit(monkeypatch):
     """mm TMR has four vote sites a repair follows (pre-step ``i``; commit
-    ``results``, ``i``, ``phase``): each is one fused commit per step."""
-    calls = []
-    real = fused_step.vote_flip_commit
-
-    def counting(lanes, masks, num_clones):
-        assert masks is None and num_clones == 3
-        calls.append(tuple(lanes.shape))
-        return real(lanes, masks, num_clones)
-
-    monkeypatch.setattr(fused_step, "vote_flip_commit", counting)
+    ``results``, ``i``, ``phase``): two grouped fused commits a step, one
+    per sync point, and no K1 vote in the step."""
+    calls = count_calls(monkeypatch, fused_step, "commit_sites")
+    votes = count_calls(monkeypatch, hopper_voters, "vote_sites")
     prog = ct.TMR(mm.make_region(), device="cpu", fuse_step=True)
     pstate, flags = prog.init_pstate(4)
     prog.step(pstate, flags, 0)
-    assert sorted(calls) == [(4, 3), (4, 3), (4, 3), (4, 3, 9, 9)]
+    assert calls == [[(4, 3)], [(4, 3, 9, 9), (4, 3), (4, 3)]]
+    assert votes == []
+    calls.clear()
+    trips = count_trips(prog)
+    prog.run_batch(batch=4)
+    assert len(calls) == 2 * trips[0] and trips[0] == 18
+    assert votes == [[(4, 3, 9, 9)] * 3 + [(4, 3, 9), (4, 3), (4, 3)]]
     calls.clear()
     ct.DWC(mm.make_region(), device="cpu", fuse_step=True).run(
         bitflip.noop_fault())
     assert calls == []                 # DWC has no repair to fuse
+
+
+@pytest.mark.parametrize("region,per_step,n_sites",
+                         [("mm", 3, 6), ("crc16", 2, 3)])
+def test_unfused_tmr_votes_once_per_sync_point(monkeypatch, region, per_step,
+                                               n_sites):
+    """The unfused mm step makes three grouped K1 votes (pre-step, commit,
+    the ``done()`` view's vote of ``i``; crc16 has no commit vote) and the
+    boundary one, over every replicated leaf."""
+    calls = count_calls(monkeypatch, hopper_voters, "vote_sites")
+    commits = count_calls(monkeypatch, fused_step, "commit_sites")
+    prog = ct.TMR(jax_regions()[region][1](), device="cpu")
+    pstate, flags = prog.init_pstate(4)
+    prog.step(pstate, flags, 0)
+    if region == "mm":
+        assert calls == [[(4, 3)], [(4, 3, 9, 9), (4, 3), (4, 3)], [(4, 3)]]
+    assert len(calls) == per_step
+    calls.clear()
+    trips = count_trips(prog)
+    prog.run_batch(batch=4)
+    assert len(calls) == per_step * trips[0] + 1 and trips[0] > 1
+    assert len(calls[-1]) == n_sites
+    assert commits == []
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +366,65 @@ def test_plain_commit_without_masks_is_a_vote_and_repair(n):
     assert torch.equal(t.view(torch.int32), snapshot.view(torch.int32))
 
 
+COMMIT_SHAPES = [((), np.int32, True), ((13,), np.float32, False),
+                 ((9, 9), np.int32, True), ((300,), np.float32, True)]
+
+
+def commit_group(seed, n, rows=6):
+    """Seeded K2 sites of mixed width and dtype, some with masks."""
+    return [commit_case(seed + j, rows, n, shape or (1,), dtype)
+            + (masked,) for j, (shape, dtype, masked)
+            in enumerate(COMMIT_SHAPES)]
+
+
+def as_sites(group, device="cpu"):
+    sites = []
+    for (lanes, masks, masked), (shape, _, _) in zip(group, COMMIT_SHAPES):
+        lead = lanes.shape[:2]
+        lanes = torch.from_numpy(lanes).reshape(lead + shape).to(device)
+        masks = (torch.from_numpy(masks).reshape(lead + shape).to(device)
+                 if masked else None)
+        sites.append((lanes, masks))
+    return sites
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_plain_commit_sites_equal_reference_kernel_interpret(n):
+    import jax
+    import jax.numpy as jnp
+    from coast_tpu.ops import fused_step as jfused
+    group = commit_group(40 + n, n)
+    before = hopper_commit.LAUNCHES
+    repaired, voted, flags = fused_step.commit_sites(as_sites(group), n)
+    assert hopper_commit.LAUNCHES == before
+    assert flags.dtype == torch.int32 and flags.shape == (len(group), 6)
+    call = jax.vmap(lambda a, b: jfused._vote_flip_call(a, b, n, True))
+    for s, (lanes, masks, masked) in enumerate(group):
+        rows, k = lanes.shape[0], int(np.prod(lanes.shape[2:]))
+        m = masks if masked else np.zeros_like(masks)
+        ref = call(jnp.asarray(lanes.reshape(rows, n, 1, k)),
+                   jnp.asarray(m.view(np.uint32).reshape(rows, n, 1, k)))
+        np.testing.assert_array_equal(
+            as_bits(repaired[s]).reshape(rows, -1),
+            as_bits(ref[0]).reshape(rows, -1), err_msg=f"site {s}")
+        np.testing.assert_array_equal(
+            as_bits(voted[s]).reshape(rows, -1),
+            as_bits(ref[1]).reshape(rows, -1), err_msg=f"site {s}")
+        np.testing.assert_array_equal(flags[s].numpy(),
+                                      np.asarray(ref[2]).astype(np.int32))
+    assert flags[:, 1::2].all()          # every odd row carries a flip
+
+
+def test_commit_sites_outputs_never_alias_their_inputs():
+    sites = as_sites(commit_group(7, 3))
+    snapshot = [lanes.clone() for lanes, _ in sites]
+    repaired, voted, _ = fused_step.commit_sites(sites, 3)
+    for out in repaired + voted:
+        out.view(torch.int32).fill_(7)
+    for (lanes, _), before in zip(sites, snapshot):
+        assert torch.equal(lanes.view(torch.int32), before.view(torch.int32))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -414,3 +524,39 @@ def test_crc16_bit31_flips_campaign_parity(strategy):
     # masks it away); bit 31 of i is caught by the pre-step vote.
     assert (ref.codes[:forced // 2] == 0).all()
     assert (ref.codes[forced // 2:forced] != 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_grouped_kernel_bit_equal_to_plain_on_card(cuda, n):
+    sites = as_sites(commit_group(60 + n, n, rows=4096), cuda)
+    lanes, masks = commit_case(9, 4096, n, (131072 + 3,), np.float32)
+    sites.insert(1, (torch.from_numpy(lanes[:8]).to(cuda),
+                     torch.from_numpy(masks[:8]).to(cuda)))
+    groups = [sites[:1] + sites[2:], sites[1:2]]     # R = 4096 and R = 8
+    for group in groups:
+        before = hopper_commit.LAUNCHES
+        got = fused_step.commit_sites(group, n)
+        assert hopper_commit.LAUNCHES == before + 1
+        want = fused_step.plain_commit_sites(group, n)
+        assert torch.equal(got[2], want[2])
+        for g, w, (lanes, _) in zip(got[0] + got[1], want[0] + want[1],
+                                    group + group):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            assert g.data_ptr() != lanes.data_ptr()
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_bad_tables(cuda):
+    lanes = torch.zeros((4, 3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        fused_step.commit_sites([(lanes, None)] * 17, 3)
+    with pytest.raises(ValueError):                       # R differs
+        fused_step.commit_sites([(lanes, None), (lanes[:2], None)], 3)
+    with pytest.raises(ValueError):                       # a CPU site
+        fused_step.commit_sites([(lanes, None), (lanes.cpu(), None)], 3)
+    with pytest.raises(TypeError):
+        fused_step.commit_sites([(lanes, None), (lanes.long(), None)], 3)
+    with pytest.raises(ValueError):                       # mask shape
+        fused_step.commit_sites([(lanes, lanes[:, :, :4].contiguous())], 3)

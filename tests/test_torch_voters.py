@@ -10,13 +10,22 @@ machine has no JAX, so the reference is imported where it is used; there
 the kernel tests run alone:
 
     python -m pytest tests/test_torch_voters.py -m cuda --noconftest -q
+
+The grouped form (``vote_sites``: every replica set of one sync point in
+one launch, flags as an int32 ``[S, R]`` block) is held to the reference
+site by site: mixed widths, dtypes, windows and DWC flags-only checks.
 """
+
+import itertools
+import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from coast_tpu_torch.ops import hopper_voters, voters
+from coast_tpu_torch.ops import hopper_voters, site_table, voters
+from coast_tpu_torch.ops.voters import Site
 
 # The suite runs under xdist, several workers to a host: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -143,6 +152,126 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
         voters.vote(arr, 4)
 
 
+# ---------------------------------------------------------------------------
+# grouped votes: one call per sync point
+# ---------------------------------------------------------------------------
+
+ROWS = 8
+
+
+def mixed_group(seed, n):
+    """A seeded group of sites as one sync point gives them: a scalar, a
+    13-word and a 9x9 leaf, a 300-word lane (the kernel's tile path), a
+    64-word window of it at clamped per-row offsets, int32/uint32/float32
+    words, and DWC flags-only checks beside a written DWC copy.  Returns
+    (numpy replica sets, sites)."""
+    shapes = [((), np.int32), ((13,), np.float32), ((9, 9), np.uint32),
+              ((300,), np.float32), ((300,), np.int32)]
+    arrays, sites = [], []
+    for j, (shape, dtype) in enumerate(shapes):
+        width = int(np.prod(shape, dtype=np.int64))
+        arr = replica_set(seed * 10 + j, ROWS, n, width, dtype).reshape(
+            (ROWS, n) + shape)
+        arrays.append(arr)
+        sites.append(Site(to_port(arr), copy=bool(j % 2)))
+    offs = np.random.default_rng(seed).integers(0, 300 - 64 + 1, ROWS)
+    offs[:3] = (-5, 290, 2**31 - 1)
+    arrays.append((arrays[-1], offs))
+    sites.append(Site(sites[-1].lanes, torch.from_numpy(offs.astype(np.int32)),
+                      64, copy=n == 2 and seed % 2 == 0))
+    return arrays, sites
+
+
+def reference_site(arr, n, width=64):
+    """The reference voter over one site, windows cut out row by row."""
+    if isinstance(arr, tuple):
+        arr, offs = arr
+        cut = np.stack([arr[r, :, min(max(int(o), 0), arr.shape[2] - width):]
+                        [:, :width] for r, o in enumerate(offs)])
+        return reference(cut, n)
+    return reference(arr, n)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("n", [2, 3])
+def test_vote_sites_bit_equal_to_reference_per_site(n, seed):
+    arrays, sites = mixed_group(seed, n)
+    before = hopper_voters.LAUNCHES
+    voted, flags = hopper_voters.vote_sites(sites, n)
+    assert hopper_voters.LAUNCHES == before       # CPU: the plain version
+    assert flags.dtype == torch.int32 and flags.shape == (len(sites), ROWS)
+    for s, (arr, site, got) in enumerate(zip(arrays, sites, voted)):
+        ref_voted, ref_mis = reference_site(arr, n)
+        np.testing.assert_array_equal(flags[s].numpy(), ref_mis.astype(
+            np.int32), err_msg=f"site {s}")
+        if n == 2 and not site.copy:
+            if site.offsets is None:       # flags only: the lane-0 view
+                assert got.data_ptr() == site.lanes[:, 0].data_ptr()
+            else:
+                assert got is None
+                continue
+        elif n == 2:
+            assert got.data_ptr() != site.lanes.data_ptr()
+        np.testing.assert_array_equal(bits(got), bits(ref_voted).reshape(
+            bits(got).shape), err_msg=f"site {s}")
+    # Every odd row carries a flipped lane in every whole-leaf site.
+    assert flags[:5, 1::2].all()
+
+
+def test_site_record_matches_the_cuda_struct():
+    """``site_table.SITE`` packs ``coast::Site`` of ``csrc/vote_word.cuh``
+    field for field: the header is the one source of the layout."""
+    header = (pathlib.Path(site_table.__file__).parent.parent / "csrc"
+              / "vote_word.cuh").read_text()
+    body = re.search(r"struct Site \{(.*?)\};", header, re.S).group(1)
+    lines = [line.split("//")[0].strip() for line in body.splitlines()]
+    decls = [line for line in lines if line]
+    assert [d.rstrip(";").split()[-1].lstrip("*") for d in decls] == [
+        "src", "mask", "out", "voted", "offsets", "flag", "width",
+        "lane_stride", "row_stride", "tiles", "first_block", "is_float",
+        "group"]
+    code = {"int": "i", "long": "q"}          # pointers pack as "Q"
+    fmt = "".join("Q" if "*" in d else code[d.split()[0]] for d in decls)
+    assert struct_format(fmt) == site_table.SITE.format
+    assert site_table.SITE.size == 96 and "sizeof(Site) == 96" in header
+    assert f"kMaxSites = {site_table.MAX_SITES};" in header
+
+
+def struct_format(codes):
+    """"QQi" -> "<2Q1i": run-length form of a struct code string."""
+    return "<" + "".join(f"{len(list(g))}{c}"
+                         for c, g in itertools.groupby(codes))
+
+
+def test_output_buffer_is_one_allocation_carved_at_16_bytes():
+    out = site_table.Buffer(3 * 5)
+    a = out.take(7)
+    b = out.take(4)
+    assert (a, b) == (16, 24) and out.words == 28
+    out.allocate(torch.device("cpu"))
+    flags = out.flags(3, 5)
+    x = out.view((7,), a, torch.int32)
+    y = out.view((2, 2), b, torch.float32)
+    assert flags.shape == (3, 5) and y.dtype == torch.float32
+    for t in (flags, x, y):
+        assert t.untyped_storage().data_ptr() == out.buf.data_ptr()
+        assert t.is_contiguous()
+        assert (t.data_ptr() - out.buf.data_ptr()) % 16 == 0
+
+
+def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
+    lanes = torch.zeros((4, 3, 8), dtype=torch.int32)
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError):
+        site_table.check_group("K1", 17, 3)            # over 16 sites
+    with pytest.raises(ValueError):
+        site_table.check_group("K1", 0, 3)
+    with pytest.raises(ValueError):
+        site_table.check_group("K1", 2, 4)
+    with pytest.raises(ValueError):                    # not a CUDA tensor
+        site_table.check_lanes("K1", lanes, 3, cpu, 4)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -183,3 +312,50 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                           device=cuda).permute(0, 2, 1)
     with pytest.raises(ValueError):
         hopper_voters.vote(strided, 3)               # not contiguous
+
+
+def card_group(cuda, n):
+    """The seeded mixed group on the card, plus a site wide enough for
+    several tiles a row (131075 words, unaligned lanes)."""
+    _, sites = mixed_group(6 + n, n)
+    sites = [Site(s.lanes.to(cuda), None if s.offsets is None
+                  else s.offsets.to(cuda), s.width, s.copy) for s in sites]
+    wide = to_port(replica_set(9, ROWS, n, 131072 + 3, np.float32)).to(cuda)
+    sites.insert(2, Site(wide, copy=True))
+    offs = torch.arange(ROWS, dtype=torch.int32, device=cuda) * 4099 - 3
+    sites.append(Site(wide, offs, 40000, copy=True))
+    return sites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_grouped_kernel_bit_equal_to_plain_on_card(cuda, n):
+    sites = card_group(cuda, n)
+    before = hopper_voters.LAUNCHES
+    voted, flags = hopper_voters.vote_sites(sites, n)
+    assert hopper_voters.LAUNCHES == before + 1
+    p_voted, p_flags = voters.vote_sites(sites, n)
+    assert torch.equal(flags, p_flags)
+    for got, want in zip(voted, p_voted):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_bad_tables(cuda):
+    lanes = torch.zeros((4, 3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        hopper_voters.vote_sites([Site(lanes)] * 17, 3)
+    with pytest.raises(ValueError):                       # R differs
+        hopper_voters.vote_sites([Site(lanes), Site(lanes[:2])], 3)
+    with pytest.raises(ValueError):                       # n differs
+        hopper_voters.vote_sites([Site(lanes), Site(lanes[:, :2])], 3)
+    with pytest.raises(ValueError):                       # a CPU site
+        hopper_voters.vote_sites([Site(lanes), Site(lanes.cpu())], 3)
+    with pytest.raises(TypeError):
+        hopper_voters.vote_sites([Site(lanes), Site(lanes.long())], 3)
+    with pytest.raises(ValueError):                       # bad window
+        hopper_voters.vote_sites([Site(lanes, torch.zeros(
+            4, dtype=torch.int32, device=cuda), 9)], 3)
