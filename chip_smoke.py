@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (coast_tpu_torch) on one NVIDIA card.
 
-Run from the root of a checkout, with one visible CUDA card:
+Run it with one visible CUDA card, from any directory:
 
     python3 chip_smoke.py
 
@@ -47,14 +47,37 @@ Phases, in order; any failure exits non-zero:
          unfused, 2 K2 fused; and one K1 a batch at the boundary);
      (c) the float gate: matrixMultiply1024 under fuse_step=True keeps the
          unfused program;
-  8. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
-     each), taken after every campaign: a profiler session leaves launch
-     overhead behind that would slow the campaigns run after it.
+  8. the device generator (``inject/device_gen.py``) on the card, bit-equal
+     to the host ``generate()`` for single, multibit(k=4),
+     cluster(span=4,k=3) and burst(window=8,rate=0.5) on the 9x9 and
+     matrixMultiply1024 TMR maps, 65,536 rows at a nonzero offset;
+  9. matrixMultiply TMR, 10^6 injections at batch 65,536, dense then
+     sparse (``collect="sparse"``): counts, interesting rows and their
+     columns equal; rates, transfer bytes and interesting rows of each;
+ 10. matrixMultiply1024 TMR and DWC sparse, 1024 injections at batch 128,
+     equal to phase 4's dense runs (and the first interesting rows rerun
+     from their sites), then multibit(k=2) under TMR, 512 dense and
+     sparse; rates, peak memory and transfer bytes;
+ 11. flip groups through both engines: matrixMultiply and crc16 under TMR
+     and DWC with multibit(k=4), cluster(span=4,k=3) and
+     burst(window=8,rate=0.5), 65,536 injections at batch 4096, unfused
+     and fused, dense and sparse: the four records equal;
+ 12. a sparse campaign with ``sparse_capacity=1`` (every batch falls back
+     to a dense fetch) equal to dense;
+ 13. where a sparse batch's time goes (CUDA events, 65,536 rows): the
+     device generator against the host ``generate()`` and upload, the
+     device accounting, the sparse fetch against the dense fetch;
+ 14. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
+     each), taken last: a profiler session leaves launch overhead behind
+     that would slow the campaigns run after it.
 
 It prints the kernel table as one JSON line before the last (``ms``,
 ``plain_ms`` and ``bound_ms`` at the flagship shape, as before; every
 timed shape, grouped ones included, under ``shapes``) and
-``{"ok": true, "device": {...}}`` as the last line.  It imports nothing of
+``{"ok": true, "device": {...}}`` as the last line.  The kernels'
+``launches`` count every campaign that ran them: K1 those of phases 4 and
+9-12, K2 those of phases 7b and 9-12 (each phase's counts set to 0 just
+before it and read just after).  It imports nothing of
 JAX or of the coast_tpu package.
 """
 
@@ -65,8 +88,13 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+# The package sits beside this script: make it importable from any working
+# directory (``python3 /path/to/chip_smoke.py``).
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 
@@ -181,7 +209,7 @@ def fmt_ms(ms) -> str:
 
 def defer_device_ms(later: list, name: str, record: dict, key: str,
                     fn) -> None:
-    """Queue the device-only time of ``fn`` for ``record[key]``.  Phase 8
+    """Queue the device-only time of ``fn`` for ``record[key]``.  Phase 14
     runs the queue after every campaign: a torch.profiler session leaves
     launch overhead behind that slows the campaigns run after it."""
     record[key] = None
@@ -194,7 +222,7 @@ def time_group(torch, later: list, name: str, label: str, grouped, leaves,
     one call, host work included), beside the same sites as groups of one
     (``leaves``: one launch a leaf, the per-leaf form), the plain version
     and the bytes bound of the group; the device-only times of the first
-    two (torch.profiler over 200 calls) are queued for phase 8."""
+    two (torch.profiler over 200 calls) are queued for phase 14."""
     res = {"shape": label,
            "ms": time_ms(torch, grouped, iters),
            "per_leaf_ms": time_ms(torch, leaves, iters),
@@ -697,6 +725,285 @@ def fused_path(torch, TMR, DWC, CampaignRunner, REGISTRY, hv, hc,
                     "a batch at the boundary)")
 
 
+GROUP_SPECS = ("multibit(k=4)", "cluster(span=4,k=3)",
+               "burst(window=8,rate=0.5)")
+GEN_SPECS = ("single",) + GROUP_SPECS
+COLUMNS = ("codes", "errors", "corrected", "steps")
+
+
+def records_differ(dense, other) -> str:
+    """Why ``other`` (a dense or sparse result of the same schedule) does
+    not match the dense result ``dense``; '' when its counts, interesting
+    rows and their four columns (all rows, for a dense ``other``) agree."""
+    if other.counts != dense.counts:
+        return f"counts {other.counts} vs {dense.counts}"
+    rows = np.flatnonzero(dense.codes > 1)      # class > CORRECTED
+    if other.collect == "dense":
+        rows = np.arange(dense.n)
+    elif not np.array_equal(other.interesting_rows, rows):
+        return (f"{len(other.interesting_rows)} interesting rows vs "
+                f"{len(rows)}")
+    for col in COLUMNS:
+        got = getattr(other, col)
+        if not np.array_equal(got, getattr(dense, col)[rows]):
+            return f"column {col}"
+    return ""
+
+
+def rate_line(res) -> str:
+    return (f"{res.injections_per_sec:.1f} inj/s ({res.seconds:.2f} s), "
+            f"transfer up {res.transfer['up']} B down "
+            f"{res.transfer['down']} B")
+
+
+def check_generator(torch, TMR, REGISTRY, MemoryMap, FaultModel, generate,
+                    DeviceScheduleGen, card: str) -> None:
+    """Phase 8: the device generator on the card against the host
+    ``generate()``, bit-equal, for the four non-link kinds on the 9x9 and
+    matrixMultiply1024 TMR maps, over 65,536 rows at a nonzero offset."""
+    offset, rows = 131072 + 5, 65536
+    for bench in ("matrixMultiply", "matrixMultiply1024"):
+        prog = TMR(REGISTRY[bench]())
+        mmap = MemoryMap(prog)
+        steps = prog.region.nominal_steps
+        idx = torch.arange(offset, offset + rows, device="cuda")
+        for spec in GEN_SPECS:
+            model = FaultModel.parse(spec)
+            want = generate(mmap, offset + rows, 1, steps, model=model
+                            ).slice(offset, offset + rows).device_arrays()
+            got = DeviceScheduleGen(mmap, steps, model, "cuda").columns(
+                1, offset + rows, idx)
+            for key, col in want.items():
+                if not np.array_equal(got[key].cpu().numpy(), col):
+                    fail(f"device generator {spec} on {bench}: column "
+                         f"{key} differs from the host generate()")
+        log(f"device generator bit-equal to the host generate() on the "
+            f"{bench} TMR map ({mmap.total_bits} bits): {', '.join(GEN_SPECS)}"
+            f", rows {offset}..{offset + rows - 1} [{card}]")
+        del prog, mmap
+        torch.cuda.empty_cache()
+
+
+def million(torch, TMR, REGISTRY, CampaignRunner, hv, hc, card: str) -> tuple:
+    """Phase 9: matrixMultiply TMR, 10^6 injections at batch 65,536, seed
+    1, dense and then sparse (each after a one-batch warm-up): counts,
+    interesting rows and their columns equal.  Returns the (K1, K2)
+    launches of the two campaigns."""
+    prog = TMR(REGISTRY["matrixMultiply"]())
+    runners = {c: CampaignRunner(prog, strategy_name="TMR", collect=c)
+               for c in ("dense", "sparse")}
+    for r in runners.values():
+        r.run(65536, seed=0, batch_size=65536)
+    res = {}
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    for collect, r in runners.items():
+        res[collect] = r.run(1_000_000, seed=1, batch_size=65536)
+    launches = (hv.LAUNCHES, hc.LAUNCHES)
+    if launches[0] <= 0:
+        fail("the 10^6 campaigns launched K1 no time")
+    why = records_differ(res["dense"], res["sparse"])
+    if why:
+        fail(f"10^6 matrixMultiply TMR: sparse differs from dense: {why}")
+    for collect, r in res.items():
+        n_int = int((r.codes > 1).sum())
+        log(f"matrixMultiply TMR 10^6 at batch 65536 {collect}: {r.counts} "
+            f"{rate_line(r)}, {n_int} interesting rows [{card}]")
+    log(f"  sparse = dense (counts, interesting rows, columns); K1 "
+        f"launches {launches[0]} over both")
+    return launches
+
+
+def flagship_sparse(torch, TMR, DWC, CampaignRunner, FaultModel,
+                    REGISTRY, dense_results, hv, hc, card: str) -> tuple:
+    """Phase 10: matrixMultiply1024 TMR and DWC, 1024 injections at batch
+    128, sparse, against phase 4's dense results; the first interesting
+    rows of the TMR campaign rerun densely from their base sites
+    (``_rows_subset``); then multibit(k=2) under TMR, 512 injections
+    dense and sparse.  Returns the (K1, K2) launches."""
+    from coast_tpu_torch.inject.campaign import _rows_subset
+    region = REGISTRY["matrixMultiply1024"]()
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    for strat in (TMR, DWC):
+        prog = strat(region)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        runner = CampaignRunner(prog, strategy_name=strat.__name__,
+                                collect="sparse")
+        res = runner.run(1024, seed=1, batch_size=128)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        why = records_differ(dense_results[strat], res)
+        if why:
+            fail(f"matrixMultiply1024 {strat.__name__} sparse differs from "
+                 f"phase 4's dense run: {why}")
+        log(f"matrixMultiply1024 {strat.__name__} sparse: {res.counts} "
+            f"{rate_line(res)}, peak {peak:.2f} GiB; equal to phase 4's "
+            f"dense run ({len(res.interesting_rows)} interesting rows) "
+            f"[{card}]")
+        if strat is TMR and len(res.interesting_rows):
+            rows = res.interesting_rows[:4]
+            again = CampaignRunner(prog).run_schedule(
+                _rows_subset(res.schedule, rows), batch_size=len(rows))
+            for col in COLUMNS:
+                if not np.array_equal(getattr(again, col),
+                                      getattr(res, col)[:len(rows)]):
+                    fail("matrixMultiply1024 TMR: interesting rows rerun "
+                         f"from their sites differ in {col}")
+        del prog, runner
+        torch.cuda.empty_cache()
+    prog = TMR(region)
+    model = FaultModel.multibit(k=2)
+    out = {}
+    for collect in ("dense", "sparse"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out[collect] = CampaignRunner(prog, strategy_name="TMR",
+                                      fault_model=model, collect=collect
+                                      ).run(512, seed=1, batch_size=128)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        log(f"matrixMultiply1024 TMR multibit(k=2) 512 at batch 128 "
+            f"{collect}: {out[collect].counts} {rate_line(out[collect])}, "
+            f"peak {peak:.2f} GiB [{card}]")
+    why = records_differ(out["dense"], out["sparse"])
+    if why:
+        fail(f"matrixMultiply1024 TMR multibit(k=2): sparse differs: {why}")
+    launches = (hv.LAUNCHES, hc.LAUNCHES)
+    if launches[0] <= 0:
+        fail("the flagship sparse campaigns launched K1 no time")
+    log(f"  K1 launches {launches[0]} over the flagship sparse campaigns")
+    return launches
+
+
+def grouped(torch, TMR, DWC, CampaignRunner, FaultModel, REGISTRY, hv, hc,
+            card: str) -> tuple:
+    """Phase 11: flip groups through both engines -- matrixMultiply and
+    crc16 under TMR and DWC with the three multi-site models, 65,536
+    injections at batch 4096, seed 1, unfused and fused, dense and
+    sparse: the four records equal.  Returns the (K1, K2) launches."""
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    for bench in ("matrixMultiply", "crc16"):
+        region = REGISTRY[bench]()
+        for strat in (TMR, DWC):
+            progs = {False: strat(region),
+                     True: strat(region, fuse_step=True)}
+            for spec in GROUP_SPECS:
+                model = FaultModel.parse(spec)
+                base, rates = None, []
+                for fuse in (False, True):
+                    for collect in ("dense", "sparse"):
+                        res = CampaignRunner(
+                            progs[fuse], strategy_name=strat.__name__,
+                            fault_model=model, collect=collect).run(
+                                65536, seed=1, batch_size=4096)
+                        if base is None:
+                            base = res
+                        else:
+                            why = records_differ(base, res)
+                            if why:
+                                fail(f"{bench} {strat.__name__} {spec} "
+                                     f"fuse_step={fuse} {collect}: records "
+                                     f"differ from unfused dense: {why}")
+                        rates.append(f"{res.injections_per_sec:.1f}")
+                log(f"{bench} {strat.__name__} {spec} 65536 at 4096: "
+                    f"{base.counts}; four records equal; inj/s unfused "
+                    f"dense/sparse, fused dense/sparse {' / '.join(rates)} "
+                    f"[{card}]")
+    launches = (hv.LAUNCHES, hc.LAUNCHES)
+    if launches[0] <= 0 or launches[1] <= 0:
+        fail(f"the grouped campaigns launched K1, K2 {launches} times")
+    log(f"  K1 launches {launches[0]}, K2 {launches[1]} over the grouped "
+        "campaigns")
+    return launches
+
+
+def overflow(TMR, CampaignRunner, REGISTRY, hv, hc, card: str) -> tuple:
+    """Phase 12: one sparse campaign with ``sparse_capacity=1`` (every
+    batch overflows and falls back to a dense fetch) equals dense."""
+    prog = TMR(REGISTRY["matrixMultiply"]())
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    dense = CampaignRunner(prog).run(16384, seed=1, batch_size=4096)
+    tiny = CampaignRunner(prog, collect="sparse", sparse_capacity=1).run(
+        16384, seed=1, batch_size=4096)
+    launches = (hv.LAUNCHES, hc.LAUNCHES)
+    why = records_differ(dense, tiny)
+    if why:
+        fail(f"sparse_capacity=1 differs from dense: {why}")
+    log(f"matrixMultiply TMR 16384 at 4096, sparse_capacity=1: equal to "
+        f"dense; {rate_line(tiny)} [{card}]")
+    return launches
+
+
+def sparse_batch_times(torch, TMR, REGISTRY, CampaignRunner, FaultModel,
+                       generate, DeviceScheduleGen, fault_from_numpy,
+                       card: str) -> list:
+    """Phase 13: where a sparse batch's time goes, 65,536 rows of
+    matrixMultiply TMR, CUDA events (host work included): the device
+    generator's columns against the host ``generate()`` of a 65,536-row
+    stream and the upload of its columns; the device accounting
+    (``_sparse_device_outputs``) of one classified batch; the sparse
+    fetch (histogram head, then bitmask and packed words) against the
+    dense fetch of the four columns."""
+    from coast_tpu_torch.inject import campaign as camp
+    from coast_tpu_torch.inject import classify as cls
+    prog = TMR(REGISTRY["matrixMultiply"]())
+    mmap = CampaignRunner(prog).mmap
+    steps = prog.region.nominal_steps
+    rows = torch.arange(65536, device="cuda") + 131072
+    records = []
+    for spec in ("single", "burst(window=8,rate=0.5)"):
+        model = FaultModel.parse(spec)
+        gen = DeviceScheduleGen(mmap, steps, model)
+        gen_ms = time_ms(torch, lambda: gen.columns(1, 1_000_000, rows))
+
+        def host():
+            cols = generate(mmap, 65536, 1, steps,
+                            model=model).device_arrays()
+            return fault_from_numpy(cols, "cuda")
+
+        host_ms = time_ms(torch, host, iters=10)
+        records.append({"what": f"{spec} columns, 65536 rows",
+                        "device_gen_ms": gen_ms, "host_gen_upload_ms": host_ms})
+        log(f"{spec} fault columns for 65536 rows: device generator "
+            f"{gen_ms:.4f} ms; host generate() + upload {host_ms:.4f} ms "
+            f"[{card}]")
+    rec = prog.run_batch(DeviceScheduleGen(mmap, steps).columns(
+        1, 1_000_000, rows))
+    out = {k: rec[k].to(torch.int32) for k in ("errors", "corrected",
+                                               "steps")}
+    out["code"] = cls.classify(rec, prog.output_words)
+    valid = torch.ones(65536, dtype=torch.bool, device="cuda")
+    count_w = valid.to(torch.int32)
+    cap = 65536 // 4                 # the runner's default at this batch
+    pack = camp._pack_layout(prog.output_words, prog.region.max_steps)
+
+    def account():
+        return camp._sparse_device_outputs(out, count_w, valid, cap, pack)
+
+    dev = account()
+    k, ke = (int(x) for x in dev["head"][-2:].cpu())
+
+    def sparse_fetch():
+        dev["head"].cpu()
+        return torch.cat([dev["mask"], dev["packed"][:k],
+                          dev["exact"][:ke].flatten()]).cpu()
+
+    def dense_fetch():
+        return torch.stack([out[c] for c in ("code", "errors", "corrected",
+                                             "steps")]).cpu()
+
+    acct_ms = time_ms(torch, account, iters=50)
+    sparse_ms = time_ms(torch, sparse_fetch, iters=50)
+    dense_ms = time_ms(torch, dense_fetch, iters=50)
+    records.append({"what": "accounting and fetch, 65536 rows",
+                    "interesting": k, "device_accounting_ms": acct_ms,
+                    "sparse_fetch_ms": sparse_ms, "dense_fetch_ms": dense_ms})
+    log(f"one 65536-row batch ({k} interesting rows): device accounting "
+        f"{acct_ms:.4f} ms; sparse fetch {sparse_ms:.4f} ms; dense fetch of "
+        f"the four columns {dense_ms:.4f} ms [{card}]")
+    return records
+
+
 def main() -> None:
     try:
         import torch
@@ -707,6 +1014,10 @@ def main() -> None:
     try:
         from coast_tpu_torch import DWC, TMR, build
         from coast_tpu_torch.inject.campaign import CampaignRunner
+        from coast_tpu_torch.inject.device_gen import DeviceScheduleGen
+        from coast_tpu_torch.inject.mem import MemoryMap
+        from coast_tpu_torch.inject.schedule import FaultModel, generate
+        from coast_tpu_torch.interop import fault_from_numpy
         from coast_tpu_torch.models import REGISTRY
         from coast_tpu_torch.models.mm256 import order_sensitive
         from coast_tpu_torch.ops import fused_step as fs
@@ -744,7 +1055,7 @@ def main() -> None:
 
     # 3. K1 against its plain version, its time per leaf and per group.
     worst = check_k1(torch, hv, voters)
-    later = []       # device-only timings, run in phase 8
+    later = []       # device-only timings, run in phase 14
     k1 = time_k1(torch, later, hv, voters)
     k1["max_abs_err"] = max(k1["max_abs_err"], worst)
     k1["shapes"] = time_k1_groups(torch, later, hv, voters, TMR, DWC,
@@ -765,7 +1076,7 @@ def main() -> None:
                  f"{ {k: v.tolist() for k, v in rec.items() if v.dim() == 0} }")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        # The campaign's own peak: phase 8's inputs are held meanwhile.
+        # The campaign's own peak: phase 14's inputs are held meanwhile.
         held = torch.cuda.memory_allocated()
         before = hv.LAUNCHES
         res = CampaignRunner(prog, strategy_name=strat.__name__).run(
@@ -829,7 +1140,25 @@ def main() -> None:
     log("matrixMultiply1024 TMR fuse_step=True: no fused plan (float "
         "leaves), the unfused program runs")
 
-    # 8. Device-only times, after every campaign (see defer_device_ms).
+    # 8-13. Multi-site fault models and the sparse collect.
+    check_generator(torch, TMR, REGISTRY, MemoryMap, FaultModel, generate,
+                    DeviceScheduleGen, card)
+    new_launches = [million(torch, TMR, REGISTRY, CampaignRunner, hv, hc,
+                            card),
+                    flagship_sparse(torch, TMR, DWC, CampaignRunner,
+                                    FaultModel, REGISTRY, results, hv, hc,
+                                    card),
+                    grouped(torch, TMR, DWC, CampaignRunner, FaultModel,
+                            REGISTRY, hv, hc, card),
+                    overflow(TMR, CampaignRunner, REGISTRY, hv, hc, card)]
+    sparse_times = sparse_batch_times(
+        torch, TMR, REGISTRY, CampaignRunner, FaultModel, generate,
+        DeviceScheduleGen, fault_from_numpy, card)
+    log(json.dumps({"sparse_batch_ms": sparse_times}))
+    main_launches += sum(k1 for k1, _ in new_launches)
+    fused_launches += sum(k2 for _, k2 in new_launches)
+
+    # 14. Device-only times, after every campaign (see defer_device_ms).
     for name, record, key, fn in later:
         record[key] = device_ms(torch, fn)
         log(f"{name} {record['shape']}: {key} {fmt_ms(record[key])} a call "

@@ -65,6 +65,16 @@ def counts_dict(binc, train: bool = False) -> Dict[str, int]:
     return out
 
 
+def counts_histogram(counts) -> np.ndarray:
+    """The inverse of :func:`counts_dict`: a counts mapping (extra keys
+    such as ``cache_invalid`` ignored, absent classes zero) -> the int64
+    [NUM_CLASSES] histogram."""
+    out = np.zeros(NUM_CLASSES, np.int64)
+    for i, name in enumerate(CLASS_NAMES):
+        out[i] = int(counts.get(name, 0))
+    return out
+
+
 def completed_mask(codes) -> np.ndarray:
     """Rows that completed (reached the result line)."""
     codes = np.asarray(codes)

@@ -51,6 +51,15 @@ class MemoryMap:
                 return s
         raise KeyError(name)
 
+    def section_tables(self):
+        """The flat section layout the flip-group expansion and the
+        device generator read: ``(bits_end, leaf_id, lanes, words)``, the
+        cumulative bit edges (int64) and the per-section int32 columns."""
+        return (np.cumsum([s.bits for s in self.sections]).astype(np.int64),
+                np.array([s.leaf_id for s in self.sections], np.int32),
+                np.array([s.lanes for s in self.sections], np.int32),
+                np.array([s.words for s in self.sections], np.int32))
+
     def decode(self, flat_bits: np.ndarray):
         """Map uniform draws over [0, total_bits) to (leaf_id, lane, word,
         bit, section index)."""

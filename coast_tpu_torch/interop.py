@@ -50,6 +50,8 @@ def state_to_numpy(state: Mapping[str, torch.Tensor],
 
 def fault_from_numpy(cols: Mapping[str, np.ndarray],
                      device) -> Dict[str, torch.Tensor]:
-    """Fault columns (leaf_id, lane, word, bit, t) -> int32 tensors."""
+    """Fault columns (leaf_id, lane, word, bit, t) -> int32 tensors: [B]
+    for single sites, [B, sites] for flip groups (column 0 the base
+    site)."""
     return {k: torch.tensor(np.asarray(v, np.int32), device=device)
             for k, v in cols.items()}

@@ -604,41 +604,81 @@ class ProtectedProgram:
     def _all_halted(self, flags: Flags) -> bool:
         return bool(self._halted(flags).all())
 
-    def run_batch(self, fault: Optional[Mapping[str, np.ndarray]] = None,
+    def fire_plan_bytes(self, sites: int = 1) -> int:
+        """Bytes of the one device-to-host copy :meth:`run_batch` makes a
+        batch: a bool a step, and one a site column and a leaf."""
+        return self.region.max_steps + sites * len(self.leaf_order)
+
+    def _flip_plan(self, fault: Mapping[str, object]
+                   ) -> Tuple[List[bitflip.Site], FrozenSet[int],
+                              torch.Tensor]:
+        """The flip sites of a batch, one per site column, the steps at
+        which any row fires and the t columns ``[B, sites]`` on the device.
+        Host columns are uploaded first; the columns are then read through
+        one small copy (:meth:`fire_plan_bytes`): which steps any row
+        fires at, and which leaves each site column targets."""
+        cols = {k: fault[k] for k in ("leaf_id", "lane", "word", "bit", "t")}
+        cols.update(fault_from_numpy(
+            {k: v for k, v in cols.items() if not isinstance(v, torch.Tensor)},
+            self.device))
+        cols = {k: v.to(device=self.device, dtype=torch.int32
+                        ).reshape(v.shape[0], -1) for k, v in cols.items()}
+        n_sites = cols["t"].shape[1]
+        n_leaves = len(self.leaf_order)
+        steps = self.region.max_steps
+        t = cols["t"].flatten().to(torch.int64)
+        leaf = cols["leaf_id"].to(torch.int64)
+        # Slot t for a step, steps + g * n_leaves + i for leaf i of site
+        # column g; out-of-range draws mark a sink slot past them, which is
+        # not copied.
+        sink = self.fire_plan_bytes(n_sites)
+        flags = torch.zeros(sink + 1, dtype=torch.bool, device=self.device)
+        flags.scatter_(0, torch.where((t >= 0) & (t < steps), t, sink), True)
+        column = torch.arange(n_sites, device=self.device) * n_leaves
+        flags.scatter_(0, torch.where((leaf >= 0) & (leaf < n_leaves),
+                                      steps + column + leaf, sink).flatten(),
+                       True)
+        flags = flags[:sink].cpu().numpy()
+        fire_at = frozenset(np.flatnonzero(flags[:steps]).tolist())
+        targeted = flags[steps:].reshape(n_sites, n_leaves)
+        lane_words = {k: self.lane_words(k) for k in self.leaf_order}
+        lanes = {k: self.lanes_of(k) for k in self.leaf_order}
+        sites = [bitflip.build_site(
+                     self.leaf_order, lane_words, lanes,
+                     {k: v[:, g] for k, v in cols.items()}, self.device,
+                     np.flatnonzero(targeted[g]).tolist())
+                 for g in range(n_sites)]
+        return sites, fire_at, cols["t"]
+
+    def run_batch(self, fault: Optional[Mapping[str, object]] = None,
                   batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Run ``B`` campaign rows to completion, row ``r`` flipping its
-        fault site at step ``fault['t'][r]`` (host int32 columns
-        leaf_id/lane/word/bit/t).  ``fault=None`` runs ``batch`` fault-free
-        rows.  Returns the run record, one entry per row."""
-        if fault is None:
-            if batch is None:
-                raise ValueError("run_batch needs fault columns or a batch")
-        else:
-            fault = {k: np.asarray(v, np.int32) for k, v in fault.items()}
-            if any(v.ndim != 1 for v in fault.values()):
-                raise NotImplementedError(
-                    "multi-site fault groups are ROADMAP Queue A item 10; "
-                    "this slice runs single-site fault columns [B]")
-            batch = len(fault["t"])
-        pstate, flags = self.init_pstate(batch)
-        site, fire_at, fault_t = {}, set(), None
+        """Run ``B`` campaign rows to completion.  ``fault`` holds int32
+        columns leaf_id/lane/word/bit/t: numpy arrays on the host, or
+        tensors already on the program's device (the device generator's,
+        ``inject/device_gen.py``).  A column of shape ``[B]`` is one site
+        a row; ``[B, sites]`` is a flip group, site ``g`` firing at its own
+        ``t[:, g]``, the sites applied in order ``g = 0..sites-1``.
+        ``fault=None`` runs ``batch`` fault-free rows.  Returns the run
+        record, one entry per row."""
+        sites, fire_at, fault_t = [], frozenset(), None
         if fault is not None:
-            lane_words = {k: self.lane_words(k) for k in self.leaf_order}
-            lanes = {k: self.lanes_of(k) for k in self.leaf_order}
-            site = bitflip.build_site(self.leaf_order, lane_words, lanes,
-                                      fault, self.device)
-            fire_at = set(int(v) for v in fault["t"])
-            fault_t = fault_from_numpy({"t": fault["t"]}, self.device)["t"]
+            sites, fire_at, fault_t = self._flip_plan(fault)
+            batch = fault_t.shape[0]
+        elif batch is None:
+            raise ValueError("run_batch needs fault columns or a batch")
+        pstate, flags = self.init_pstate(batch)
 
         # The bounded loop (fused, max_steps == nominal_steps) runs every
         # trip with no host sync; the others stop once every row halted.
         bounded = self._fuse_plan is not None and self._fuse_plan.bounded_scan
         for t in range(self.region.max_steps):
-            if site and t in fire_at:
+            if t in fire_at:
                 # No injection once halted: a flip into a finished or
                 # aborted row's frozen image would mis-classify it.
                 live = ~self._halted(flags)
-                bitflip.apply_site(pstate, site, (fault_t == t) & live)
+                for g, site in enumerate(sites):
+                    bitflip.apply_site(pstate, site,
+                                       (fault_t[:, g] == t) & live)
             pstate, flags = self.step(pstate, flags, t)
             if not bounded and self._all_halted(flags):
                 break
@@ -688,19 +728,15 @@ class ProtectedProgram:
     def run(self, fault: Optional[Mapping[str, object]] = None
             ) -> Dict[str, torch.Tensor]:
         """Run one injection to completion; a batch of one.  ``fault`` keys:
-        leaf_id, lane, word, bit, t (ints or 0-d arrays/tensors)."""
+        leaf_id, lane, word, bit, t: ints or 0-d arrays for one site,
+        vectors of shape [sites] for a flip group."""
         cols = None
         if fault is not None:
             cols = {}
             for k, v in fault.items():
                 if isinstance(v, torch.Tensor):
                     v = v.cpu().numpy()
-                v = np.asarray(v, np.int32)
-                if v.ndim:
-                    raise NotImplementedError(
-                        "multi-site fault groups are ROADMAP Queue A item "
-                        "10; run() takes one site")
-                cols[k] = v.reshape(1)
+                cols[k] = np.asarray(v, np.int32)[None]
         rec = self.run_batch(cols, batch=1)
         return {k: v[0] for k, v in rec.items()}
 

@@ -173,3 +173,21 @@ def test_port_imports_no_jax_and_nothing_of_coast_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_finds_the_package_from_any_directory(tmp_path):
+    """Loading ``chip_smoke.py`` from another directory, with PYTHONPATH
+    cleared, puts its own directory on ``sys.path`` (at module level: with
+    no card, ``main()`` stops before it imports the package)."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    code = ("import runpy\n"
+            f"runpy.run_path({script!r}, run_name='probe')\n"
+            "import coast_tpu_torch\n"
+            "print(coast_tpu_torch.__file__)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith(
+        os.path.join(REPO, "coast_tpu_torch"))

@@ -141,7 +141,7 @@ def test_flip_bit_31_is_int32_min_and_out_of_range_flips_nothing():
                               {"leaf_id": np.array([0, 0]),
                                "lane": np.array([2, 3]),
                                "word": np.array([1, 1]),
-                               "bit": np.array([31, 0])}, "cpu")
+                               "bit": np.array([31, 0])}, "cpu", [0])
     bitflip.apply_site(state, site, torch.tensor([True, True]))
     flipped = state["x"].view(torch.int32)
     assert flipped[0, 2, 1].item() == -2**31          # -0.0's bits
@@ -161,7 +161,7 @@ def test_tmr_repair_is_materialised_per_lane():
                               {"leaf_id": np.array([5, 5]),
                                "lane": np.array([1, 1]),
                                "word": np.array([0, 0]),
-                               "bit": np.array([3, 3])}, "cpu")
+                               "bit": np.array([3, 3])}, "cpu", [5])
     bitflip.apply_site(pstate, site, torch.tensor([True, False]))
     assert pstate["i"].tolist() == [[0, 8, 0], [0, 0, 0]]
 

@@ -218,10 +218,11 @@ def test_unported_features_refuse_with_roadmap_item():
             "train_probe": lambda s: s})
     with pytest.raises(NotImplementedError, match="DWC"):
         ct.EDDI(region, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ct.TMR(region, device="cpu").run({"leaf_id": [0, 1], "lane": [0, 0],
-                                          "word": [0, 0], "bit": [0, 0],
-                                          "t": [1, 2]})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # Item 10 landed: a flip group (vector fault entries) runs.
+    rec = ct.TMR(region, device="cpu").run({"leaf_id": [0, 1],
+                                            "lane": [0, 0], "word": [0, 0],
+                                            "bit": [0, 0], "t": [1, 2]})
+    assert rec["steps"].dim() == 0 and bool(rec["done"])
+    with pytest.raises(NotImplementedError, match="item 17"):
         generate(MemoryMap(ct.TMR(region, device="cpu")), 4, 0, 18,
-                 model="burst")
+                 equiv=object())
