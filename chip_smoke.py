@@ -67,7 +67,29 @@ Phases, in order; any failure exits non-zero:
  13. where a sparse batch's time goes (CUDA events, 65,536 rows): the
      device generator against the host ``generate()`` and upload, the
      device accounting, the sparse fetch against the dense fetch;
- 14. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
+ 14. the supervisor CLI (``python -m coast_tpu_torch.inject.supervisor``,
+     each run a process of its own, working files under ``build/``),
+     killed and resumed: matrixMultiply TMR dense with a streamed ndjson
+     log, and crc16 DWC fused sparse multibit(k=4) with a json log,
+     262,144 injections at batch 4096, each once uninterrupted and once
+     killed with SIGKILL after 8 journaled batches, then ``--resume``:
+     the same summary counts and per-injection log lines, and exactly
+     64 batch records;
+ 15. out-of-memory degradation: matrixMultiply1024 TMR, 256 injections at
+     batch 2048 (too large for the card), ``--max-retries 3``: a real
+     CUDA out-of-memory error halves the batch until it fits, the journal
+     holds the geometry records, and the rows equal a batch-128 run
+     outside the f32 exemption; the batch it settled on and the process's
+     peak memory;
+ 16. the watchdog: phase 14's first campaign with ``--collect-timeout
+     1e-6 --max-retries 1`` exits non-zero with CampaignWedgedError and an
+     intact journal; ``--resume`` without the timeout equals phase 14's
+     uninterrupted run;
+ 17. what durability costs: phase 9's 10^6 campaigns, dense and sparse,
+     with a journal and a streamed ndjson log through the runner and then
+     through the CLI; each rate beside phase 9's, the journal's and the
+     log's bytes (no target);
+ 18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
 
@@ -75,15 +97,21 @@ It prints the kernel table as one JSON line before the last (``ms``,
 ``plain_ms`` and ``bound_ms`` at the flagship shape, as before; every
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
-``launches`` count every campaign that ran them: K1 those of phases 4 and
-9-12, K2 those of phases 7b and 9-12 (each phase's counts set to 0 just
-before it and read just after).  It imports nothing of
-JAX or of the coast_tpu package.
+``launches`` count every campaign that ran them: K1 those of phases 4,
+9-12 and 14-17, K2 those of phases 7b, 9-12 and 14-17 (each phase's
+counts set to 0 just before it and read just after; a supervisor process
+reports its own at exit).  It imports nothing of JAX or of the coast_tpu
+package.
 """
 
 from __future__ import annotations
 
+import ast
 import json
+import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -94,7 +122,8 @@ import numpy as np
 
 # The package sits beside this script: make it importable from any working
 # directory (``python3 /path/to/chip_smoke.py``).
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 
@@ -209,7 +238,7 @@ def fmt_ms(ms) -> str:
 
 def defer_device_ms(later: list, name: str, record: dict, key: str,
                     fn) -> None:
-    """Queue the device-only time of ``fn`` for ``record[key]``.  Phase 14
+    """Queue the device-only time of ``fn`` for ``record[key]``.  Phase 18
     runs the queue after every campaign: a torch.profiler session leaves
     launch overhead behind that slows the campaigns run after it."""
     record[key] = None
@@ -222,7 +251,7 @@ def time_group(torch, later: list, name: str, label: str, grouped, leaves,
     one call, host work included), beside the same sites as groups of one
     (``leaves``: one launch a leaf, the per-leaf form), the plain version
     and the bytes bound of the group; the device-only times of the first
-    two (torch.profiler over 200 calls) are queued for phase 14."""
+    two (torch.profiler over 200 calls) are queued for phase 18."""
     res = {"shape": label,
            "ms": time_ms(torch, grouped, iters),
            "per_leaf_ms": time_ms(torch, leaves, iters),
@@ -788,7 +817,7 @@ def million(torch, TMR, REGISTRY, CampaignRunner, hv, hc, card: str) -> tuple:
     """Phase 9: matrixMultiply TMR, 10^6 injections at batch 65,536, seed
     1, dense and then sparse (each after a one-batch warm-up): counts,
     interesting rows and their columns equal.  Returns the (K1, K2)
-    launches of the two campaigns."""
+    launches of the two campaigns and their results by collect mode."""
     prog = TMR(REGISTRY["matrixMultiply"]())
     runners = {c: CampaignRunner(prog, strategy_name="TMR", collect=c)
                for c in ("dense", "sparse")}
@@ -810,7 +839,7 @@ def million(torch, TMR, REGISTRY, CampaignRunner, hv, hc, card: str) -> tuple:
             f"{rate_line(r)}, {n_int} interesting rows [{card}]")
     log(f"  sparse = dense (counts, interesting rows, columns); K1 "
         f"launches {launches[0]} over both")
-    return launches
+    return launches, res
 
 
 def flagship_sparse(torch, TMR, DWC, CampaignRunner, FaultModel,
@@ -1004,6 +1033,381 @@ def sparse_batch_times(torch, TMR, REGISTRY, CampaignRunner, FaultModel,
     return records
 
 
+# -- phases 14-17: the supervisor CLI, its journal, retry and logs -----------
+
+# Summary keys that differ between two runs of one campaign.
+VOLATILE = ("seconds", "injections_per_sec", "stages", "transfer_bytes")
+TIMESTAMP = re.compile(rb'"timestamp": "[^"]*"')
+
+# Runs the supervisor module as ``python -m coast_tpu_torch.inject.supervisor``
+# does, and at exit reports on stderr the process's K1 and K2 launches and
+# its peak device memory (a process killed with SIGKILL reports nothing).
+SUPERVISOR = """\
+import atexit, json, runpy, sys
+from coast_tpu_torch.ops import hopper_commit, hopper_voters
+
+
+def report():
+    import torch
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.cuda.is_initialized() else 0)
+    print("chip_smoke.report " + json.dumps(
+        {"k1": hopper_voters.LAUNCHES, "k2": hopper_commit.LAUNCHES,
+         "peak": peak}), file=sys.stderr, flush=True)
+
+
+atexit.register(report)
+runpy.run_module("coast_tpu_torch.inject.supervisor", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def start_cli(argv, board: str) -> subprocess.Popen:
+    """Start one supervisor process on ``board`` from the checkout's root."""
+    return subprocess.Popen(
+        [sys.executable, "-c", SUPERVISOR, *argv, "-d", board], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(proc: subprocess.Popen, what: str, expect_ok: bool = True,
+               timeout: float = 600) -> dict:
+    """Wait for a supervisor process: its exit code, output, printed
+    summary (None if it printed none) and its exit report (K1/K2
+    launches, peak device bytes).  Fails on a non-zero exit unless
+    ``expect_ok`` is False."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what}: the supervisor ran past {timeout} s")
+    report = {"k1": 0, "k2": 0, "peak": 0}
+    for line in err.splitlines():
+        if line.startswith("chip_smoke.report "):
+            report = json.loads(line.split(" ", 1)[1])
+    if expect_ok and proc.returncode != 0:
+        fail(f"{what}: the supervisor exited {proc.returncode}: "
+             f"{err.strip()[-3000:]}")
+    dicts = [ln for ln in out.splitlines() if ln.startswith("{")]
+    return {**report, "rc": proc.returncode, "out": out, "err": err,
+            "summary": ast.literal_eval(dicts[-1]) if dicts else None}
+
+
+def run_cli(argv, board: str, what: str, **kw) -> dict:
+    return finish_cli(start_cli(argv, board), what, **kw)
+
+
+def steady(summary: dict) -> dict:
+    """A summary without the keys that differ between two runs."""
+    return {k: v for k, v in summary.items() if k not in VOLATILE}
+
+
+def journal_records(path) -> list:
+    """A journal's complete records (a torn last line is left out)."""
+    records = []
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.endswith(b"\n"):
+                break
+            records.append(json.loads(line))
+    return records
+
+
+def count_batches(path) -> int:
+    try:
+        return sum(r["kind"] == "batch" for r in journal_records(path))
+    except FileNotFoundError:
+        return 0                   # the process has not created it yet
+
+
+def log_content(log_dir: Path, fmt: str) -> tuple:
+    """The one log file in ``log_dir`` without its timestamps and its
+    summary's volatile keys: (summary, per-injection bytes)."""
+    names = os.listdir(log_dir)
+    if len(names) != 1:
+        fail(f"{log_dir}: expected one log file, found {names}")
+    data = (log_dir / names[0]).read_bytes()
+    if fmt == "ndjson":
+        head, rows = data.split(b"\n", 1)
+        return steady(json.loads(head)["summary"]), TIMESTAMP.sub(b"", rows)
+    doc = json.loads(data)
+    summary = steady(doc.pop("summary"))
+    return summary, TIMESTAMP.sub(b"", json.dumps(doc).encode())
+
+
+def check_same_run(what: str, got: dict, want: dict, got_dir: Path,
+                   want_dir: Path, fmt: str) -> int:
+    """Fail unless two supervisor runs of one campaign printed the same
+    summary and wrote the same log, timestamps and volatile keys aside.
+    Returns the log's per-injection bytes."""
+    if steady(got["summary"]) != steady(want["summary"]):
+        fail(f"{what}: summary {steady(got['summary'])} differs from the "
+             f"uninterrupted run's {steady(want['summary'])}")
+    got_log, want_log = log_content(got_dir, fmt), log_content(want_dir, fmt)
+    if got_log[0] != want_log[0]:
+        fail(f"{what}: the log's summary differs from the uninterrupted "
+             "run's")
+    if got_log[1] != want_log[1]:
+        fail(f"{what}: the log's per-injection lines differ from the "
+             "uninterrupted run's")
+    return len(got_log[1])
+
+
+# (label, argv, log format) of phase 14's two campaigns.
+KILL_CAMPAIGNS = (
+    ("matrixMultiply TMR dense, streamed ndjson",
+     ["-f", "matrixMultiply", "-O", "-TMR", "--stream-logs", "--log-format",
+      "ndjson"], "ndjson"),
+    ("crc16 DWC fused sparse multibit(k=4), json",
+     ["-f", "crc16", "-O", "-DWC -fuseStep", "--collect", "sparse",
+      "--fault-model", "multibit(k=4)", "--log-format", "json"], "json"),
+)
+
+
+def kill_resume(work: Path, board: str, card: str, n: int = 262144,
+                batch: int = 4096, kill_at: int = 8) -> tuple:
+    """Phase 14: each campaign of ``KILL_CAMPAIGNS`` through the supervisor
+    CLI, ``n`` injections at ``batch``, seed 5, with a journal: once
+    uninterrupted; once killed with SIGKILL as soon as its journal holds
+    ``kill_at`` batch records, then rerun with ``--resume``.  The resumed
+    run's summary and log equal the uninterrupted run's, and its journal
+    holds exactly ceil(n / batch) batch records.  Returns the (K1, K2)
+    launches and, for phase 16, the first campaign's argv, uninterrupted
+    run and its log directory."""
+    launches = [0, 0]
+    first = None
+    want_batches = -(-n // batch)
+    for label, argv, fmt in KILL_CAMPAIGNS:
+        argv = [*argv, "-t", str(n), "--batch-size", str(batch), "--seed",
+                "5"]
+        tag = argv[1]
+        dirs = {k: work / f"{tag}_{k}" for k in ("full", "killed", "resumed")}
+        for d in dirs.values():
+            d.mkdir(parents=True)
+        t0 = time.perf_counter()
+        full = run_cli([*argv, "--journal", str(work / f"{tag}_full.ndjson"),
+                        "-l", str(dirs["full"])], board,
+                       f"{label}, uninterrupted")
+        full_s = time.perf_counter() - t0
+        journal = work / f"{tag}_killed.ndjson"
+        proc = start_cli([*argv, "--journal", str(journal), "-l",
+                          str(dirs["killed"])], board)
+        t0 = time.perf_counter()
+        while count_batches(journal) < kill_at:
+            if proc.poll() is not None:
+                finish_cli(proc, f"{label}, to be killed")
+                fail(f"{label}: the campaign ended before its journal held "
+                     f"{kill_at} batches")
+            if time.perf_counter() - t0 > 600:
+                proc.kill()
+                proc.communicate()
+                fail(f"{label}: no {kill_at} batches journaled in 600 s")
+            time.sleep(0.002)
+        os.kill(proc.pid, signal.SIGKILL)
+        killed = finish_cli(proc, f"{label}, killed", expect_ok=False)
+        at_kill = count_batches(journal)
+        if killed["rc"] != -signal.SIGKILL or at_kill >= want_batches:
+            fail(f"{label}: the kill did not cut the campaign (exit "
+                 f"{killed['rc']}, {at_kill} of {want_batches} batches)")
+        t0 = time.perf_counter()
+        resumed = run_cli([*argv, "--journal", str(journal), "--resume",
+                           "-l", str(dirs["resumed"])], board,
+                          f"{label}, resumed")
+        resumed_s = time.perf_counter() - t0
+        size = check_same_run(f"{label}, resumed", resumed, full,
+                              dirs["resumed"], dirs["full"], fmt)
+        got_batches = count_batches(journal)
+        if got_batches != want_batches:
+            fail(f"{label}: the resumed journal holds {got_batches} batch "
+                 f"records, not {want_batches}")
+        k1 = full["k1"] + resumed["k1"]
+        k2 = full["k2"] + resumed["k2"]
+        launches[0] += k1
+        launches[1] += k2
+        log(f"{label}, {n} at {batch} through the supervisor: SIGKILL after "
+            f"{at_kill} journaled batches, --resume gives the uninterrupted "
+            f"counts {steady(full['summary'])} and per-injection log "
+            f"({size} bytes without timestamps); {got_batches} batch "
+            f"records; uninterrupted {full_s:.2f} s, resumed {resumed_s:.2f}"
+            f" s wall per process; K1 {k1}, K2 {k2} launches (uninterrupted "
+            f"and resumed) [{card}]")
+        if first is None:
+            first = (argv, full, dirs["full"], fmt)
+    return tuple(launches), first
+
+
+def oom_degrade(work: Path, board: str, card: str, torch, TMR, REGISTRY,
+                CampaignRunner, order_sensitive, rows: int = 256,
+                batch: int = 2048, bench: str = "matrixMultiply1024") -> tuple:
+    """Phase 15: ``bench`` TMR through the supervisor, ``rows`` injections
+    at a batch (``batch``) too large for the card, ``--max-retries 3``:
+    the runner meets a real CUDA out-of-memory error, halves the batch
+    until it fits and journals each geometry.  Its rows equal a batch-128
+    run of the same rows outside ``mm256.order_sensitive``.  Returns the
+    (K1, K2) launches."""
+    journal = work / "oom.ndjson"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = run_cli(["-f", bench, "-O", "-TMR", "-t", str(rows), "--batch-size",
+                   str(batch), "--max-retries", "3", "--journal",
+                   str(journal), "-q"], board, f"{bench} at batch {batch}")
+    wall = time.perf_counter() - t0
+    records = journal_records(journal)
+    sizes = [r["batch_size"] for r in records if r["kind"] == "geometry"]
+    degrades = run["summary"].get("resilience", {}).get("oom_degrade", 0)
+    if not sizes or degrades < 1:
+        fail(f"{bench} at batch {batch}: no out-of-memory degradation "
+             f"(geometry records {sizes}, oom_degrade {degrades})")
+    batches = [r for r in records if r["kind"] == "batch"]
+    got = {col: np.concatenate([np.asarray(r[col], np.int32)
+                                for r in batches])
+           for col in ("codes", "errors", "corrected", "steps")}
+    from coast_tpu_torch.inject.supervisor import section_filter
+    device = "cpu" if board == "cpu" else "cuda"
+    prog = TMR(REGISTRY[bench](), device=device)
+    want = CampaignRunner(prog, sections=section_filter(prog, "memory"),
+                          strategy_name="TMR").run(rows, seed=0,
+                                                   batch_size=128)
+    sched = want.schedule
+    exempt = order_sensitive(prog.leaf_order, sched.leaf_id, sched.bit)
+    differ = np.zeros(rows, bool)
+    for col in got:
+        differ |= got[col] != getattr(want, col)
+        if differ[~exempt].any():
+            fail(f"{bench} degraded run: {col} differs from the batch-128 "
+                 "run outside the f32 exemption")
+    if steady(run["summary"])["injections"] != rows:
+        fail(f"{bench} degraded run covers {run['summary']['injections']} "
+             f"rows, not {rows}")
+    log(f"{bench} TMR {rows} at batch {batch} through the supervisor: "
+        f"out of memory, degraded {degrades} times (batch "
+        f"{' -> '.join(map(str, [batch, *sizes]))}), settled at batch "
+        f"{sizes[-1]}; process peak "
+        f"{run['peak'] / 2**30:.2f} GiB (max_memory_allocated); rows equal "
+        f"the batch-128 run ({int(exempt.sum())} exempt, {int(differ.sum())}"
+        f" of them differ); {steady(run['summary'])}; {wall:.2f} s wall; "
+        f"K1 {run['k1']}, K2 {run['k2']} launches [{card}]")
+    del prog, want
+    torch.cuda.empty_cache()
+    return run["k1"], run["k2"]
+
+
+def watchdog(work: Path, board: str, card: str, first) -> tuple:
+    """Phase 16: phase 14's first campaign with ``--collect-timeout 1e-6
+    --max-retries 1``: every collect outlives the watchdog, so the run
+    exits non-zero with CampaignWedgedError and an intact journal; then
+    ``--resume`` without the timeout completes, equal to phase 14's
+    uninterrupted run.  Returns the (K1, K2) launches."""
+    argv, full, full_dir, fmt = first
+    journal = work / "wedged.ndjson"
+    wedged_dir, resumed_dir = work / "wedged", work / "wedged_resumed"
+    wedged_dir.mkdir()
+    resumed_dir.mkdir()
+    wedged = run_cli([*argv, "--journal", str(journal), "-l",
+                      str(wedged_dir), "--collect-timeout", "1e-6",
+                      "--max-retries", "1"], board, "wedged campaign",
+                     expect_ok=False)
+    if wedged["rc"] == 0 or "CampaignWedgedError" not in wedged["err"]:
+        fail(f"the wedged campaign exited {wedged['rc']} without "
+             f"CampaignWedgedError: {wedged['err'][-2000:]}")
+    records = journal_records(journal)
+    kinds = [r["kind"] for r in records]
+    retries = kinds.count("retry")
+    if not kinds or kinds[0] != "header" or retries < 1:
+        fail(f"the wedged campaign's journal holds {kinds}")
+    if os.listdir(wedged_dir):
+        fail("the wedged campaign left a log behind")
+    resumed = run_cli([*argv, "--journal", str(journal), "--resume", "-l",
+                       str(resumed_dir)], board, "wedged campaign, resumed")
+    check_same_run("wedged campaign, resumed", resumed, full, resumed_dir,
+                   full_dir, fmt)
+    log(f"{argv[1]} with --collect-timeout 1e-6 --max-retries 1: exit "
+        f"{wedged['rc']}, CampaignWedgedError, journal intact ({len(kinds)} "
+        f"records: {kinds.count('batch')} batches, {retries} retry); "
+        f"--resume without the timeout equals phase 14's uninterrupted run; "
+        f"K1 {wedged['k1'] + resumed['k1']}, K2 "
+        f"{wedged['k2'] + resumed['k2']} launches [{card}]")
+    return (wedged["k1"] + resumed["k1"], wedged["k2"] + resumed["k2"])
+
+
+def durability(work: Path, board: str, card: str, TMR, REGISTRY,
+               CampaignRunner, StreamLogWriter, bare: dict,
+               n: int = 1_000_000, batch: int = 65536) -> tuple:
+    """Phase 17: what durability costs the 10^6 campaign of phase 9
+    (matrixMultiply TMR at ``batch``, seed 1), dense and sparse: through
+    the runner with a journal and a streamed ndjson log, then through the
+    supervisor CLI with ``--journal --stream-logs --log-format ndjson``
+    (which draws from its default section, memory).  The runner's counts
+    equal phase 9's (``bare``), the CLI's dense counts its sparse counts;
+    prints each rate beside phase 9's
+    and the journal's and the log's bytes.  Returns the (K1, K2)
+    launches of the runner's campaigns and the CLI's."""
+    from coast_tpu_torch.ops import hopper_commit as hc
+    from coast_tpu_torch.ops import hopper_voters as hv
+    device = "cpu" if board == "cpu" else "cuda"
+    prog = TMR(REGISTRY["matrixMultiply"](), device=device)
+    launches = [0, 0]
+    cli_counts = {}
+    for collect in ("dense", "sparse"):
+        runner = CampaignRunner(prog, strategy_name="TMR", collect=collect)
+        runner.run(batch, seed=0, batch_size=batch)     # warm-up, as phase 9
+        journal = work / f"durable_{collect}.ndjson"
+        path = work / f"durable_{collect}.json"
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stream = StreamLogWriter(str(path), runner.mmap, fmt="ndjson")
+        res = runner.run(n, seed=1, batch_size=batch, journal=str(journal),
+                         stream=stream)
+        stream.finish(res)
+        wall = time.perf_counter() - t0
+        runner_launches = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += hv.LAUNCHES
+        launches[1] += hc.LAUNCHES
+        if res.counts != bare[collect].counts:
+            fail(f"durable {collect} 10^6: counts {res.counts} differ from "
+                 f"phase 9's {bare[collect].counts}")
+        sizes = (journal.stat().st_size, path.stat().st_size)
+        journal.unlink()
+        path.unlink()
+        cli_dir = work / f"durable_cli_{collect}"
+        cli_dir.mkdir()
+        cli_journal = work / f"durable_cli_{collect}.ndjson"
+        t0 = time.perf_counter()
+        cli = run_cli(["-f", "matrixMultiply", "-O", "-TMR", "-t", str(n),
+                       "--batch-size", str(batch), "--seed", "1",
+                       "--collect", collect, "--journal", str(cli_journal),
+                       "--stream-logs", "--log-format", "ndjson", "-l",
+                       str(cli_dir)], board, f"durable {collect} 10^6 CLI")
+        cli_wall = time.perf_counter() - t0
+        launches[0] += cli["k1"]
+        launches[1] += cli["k2"]
+        # The CLI draws from its default section, memory: other counts
+        # than phase 9's whole map, the same in both collect modes.
+        counts = {k: cli["summary"][k] for k in bare[collect].counts}
+        if cli_counts.setdefault("memory", counts) != counts:
+            fail(f"durable 10^6 CLI: {collect} counts {counts} differ from "
+                 f"dense {cli_counts['memory']}")
+        cli_sizes = (cli_journal.stat().st_size,
+                     sum(p.stat().st_size for p in cli_dir.iterdir()))
+        cli_journal.unlink()
+        shutil.rmtree(cli_dir)
+        stages = {k: round(v, 4) for k, v in res.stages.items()}
+        log(f"matrixMultiply TMR {n} at {batch} {collect}: phase 9 without "
+            f"durability {bare[collect].injections_per_sec:.1f} inj/s; with "
+            f"a journal and a streamed ndjson log, runner "
+            f"{res.injections_per_sec:.1f} inj/s in run ({n / wall:.1f} "
+            f"inj/s to the log's finish, {wall:.2f} s; stages {stages}, "
+            f"serialize = seconds not overlapped); supervisor CLI "
+            f"{cli['summary']['injections_per_sec']:.1f} inj/s in run "
+            f"({cli_wall:.2f} s process wall, stages "
+            f"{cli['summary']['stages']}); journal {sizes[0]} B, log "
+            f"{sizes[1]} B (CLI {cli_sizes[0]} B, {cli_sizes[1]} B); K1 "
+            f"{runner_launches[0]} (runner) + {cli['k1']} (CLI), K2 "
+            f"{runner_launches[1]} + {cli['k2']} launches [{card}]")
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -1015,6 +1419,7 @@ def main() -> None:
         from coast_tpu_torch import DWC, TMR, build
         from coast_tpu_torch.inject.campaign import CampaignRunner
         from coast_tpu_torch.inject.device_gen import DeviceScheduleGen
+        from coast_tpu_torch.inject.logs import StreamLogWriter
         from coast_tpu_torch.inject.mem import MemoryMap
         from coast_tpu_torch.inject.schedule import FaultModel, generate
         from coast_tpu_torch.interop import fault_from_numpy
@@ -1055,7 +1460,7 @@ def main() -> None:
 
     # 3. K1 against its plain version, its time per leaf and per group.
     worst = check_k1(torch, hv, voters)
-    later = []       # device-only timings, run in phase 14
+    later = []       # device-only timings, run in phase 18
     k1 = time_k1(torch, later, hv, voters)
     k1["max_abs_err"] = max(k1["max_abs_err"], worst)
     k1["shapes"] = time_k1_groups(torch, later, hv, voters, TMR, DWC,
@@ -1076,7 +1481,7 @@ def main() -> None:
                  f"{ {k: v.tolist() for k, v in rec.items() if v.dim() == 0} }")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        # The campaign's own peak: phase 14's inputs are held meanwhile.
+        # The campaign's own peak: phase 18's inputs are held meanwhile.
         held = torch.cuda.memory_allocated()
         before = hv.LAUNCHES
         res = CampaignRunner(prog, strategy_name=strat.__name__).run(
@@ -1143,8 +1548,9 @@ def main() -> None:
     # 8-13. Multi-site fault models and the sparse collect.
     check_generator(torch, TMR, REGISTRY, MemoryMap, FaultModel, generate,
                     DeviceScheduleGen, card)
-    new_launches = [million(torch, TMR, REGISTRY, CampaignRunner, hv, hc,
-                            card),
+    million_launches, bare = million(torch, TMR, REGISTRY, CampaignRunner,
+                                     hv, hc, card)
+    new_launches = [million_launches,
                     flagship_sparse(torch, TMR, DWC, CampaignRunner,
                                     FaultModel, REGISTRY, results, hv, hc,
                                     card),
@@ -1155,10 +1561,24 @@ def main() -> None:
         torch, TMR, REGISTRY, CampaignRunner, FaultModel, generate,
         DeviceScheduleGen, fault_from_numpy, card)
     log(json.dumps({"sparse_batch_ms": sparse_times}))
+    # 14-17. The supervisor CLI: kill and resume, out-of-memory
+    # degradation, the watchdog, and what durability costs at 10^6.
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cli_launches, first = kill_resume(work, "gpu", card)
+    new_launches += [
+        cli_launches,
+        oom_degrade(work, "gpu", card, torch, TMR, REGISTRY, CampaignRunner,
+                    order_sensitive),
+        watchdog(work, "gpu", card, first),
+        durability(work, "gpu", card, TMR, REGISTRY, CampaignRunner,
+                   StreamLogWriter, bare)]
+    shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
 
-    # 14. Device-only times, after every campaign (see defer_device_ms).
+    # 18. Device-only times, after every campaign (see defer_device_ms).
     for name, record, key, fn in later:
         record[key] = device_ms(torch, fn)
         log(f"{name} {record['shape']}: {key} {fmt_ms(record[key])} a call "

@@ -10,14 +10,26 @@ classified there.  ``counts`` carries the reference's keys,
   errors, corrected and steps columns of every row come back.
 * ``collect="sparse"``: a seeded schedule's flip sites are regenerated on
   the device (``inject/device_gen.py``; a schedule the stream cannot
-  reproduce, such as strata, is uploaded once and sliced there), the class
-  histogram and the compaction of the interesting rows (class outside
-  success/corrected) are computed there, and only those come back: the
-  histogram, a row bitmask and one packed word a row (:func:`_pack_layout`).
-  A batch whose interesting rows overflow the buffer falls back to a dense
-  fetch.  Counts, interesting rows and their columns equal the dense
-  path's; ``CampaignResult.codes`` then covers the interesting rows only,
-  indexed by ``interesting_rows``.
+  reproduce, such as strata or a cache overlay, is uploaded once and
+  sliced there), the class histogram and the compaction of the interesting
+  rows (class outside success/corrected) are computed there, and only
+  those come back: the histogram, a row bitmask and one packed word a row
+  (:func:`_pack_layout`).  A batch whose interesting rows overflow the
+  buffer falls back to a dense fetch.  Counts, interesting rows and their
+  columns equal the dense path's; ``CampaignResult.codes`` then covers the
+  interesting rows only, indexed by ``interesting_rows``.
+
+Every batch is split as the reference splits it: the *dispatch* (the run
+and the classification on the device, plus the sparse accounting) and the
+*collect* (the device-to-host copy of the result columns).  Only the
+collect runs under the retry policy's watchdog
+(:func:`coast_tpu_torch.inject.resilience.watchdog_collect`), so a thread
+it abandons holds a copy, not the engine; a re-dispatch allocates its own
+tensors.  ``run_schedule`` takes the reference's ``progress``,
+``journal``, ``journal_base``, ``stream`` and ``stop_when``: a journaled
+campaign killed at any point resumes at its first missing batch with the
+uninterrupted run's records, and a :class:`~coast_tpu_torch.inject.logs.
+StreamLogWriter` serializes each batch as it lands.
 
 ``CampaignResult.transfer`` counts the host<->device bytes of every
 campaign as the reference counts them, plus the one copy the port's engine
@@ -28,23 +40,50 @@ touch (``ProtectedProgram.fire_plan_bytes``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
-from typing import Dict, Optional, Sequence
+import traceback
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from coast_tpu_torch.inject import classify as cls
+from coast_tpu_torch.inject import resilience as resilience_mod
 from coast_tpu_torch.inject.device_gen import DeviceGenError, DeviceScheduleGen
+from coast_tpu_torch.inject.journal import (CampaignJournal,
+                                            FaultModelMismatchError,
+                                            FuseStepMismatchError,
+                                            JournalError,
+                                            JournalMismatchError,
+                                            PlacementMismatchError,
+                                            config_fingerprint,
+                                            schedule_fingerprint)
 from coast_tpu_torch.inject.mem import MemoryMap
 from coast_tpu_torch.inject.schedule import (FaultModel, FaultSchedule,
                                              generate)
+from coast_tpu_torch.inject.spec import (CampaignSpec, header_collect,
+                                         header_fuse, header_placement)
 
 _COLUMNS = ("code", "errors", "corrected", "steps")
+# Journal record key of each result column.
+_RECORD_KEYS = (("code", "codes"), ("errors", "errors"),
+                ("corrected", "corrected"), ("steps", "steps"))
 # Profiler spans around the sparse collect's own layers, once a batch
 # (``breakdown.py`` reads their device time from a campaign's profile).
 SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
+
+# Runner features of the reference that later slices port, with the ROADMAP
+# Queue A item that brings each.
+_LATER_RUNNER = {
+    "mesh": "item 16 (the sharded backend)",
+    "equiv": "item 17 (equivalence reduction)",
+    "metrics": "item 18 (live metrics)",
+    "profile": "item 18 (the campaign profiler)",
+    "slo": "item 19 (reliability SLOs)",
+}
 
 
 @dataclasses.dataclass
@@ -62,6 +101,22 @@ class CampaignResult:
     steps: np.ndarray                 # int32 T per run
     schedule: FaultSchedule
     seed: int
+    # Multi-chunk campaigns (run_until_errors, replay_chunks): the (seed,
+    # n, start_num) of every chunk, in order; replay_chunks(chunks)
+    # reproduces ``codes``.  None for single-seed campaigns.
+    chunks: Optional[List[Dict[str, int]]] = None
+    # Wall-clock seconds per stage: schedule, sparse_setup, pad, dispatch,
+    # collect, classify, plus serialize (and the ``overlap`` fraction of a
+    # streamed log) once a log writer ran.
+    stages: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # First injection number of this campaign within its seed stream.
+    start_num: int = 0
+    # retry_transient / retry_wedged / oom_degrade counts when the runner
+    # had a RetryPolicy, {} otherwise.
+    resilience: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Wilson intervals at the end and whether ``stop_when`` stopped the
+    # campaign early; None unless it ran with ``stop_when``.
+    convergence: Optional[Dict[str, object]] = None
     # "dense": the columns above cover all n rows; "sparse": only the
     # interesting rows, whose schedule-local indices (int64) are
     # ``interesting_rows``.
@@ -74,9 +129,83 @@ class CampaignResult:
     def injections_per_sec(self) -> float:
         return self.n / self.seconds if self.seconds > 0 else float("inf")
 
+    def record_stage(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` to one stage (log writers bill 'serialize' here
+        after the campaign object exists)."""
+        self.stages[name] = self.stages.get(name, 0.0) + float(seconds)
+
+    @property
+    def due(self) -> int:
+        """DUE bucket: aborts, timeouts and the DUE sub-buckets."""
+        return sum(self.counts[k] for k in cls.DUE_CLASSES)
+
+    @property
+    def sdc_total(self) -> int:
+        """Uncorrected silent corruption (``classify.SDC_CLASSES``)."""
+        return sum(self.counts.get(k, 0) for k in cls.SDC_CLASSES)
+
     @property
     def fault_model(self) -> FaultModel:
         return self.schedule.model
+
+    def summary(self) -> Dict[str, object]:
+        """The reference's summary dict, key for key and in its order (the
+        log writers' header and the supervisor's output line)."""
+        stages = {k: round(v, 6) for k, v in self.stages.items()}
+        stages.setdefault("overlap", 0.0)
+        out = {
+            "benchmark": self.benchmark,
+            "strategy": self.strategy,
+            "injections": self.n,
+            **self.counts,
+            "due": self.due,
+            "seconds": round(self.seconds, 6),
+            "injections_per_sec": round(self.injections_per_sec, 2),
+            "seed": self.seed,
+            "stages": stages,
+        }
+        if self.transfer:
+            out["transfer_bytes"] = {
+                "up": int(self.transfer.get("up", 0)),
+                "down": int(self.transfer.get("down", 0))}
+        if self.collect != "dense":
+            out["collect"] = self.collect
+            out["interesting_rows"] = int(len(self.codes))
+        if self.fault_model.kind != "single":
+            out["fault_model"] = self.fault_model.spec()
+            out["fault_sites"] = self.fault_model.sites
+        if self.convergence is not None:
+            out["convergence"] = dict(self.convergence)
+        if self.chunks is not None:
+            out["chunks"] = self.chunks
+        if self.resilience:
+            out["resilience"] = dict(self.resilience)
+        return out
+
+
+@contextlib.contextmanager
+def _stage(stages: Dict[str, float], name: str):
+    """Add the wall clock of the ``with`` body to ``stages[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+class _Degrade(Exception):
+    """Internal signal: an out-of-memory failure; unwind to the batch loop,
+    which halves the batch."""
+
+
+def _release(exc: BaseException, device: torch.device) -> None:
+    """Free what a failed batch still holds: the locals of the frames in
+    its traceback (the engine's tensors of the batch), then the caching
+    allocator's blocks, before a smaller batch is dispatched."""
+    traceback.clear_frames(exc.__traceback__)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _pack_layout(out_words: int, max_steps: int) -> tuple:
@@ -203,12 +332,32 @@ class CampaignRunner:
                  strategy_name: Optional[str] = None, device=None,
                  fault_model: Optional[FaultModel] = None,
                  collect: str = "dense",
-                 sparse_capacity: Optional[int] = None):
+                 sparse_capacity: Optional[int] = None,
+                 retry: Optional[resilience_mod.RetryPolicy] = None,
+                 **later):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
         sparse batch compacts on the device (default ``max(256,
-        batch_size // 4)``); correctness never depends on it."""
+        batch_size // 4)``); correctness never depends on it.
+
+        ``retry`` (:class:`~coast_tpu_torch.inject.resilience.RetryPolicy`)
+        classifies a failed batch: a transient error or a wedged collect
+        re-dispatches it with backoff, an out-of-memory failure frees the
+        allocator and halves ``batch_size``; anything else, a sticky CUDA
+        error included, is re-raised.  None keeps every failure fatal.
+        The retry loop never moves a batch off the program's device.
+
+        The reference's ``mesh``, ``equiv``, ``metrics``, ``profile`` and
+        ``slo`` raise ``NotImplementedError`` naming their ROADMAP item."""
+        for key, value in later.items():
+            if key not in _LATER_RUNNER:
+                raise TypeError(
+                    f"CampaignRunner got an unexpected keyword {key!r}")
+            if value:
+                raise NotImplementedError(
+                    f"CampaignRunner({key}=...) is not ported yet; see "
+                    f"ROADMAP Queue A {_LATER_RUNNER[key]}")
         if (device is not None
                 and torch.device(device).type != prog.device.type):
             raise ValueError(
@@ -219,6 +368,7 @@ class CampaignRunner:
                 f"unknown collect mode {collect!r}; one of 'dense', "
                 "'sparse'")
         self.prog = prog
+        self.retry = retry
         self.mmap = MemoryMap(prog, sections)
         self.strategy_name = strategy_name or f"N={prog.cfg.num_clones}"
         self.fault_model = (fault_model if fault_model is not None
@@ -241,28 +391,24 @@ class CampaignRunner:
                  for k, v in part.device_arrays().items()}
         return fault, n_part
 
-    def _run_rows(self, fault, transfer: Dict[str, int]
-                  ) -> Dict[str, torch.Tensor]:
-        """One batch through the engine, classified on its device; counts
-        the engine's fire-plan copy."""
-        t = fault["t"]
-        transfer["down"] += self.prog.fire_plan_bytes(
-            t.shape[1] if t.ndim > 1 else 1)
+    def _dispatch(self, fault) -> Dict[str, torch.Tensor]:
+        """Run one batch and classify its rows on the device: the result
+        columns, still on the device."""
         rec = self.prog.run_batch(fault)
         out = {k: rec[k].to(torch.int32) for k in _COLUMNS[1:]}
         out["code"] = cls.classify(rec, self.prog.output_words)
         return out
 
-    def _dense_batch(self, sched: FaultSchedule, lo: int, n_part: int,
-                     batch_size: int, transfer: Dict[str, int]
-                     ) -> Dict[str, np.ndarray]:
-        fault, _ = self._padded_fault(sched.slice(lo, lo + n_part),
-                                      batch_size)
-        transfer["up"] += sum(int(v.nbytes) for v in fault.values())
-        out = self._run_rows(fault, transfer)
-        cols = torch.stack([out[k] for k in _COLUMNS]).cpu().numpy()
-        transfer["down"] += int(cols.nbytes)
-        return {k: cols[i, :n_part] for i, k in enumerate(_COLUMNS)}
+    @staticmethod
+    def _collect(pending: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """Copy a dispatched batch's four result columns to the host, in
+        one copy."""
+        cols = torch.stack([pending[k] for k in _COLUMNS]).cpu().numpy()
+        return {k: cols[i] for i, k in enumerate(_COLUMNS)}
+
+    def _fire_plan_bytes(self, fault) -> int:
+        t = fault["t"]
+        return self.prog.fire_plan_bytes(t.shape[1] if t.ndim > 1 else 1)
 
     # -- sparse (device-resident) collection ---------------------------------
     def _sparse_cap(self, batch_size: int) -> int:
@@ -271,11 +417,12 @@ class CampaignRunner:
 
     def _sparse_setup(self, sched: FaultSchedule, batch_size: int,
                       transfer: Dict[str, int]) -> Dict[str, object]:
-        """Per-campaign sparse state.  A seeded stream schedule takes the
-        generated path (no fault columns go up); any other schedule, or a
-        map of 2^32 bits or more, is uploaded once with ``batch_size``
-        rows of headroom, so a batch may start at any row, and sliced on
-        the device (the resident path)."""
+        """Per-campaign sparse state for one batch geometry (rebuilt when an
+        out-of-memory failure halves it).  A seeded stream schedule takes
+        the generated path (no fault columns go up); any other schedule,
+        or a map of 2^32 bits or more, is uploaded once with
+        ``batch_size`` rows of headroom, so a batch may start at any row,
+        and sliced on the device (the resident path)."""
         state: Dict[str, object] = {"cap": self._sparse_cap(batch_size),
                                     "batch_size": batch_size}
         if sched.gen_stream_n is not None and sched.gen_steps is not None:
@@ -324,20 +471,28 @@ class CampaignRunner:
         return ({k: v[lo:lo + b] for k, v in state["arrays"].items()},
                 state["count_w"][lo:lo + b])
 
-    def _sparse_batch(self, state: Dict[str, object], lo: int, n_part: int,
-                      transfer: Dict[str, int]) -> Dict[str, np.ndarray]:
-        """One sparse batch: run, account on the device, fetch the
-        histogram and the interesting rows (batch-local row numbers)."""
-        fault, count_w = self._sparse_args(state, lo, transfer)
-        out = self._run_rows(fault, transfer)
+    def _sparse_dispatch(self, state: Dict[str, object], fault, count_w,
+                         n_part: int) -> Dict[str, object]:
+        """Run one sparse batch and account for it on the device: the
+        pending batch (its device columns and accounting buffers)."""
+        out = self._dispatch(fault)
         b = int(state["batch_size"])
         valid = torch.arange(b, device=self.prog.device) < n_part
         if count_w is None:
             count_w = valid.to(torch.int32)
-        cap = int(state["cap"])
         with torch.profiler.record_function(SPANS[1]):
-            dev = _sparse_device_outputs(out, count_w, valid, cap,
-                                         self._pack)
+            dev = _sparse_device_outputs(out, count_w, valid,
+                                         int(state["cap"]), self._pack)
+        return {"out": out, "dev": dev}
+
+    def _sparse_fetch(self, state: Dict[str, object],
+                      pending: Dict[str, object], n_part: int,
+                      transfer: Dict[str, int]) -> Dict[str, np.ndarray]:
+        """The sparse collect: the histogram head, then the interesting
+        rows (batch-local row numbers) -- or, when they overflow the
+        buffer, the batch's dense columns."""
+        out, dev = pending["out"], pending["dev"]
+        cap = int(state["cap"])
         head = dev["head"].cpu().numpy()
         hist = head[:cls.NUM_CLASSES].astype(np.int64)
         k, ke = int(head[-2]), int(head[-1])
@@ -365,61 +520,711 @@ class CampaignRunner:
         return {"hist": hist, "rows": rows.astype(np.int64), "code": code,
                 "errors": err, "corrected": cor, "steps": steps}
 
+    # -- journal identity ---------------------------------------------------
+    def _check_identity(self, journal, sched: FaultSchedule,
+                        stop_when) -> None:
+        """Refuse, before anything runs, an open journal whose header names
+        another fault model, collect mode, placement, step engine or stop
+        condition than this campaign (the reference's typed errors)."""
+        header_spec = journal.header.get("fault_model", "single")
+        if header_spec != sched.model.spec():
+            raise FaultModelMismatchError(
+                f"journal {journal.path!r} header records fault model "
+                f"{header_spec!r} but the schedule being run carries "
+                f"{sched.model.spec()!r}; open the journal with the "
+                "schedule's model (CampaignRunner(fault_model=...))")
+        header_part = (journal.header.get("equiv") or {}).get("partition")
+        if header_part is not None:
+            raise JournalMismatchError(
+                f"journal {journal.path!r} records equivalence partition "
+                f"{header_part!r} but the schedule being run carries None; "
+                "refusing to mix reduced and exhaustive row records")
+        header_stop = journal.header.get("stop_when")
+        current_stop = stop_when.spec() if stop_when is not None else None
+        if header_stop != current_stop:
+            raise JournalMismatchError(
+                f"journal {journal.path!r} records stop_when="
+                f"{header_stop!r} but this campaign runs "
+                f"stop_when={current_stop!r}; an early-stop condition is "
+                "part of the campaign's identity -- rerun with the original "
+                "--stop-when (or a fresh journal)")
+        header_mode = header_collect(journal.header)
+        if header_mode != self.collect:
+            raise JournalMismatchError(
+                f"journal {journal.path!r} records collect="
+                f"{header_mode!r} but this runner collects "
+                f"{self.collect!r}; rerun with the original --collect (or "
+                "a fresh journal)")
+        header_place = header_placement(journal.header)
+        if header_place != "compute":
+            raise PlacementMismatchError(
+                f"journal {journal.path!r} records voter placement "
+                f"{header_place!r} but this runner's region is built "
+                "'compute'; rerun with the original --placement (or a "
+                "fresh journal)")
+        header_fused = header_fuse(journal.header)
+        runner_fused = bool(self.prog.cfg.fuse_step)
+        if header_fused != runner_fused:
+            raise FuseStepMismatchError(
+                f"journal {journal.path!r} records fuse={header_fused} but "
+                f"this runner's program is built fuse={runner_fused}; rerun "
+                "with the original fuse mode (-fuseStep/-noFuseStep, or a "
+                "fresh journal)")
+
     # -- execution ----------------------------------------------------------
-    def run_schedule(self, sched: FaultSchedule,
-                     batch_size: int = 4096) -> CampaignResult:
-        """Run every row of ``sched`` in edge-padded batches."""
+    def run_schedule(self, sched: FaultSchedule, batch_size: int = 4096,
+                     progress: Optional[
+                         Callable[[int, Dict[str, int]], None]] = None,
+                     journal: Optional[CampaignJournal] = None,
+                     journal_base: int = 0,
+                     stream: "Optional[object]" = None,
+                     stop_when: "Optional[object]" = None,
+                     _stages: Optional[Dict[str, float]] = None
+                     ) -> CampaignResult:
+        """Run every row of ``sched`` in edge-padded batches.
+
+        ``progress(done, counts_so_far)`` is called after each collected
+        batch with the cumulative class histogram.  ``journal`` is an open
+        :class:`~coast_tpu_torch.inject.journal.CampaignJournal`: each
+        collected batch is appended as one fsync'd record before the loop
+        moves on, and on entry the journal's contiguous completed-batch
+        prefix is replayed from disk, so the loop restarts at the first
+        missing batch.  ``journal_base`` offsets this schedule's rows
+        within a larger journaled stream.  ``stream`` (a
+        :class:`~coast_tpu_torch.inject.logs.StreamLogWriter`) is handed
+        every collected batch, replayed ones included, numbered
+        ``journal_base + lo``; the caller owns ``finish`` / ``abort``.
+        ``stop_when`` (:class:`~coast_tpu_torch.obs.convergence.StopWhen`)
+        stops dispatching once every target class's Wilson half-width is
+        at or below its threshold; the result then covers the rows that
+        ran, and a journal gets the terminal ``early_stop`` record.
+        ``self.retry`` governs failures (see ``__init__``)."""
         batch_size = max(1, batch_size)
+        if journal is not None:
+            self._check_identity(journal, sched, stop_when)
+        retry = self.retry
+        tracker = None
+        if stop_when is not None:
+            from coast_tpu_torch.obs.convergence import ConvergenceTracker
+            tracker = ConvergenceTracker(stop_when)
+        planned_n = len(sched)
+        stages: Dict[str, float] = dict(_stages or {})
         t0 = time.perf_counter()
-        transfer = {"up": 0, "down": 0}
-        state = (self._sparse_setup(sched, batch_size, transfer)
-                 if self.collect == "sparse" else None)
-        # Draws with t < 0 never fire a flip: they get their own bucket
-        # instead of inflating success (on the sparse path they carry zero
-        # count weight, and their number comes from the host schedule).
-        invalid_draw = np.asarray(sched.t) < 0
-        outs = []
-        for lo in range(0, len(sched), batch_size):
-            n_part = min(lo + batch_size, len(sched)) - lo
-            if state is None:
-                outs.append(self._dense_batch(sched, lo, n_part, batch_size,
-                                              transfer))
-            else:
-                out = self._sparse_batch(state, lo, n_part, transfer)
-                out["rows"] += lo
+        outs: List[Dict[str, np.ndarray]] = []
+        done = 0
+        live_counts = np.zeros(cls.NUM_CLASSES, np.int64)
+        live_invalid = 0
+        resilience: Dict[str, int] = (
+            {"retry_transient": 0, "retry_wedged": 0, "oom_degrade": 0}
+            if retry is not None else {})
+        sched_t = np.asarray(sched.t)
+        transfer: Dict[str, int] = {"up": 0, "down": 0}
+        state: Optional[Dict[str, object]] = None
+        if self.collect == "sparse":
+            with _stage(stages, "sparse_setup"):
+                state = self._sparse_setup(sched, batch_size, transfer)
+
+        def counts_now() -> Dict[str, int]:
+            counts = cls.counts_dict(live_counts)
+            counts["cache_invalid"] = live_invalid
+            return counts
+
+        def account(out: Dict[str, np.ndarray], lo: int) -> Dict[str, int]:
+            """Add a dense batch to the live histogram (rows with t < 0
+            never fired: they count as cache_invalid)."""
+            nonlocal live_invalid
+            fired = sched_t[lo:lo + len(out["code"])] >= 0
+            live_counts[:] += np.bincount(out["code"][fired],
+                                          minlength=cls.NUM_CLASSES)
+            live_invalid += int(len(fired) - fired.sum())
+            return counts_now()
+
+        def account_sparse(out: Dict[str, object]) -> Dict[str, int]:
+            nonlocal live_invalid
+            live_counts[:] += np.asarray(out["hist"], np.int64)
+            live_invalid += int(out["invalid"])
+            return counts_now()
+
+        def journal_early_stop(rows: int) -> None:
+            if journal is not None:
+                journal.append({
+                    "kind": "early_stop",
+                    "base": int(journal_base),
+                    "rows": int(rows),
+                    "lo": int(journal_base + rows),
+                    "stop_when": stop_when.spec(),
+                    "half_widths": {
+                        k: round(v["half_width"], 8)
+                        for k, v in tracker.intervals().items()},
+                })
+
+        # Resume: replay the journal's contiguous completed-batch prefix.
+        stopped = False
+        if journal is not None:
+            for rec in journal.batch_prefix(journal_base, len(sched)):
+                cols = {k: np.asarray(rec[src], np.int32)
+                        for k, src in _RECORD_KEYS}
+                if rec.get("sparse"):
+                    out = {"hist": np.asarray(rec["hist"], np.int64),
+                           "invalid": int(rec.get("invalid", 0)),
+                           "rows": (np.asarray(rec["rows"], np.int64)
+                                    - journal_base), **cols}
+                    counts = account_sparse(out)
+                    n_batch = int(rec["n"])
+                    if stream is not None:
+                        stream.feed_sparse(journal_base + out["rows"],
+                                           _rows_subset(sched, out["rows"]),
+                                           out)
+                else:
+                    out = cols
+                    counts = account(out, done)
+                    n_batch = len(out["code"])
+                    if stream is not None:
+                        stream.feed(journal_base + done,
+                                    sched.slice(done, done + n_batch), out)
                 outs.append(out)
+                done += n_batch
+                if tracker is not None:
+                    tracker.update(counts)
+                if progress is not None:
+                    progress(done, counts)
+            early = next(
+                (r for r in journal.records()
+                 if r.get("kind") == "early_stop"
+                 and int(r.get("base", 0)) == int(journal_base)), None)
+            if early is not None and done >= int(early["rows"]):
+                stopped = True
+            elif tracker is not None and tracker.converged:
+                # The kill landed between the last batch record and the
+                # early_stop record: stop here and write it.
+                stopped = True
+                journal_early_stop(done)
+
+        def dispatch(flight: Dict[str, object]) -> None:
+            lo, n_part = int(flight["lo"]), int(flight["n"])
+            if "fault" not in flight:
+                with _stage(stages, "pad"):
+                    if state is not None:
+                        flight["fault"] = self._sparse_args(state, lo,
+                                                            transfer)
+                    else:
+                        fault, _ = self._padded_fault(
+                            sched.slice(lo, lo + n_part), batch_size)
+                        transfer["up"] += sum(int(v.nbytes)
+                                              for v in fault.values())
+                        flight["fault"] = (fault, None)
+            fault, count_w = flight["fault"]
+            with _stage(stages, "dispatch"):
+                transfer["down"] += self._fire_plan_bytes(fault)
+                if state is not None:
+                    flight["pending"] = self._sparse_dispatch(
+                        state, fault, count_w, n_part)
+                else:
+                    flight["pending"] = self._dispatch(fault)
+
+        def collect(flight: Dict[str, object]):
+            pending, n_part = flight["pending"], int(flight["n"])
+            if state is not None:
+                def fetch():
+                    return self._sparse_fetch(state, pending, n_part,
+                                              transfer)
+            else:
+                def fetch():
+                    got = self._collect(pending)
+                    transfer["down"] += sum(int(v.nbytes)
+                                            for v in got.values())
+                    return got
+            with _stage(stages, "collect"):
+                if retry is not None and retry.collect_timeout:
+                    return resilience_mod.watchdog_collect(
+                        fetch, retry.collect_timeout)
+                return fetch()
+
+        def handle(flight: Dict[str, object], exc: Exception) -> None:
+            """Classify a failed dispatch or collect: re-raise, signal a
+            degrade, or count a retry and back off (the caller then
+            re-dispatches the same rows)."""
+            flight.pop("pending", None)
+            kind = retry.classify(exc) if retry is not None else "fatal"
+            if kind == "fatal":
+                raise exc
+            if kind == "oom":
+                raise _Degrade() from exc
+            attempts = int(flight["attempts"])
+            if attempts >= retry.max_attempts:
+                raise exc
+            key = "retry_wedged" if kind == "wedged" else "retry_transient"
+            resilience[key] += 1
+            if journal is not None:
+                journal.append({"kind": "retry",
+                                "lo": journal_base + int(flight["lo"]),
+                                "attempt": attempts, "class": kind,
+                                "error": type(exc).__name__})
+            time.sleep(retry.backoff(attempts))
+            flight["attempts"] = attempts + 1
+
+        def grab(flight: Dict[str, object], got) -> Dict[str, int]:
+            """Account, journal, stream and report one collected batch (not
+            retried: appending the same rows twice would corrupt the
+            journal)."""
+            nonlocal done
+            lo, n_part = int(flight["lo"]), int(flight["n"])
+            if state is not None:
+                out = got
+                out["invalid"] = int((sched_t[lo:lo + n_part] < 0).sum())
+                out["rows"] = out["rows"] + lo
+                counts = account_sparse(out)
+                done += n_part
+                if journal is not None:
+                    journal.append_batch_sparse(
+                        journal_base + lo, n_part, out["hist"],
+                        out["invalid"], journal_base + out["rows"],
+                        {k: out[k] for k in _COLUMNS}, counts, stages)
+                if stream is not None:
+                    stream.feed_sparse(journal_base + out["rows"],
+                                       _rows_subset(sched, out["rows"]), out)
+            else:
+                out = {k: v[:n_part] for k, v in got.items()}
+                counts = account(out, done)
+                done += n_part
+                if journal is not None:
+                    journal.append_batch(journal_base + lo, out, counts,
+                                         stages)
+                if stream is not None:
+                    stream.feed(journal_base + lo,
+                                sched.slice(lo, lo + n_part), out)
+            outs.append(out)
+            if progress is not None:
+                progress(done, counts)
+            return counts
+
+        while done < len(sched) and not stopped:
+            flight = {"lo": done, "attempts": 1,
+                      "n": min(done + batch_size, len(sched)) - done}
+            try:
+                while True:
+                    try:
+                        dispatch(flight)
+                        got = collect(flight)
+                        break
+                    except Exception as e:  # noqa: BLE001 - classified
+                        handle(flight, e)
+            except _Degrade as sig:
+                # Out of memory: free the failed batch, halve the batch
+                # and restart at the first uncollected row.
+                cause = sig.__cause__
+                flight.clear()
+                _release(cause, self.prog.device)
+                new_bs = retry.degraded_batch(batch_size)
+                if new_bs is None:
+                    raise cause
+                resilience["oom_degrade"] += 1
+                batch_size = new_bs
+                if state is not None:
+                    with _stage(stages, "sparse_setup"):
+                        state = self._sparse_setup(sched, batch_size,
+                                                   transfer)
+                if journal is not None:
+                    journal.append({"kind": "geometry",
+                                    "batch_size": batch_size,
+                                    "lo": journal_base + done})
+                continue
+            counts = grab(flight, got)
+            if tracker is not None:
+                tracker.update(counts)
+                if tracker.converged:
+                    stopped = True
+                    journal_early_stop(done)
+        if stopped and done < len(sched):
+            sched = sched.slice(0, done)
+            sched_t = np.asarray(sched.t)
         interesting_rows = None
-        if outs:
-            merged = {k: np.concatenate([o[k] for o in outs])
-                      for k in _COLUMNS}
-        else:
-            merged = {k: np.zeros(0, np.int32) for k in _COLUMNS}
-        if state is not None:
-            interesting_rows = (np.concatenate([o["rows"] for o in outs])
-                                if outs else np.zeros(0, np.int64))
-            binc = (np.sum([o["hist"] for o in outs], axis=0) if outs
-                    else np.zeros(cls.NUM_CLASSES, np.int64))
-        else:
-            binc = np.bincount(merged["code"][~invalid_draw],
-                               minlength=cls.NUM_CLASSES)
-        counts = cls.counts_dict(binc)
-        counts["cache_invalid"] = int(invalid_draw.sum())
+        with _stage(stages, "classify"):
+            if outs:
+                merged = {k: np.concatenate([o[k] for o in outs])
+                          for k in _COLUMNS}
+            else:
+                merged = {k: np.zeros(0, np.int32) for k in _COLUMNS}
+            if state is not None:
+                interesting_rows = (np.concatenate([o["rows"] for o in outs])
+                                    if outs else np.zeros(0, np.int64))
+                binc = (np.sum([o["hist"] for o in outs], axis=0) if outs
+                        else np.zeros(cls.NUM_CLASSES, np.int64))
+                invalid_total = int(sum(o["invalid"] for o in outs))
+            else:
+                # Draws with t < 0 never fire a flip: they get their own
+                # bucket instead of inflating success.
+                invalid_draw = sched_t < 0
+                binc = np.bincount(merged["code"][~invalid_draw],
+                                   minlength=cls.NUM_CLASSES)
+                invalid_total = int(invalid_draw.sum())
+            counts = cls.counts_dict(binc)
+            counts["cache_invalid"] = invalid_total
         seconds = time.perf_counter() - t0
-        return CampaignResult(
+        res = CampaignResult(
             benchmark=self.prog.region.name, strategy=self.strategy_name,
             n=len(sched), counts=counts, seconds=seconds,
             codes=merged["code"], errors=merged["errors"],
             corrected=merged["corrected"], steps=merged["steps"],
-            schedule=sched, seed=sched.seed, collect=self.collect,
+            schedule=sched, seed=sched.seed, stages=stages,
+            resilience=resilience, collect=self.collect,
             interesting_rows=interesting_rows, transfer=transfer)
+        if tracker is not None:
+            res.convergence = tracker.report(stopped, planned_n=planned_n,
+                                             done_n=len(sched))
+        return res
+
+    def _campaign_spec(self, n: int, seed: int = 0, batch_size: int = 4096,
+                       start_num: int = 0,
+                       stop_when: "Optional[object]" = None) -> CampaignSpec:
+        """This campaign's identity as the shared CampaignSpec."""
+        return CampaignSpec(
+            benchmark=self.prog.region.name, n=int(n), seed=int(seed),
+            batch_size=int(batch_size), start_num=int(start_num),
+            fault_model=self.fault_model.spec(),
+            stop_when=(stop_when.spec() if stop_when is not None
+                       else None),
+            collect=self.collect)
+
+    def _journal_header(self, mode: str, **fields) -> Dict[str, object]:
+        """The identity block every journal header shares, in the
+        reference's key order with its absent-means-default keys."""
+        header = {"mode": mode,
+                  "benchmark": self.prog.region.name,
+                  "strategy": self.strategy_name,
+                  "config_sha": config_fingerprint(self.prog.cfg)}
+        if self.fault_model.kind != "single":
+            header["fault_model"] = self.fault_model.spec()
+        if self.collect != "dense":
+            header["collect"] = self.collect
+        if self.prog.cfg.fuse_step:
+            header["fuse"] = True
+        header.update(fields)
+        return header
+
+    def _open_journal(self, journal, header: Dict[str, object]):
+        """``journal`` as the run methods take it: None, a path (opened --
+        and resume-validated -- here), or an open CampaignJournal
+        (validated against this campaign's header).  Returns (journal,
+        owned)."""
+        if journal is None:
+            return None, False
+        if isinstance(journal, CampaignJournal):
+            CampaignJournal._validate(journal.header,
+                                      {**journal.header, **header},
+                                      journal.path)
+            return journal, False
+        return CampaignJournal.open(str(journal), header), True
+
+    def _seeded_part(self, n: int, seed: int, start_num: int,
+                     stages: Dict[str, float]) -> FaultSchedule:
+        with _stage(stages, "schedule"):
+            sched = generate(self.mmap, start_num + n, seed,
+                             self.prog.region.nominal_steps,
+                             model=self.fault_model)
+            return sched.slice(start_num, start_num + n)
 
     def run(self, n: int, seed: int = 0, batch_size: int = 4096,
-            start_num: int = 0) -> CampaignResult:
+            start_num: int = 0,
+            progress: Optional[
+                Callable[[int, Dict[str, int]], None]] = None,
+            journal: "Optional[object]" = None,
+            stream: "Optional[object]" = None,
+            stop_when: "Optional[object]" = None) -> CampaignResult:
         """A seeded campaign of ``n`` injections of ``fault_model``.
         ``start_num`` resumes at injection #start_num of the (seed,
-        start_num + n) stream."""
+        start_num + n) stream.  ``journal`` (a path or an open
+        CampaignJournal) makes it crash-safe: rerunning the same call
+        against the same path resumes at the first missing batch after
+        the header -- the regenerated schedule's fingerprint included --
+        is validated (JournalMismatchError otherwise).  ``progress``,
+        ``stream`` and ``stop_when`` as in ``run_schedule``."""
+        stages: Dict[str, float] = {}
+        part = self._seeded_part(n, seed, start_num, stages)
+        j, owned = None, False
+        if journal is not None:
+            spec = self._campaign_spec(n, seed=seed, batch_size=batch_size,
+                                       start_num=start_num,
+                                       stop_when=stop_when)
+            header = self._journal_header(
+                "run", **spec.run_header_fields(),
+                schedule_sha=schedule_fingerprint(part))
+            if spec.stop_when:
+                header["stop_when"] = spec.stop_when
+            j, owned = self._open_journal(journal, header)
+        try:
+            res = self.run_schedule(part, batch_size, progress=progress,
+                                    journal=j, stream=stream,
+                                    stop_when=stop_when, _stages=stages)
+        finally:
+            if owned:
+                j.close()
+        res.start_num = start_num
+        return res
+
+    def run_delta(self, *args, **kwargs) -> CampaignResult:
+        """The reference's delta campaign needs the equivalence partition
+        (ROADMAP Queue A item 17)."""
+        raise NotImplementedError(
+            "run_delta is not ported yet; see ROADMAP Queue A item 17 "
+            "(equivalence reduction and delta campaigns)")
+
+    def journal_result(self, res: CampaignResult, path: str,
+                       n: Optional[int] = None,
+                       batch_size: int = 4096) -> None:
+        """Write a completed single-seed dense result as a ``mode: "run"``
+        journal at ``path``: the header and one batch record per
+        ``batch_size`` rows with cumulative counts.  Refuses an existing
+        non-empty ``path`` (JournalExistsError) and raises JournalError if
+        the re-derived counts do not reproduce ``res.counts``."""
+        if res.collect != "dense":
+            raise ValueError(
+                "journal_result materializes dense per-row batch "
+                "records; a sparse result has no full columns to write")
+        part = res.schedule
+        spec = self._campaign_spec(
+            int(n) if n is not None else int(res.n), seed=res.seed,
+            batch_size=batch_size, start_num=res.start_num)
+        header = self._journal_header(
+            "run", **spec.run_header_fields(),
+            schedule_sha=schedule_fingerprint(part))
+        j = CampaignJournal.open(path, header, resume=False)
+        try:
+            live = np.zeros(cls.NUM_CLASSES, np.int64)
+            live_invalid = 0
+            t_col = np.asarray(part.t)
+            counts: Dict[str, int] = {}
+            for lo in range(0, len(part), batch_size):
+                hi = min(lo + batch_size, len(part))
+                out = {"code": res.codes[lo:hi], "errors": res.errors[lo:hi],
+                       "corrected": res.corrected[lo:hi],
+                       "steps": res.steps[lo:hi]}
+                fired = t_col[lo:hi] >= 0
+                live += np.bincount(out["code"][fired],
+                                    minlength=cls.NUM_CLASSES)
+                live_invalid += int((~fired).sum())
+                counts = cls.counts_dict(live)
+                counts["cache_invalid"] = live_invalid
+                j.append_batch(lo, out, counts, {})
+            want = {k: int(v) for k, v in res.counts.items()}
+            if len(part) and counts != want:
+                raise JournalError(
+                    f"journal_result parity failure at {path!r}: "
+                    f"re-derived cumulative counts {counts} != result "
+                    f"counts {want}")
+        finally:
+            j.close()
+
+    def _result_from_chunk(self, rec: Dict[str, object]) -> CampaignResult:
+        """One journaled chunk's CampaignResult, rebuilt without the device:
+        the seeded schedule regenerates, the columns come from the
+        record."""
+        seed, n = int(rec["seed"]), int(rec["n"])
+        start_num = int(rec.get("start_num", 0))
         sched = generate(self.mmap, start_num + n, seed,
                          self.prog.region.nominal_steps,
-                         model=self.fault_model)
-        return self.run_schedule(sched.slice(start_num, start_num + n),
-                                 batch_size)
+                         model=self.fault_model
+                         ).slice(start_num, start_num + n)
+        return CampaignResult(
+            benchmark=self.prog.region.name, strategy=self.strategy_name,
+            n=len(sched), counts={k: int(v) for k, v in rec["counts"].items()},
+            seconds=float(rec.get("seconds", 0.0)),
+            codes=np.asarray(rec["codes"], np.int32),
+            errors=np.asarray(rec["errors"], np.int32),
+            corrected=np.asarray(rec["corrected"], np.int32),
+            steps=np.asarray(rec["steps"], np.int32),
+            schedule=sched, seed=seed,
+            stages={k: float(v)
+                    for k, v in (rec.get("stage_seconds") or {}).items()},
+            start_num=start_num)
+
+    def _chunk_runner(self, journal, header: Dict[str, object],
+                      batch_size: int,
+                      progress: Optional[
+                          Callable[[int, Dict[str, int]], None]]):
+        """The per-chunk machinery of ``run_until_errors`` and
+        ``replay_chunks``: a ``next_chunk(n, seed, start_num)`` closure
+        that replays completed chunks from the journal (checking each
+        against the loop's expectation), runs and journals the rest, and
+        threads ``progress`` across chunks.  Returns (next_chunk,
+        finish)."""
+        if self.collect != "dense":
+            raise ValueError(
+                "multi-chunk campaigns (run_until_errors / "
+                "replay_chunks) record full per-chunk columns; run "
+                "them with collect='dense' (sparse campaigns use "
+                "run/run_schedule)")
+        j, owned = self._open_journal(journal, header)
+        replayed = j.chunk_records() if j is not None else []
+        replay_idx = 0
+        agg_counts: Dict[str, int] = {}
+        agg_done = 0
+
+        def next_chunk(n_req: int, seed: int,
+                       start_num: int = 0) -> CampaignResult:
+            nonlocal replay_idx, agg_done
+            from_journal = replay_idx < len(replayed)
+            if from_journal:
+                rec = replayed[replay_idx]
+                expect = (int(rec["seed"]), int(rec["n"]),
+                          int(rec.get("start_num", 0)))
+                if expect != (int(seed), int(n_req), int(start_num)):
+                    raise JournalMismatchError(
+                        f"journal chunk {replay_idx} records (seed, n, "
+                        f"start_num)={expect} but the campaign loop "
+                        f"expects {(int(seed), int(n_req), int(start_num))}"
+                        "; refusing to resume")
+                replay_idx += 1
+                res = self._result_from_chunk(rec)
+            else:
+                chunk_progress = None
+                if progress is not None:
+                    def chunk_progress(done, counts, _base=agg_done,
+                                       _agg=dict(agg_counts)):
+                        merged = dict(_agg)
+                        for k, v in counts.items():
+                            merged[k] = merged.get(k, 0) + v
+                        progress(_base + done, merged)
+                res = self.run(n_req, seed=seed, batch_size=batch_size,
+                               start_num=start_num,
+                               progress=chunk_progress)
+                if j is not None:
+                    j.append_chunk(res)
+            agg_done += res.n
+            for k, v in res.counts.items():
+                agg_counts[k] = agg_counts.get(k, 0) + v
+            if progress is not None and from_journal:
+                progress(agg_done, dict(agg_counts))
+            return res
+
+        def finish() -> None:
+            if owned:
+                j.close()
+
+        return next_chunk, finish
+
+    def run_until_errors(self, min_errors: int, seed: int = 0,
+                         batch_size: int = 4096, round_to: int = 1000,
+                         max_n: int = 1_000_000,
+                         progress: Optional[
+                             Callable[[int, Dict[str, int]], None]] = None,
+                         journal: "Optional[object]" = None
+                         ) -> CampaignResult:
+        """The reference's sizing rule: inject until ``min_errors`` SDCs
+        are seen, then round the campaign up to the next ``round_to``.
+        Each chunk is one seeded ``run`` of ``batch_size`` rows (seed,
+        seed + 1, ...); the result's ``chunks`` lets ``replay_chunks``
+        reproduce it.  ``journal`` appends one fsync'd record a completed
+        chunk, and a rerun replays the completed chunks from disk."""
+        next_chunk, finish = self._chunk_runner(
+            journal, self._journal_header(
+                "until_errors", seed=int(seed), min_errors=int(min_errors),
+                round_to=int(round_to), max_n=int(max_n),
+                batch_size=int(batch_size)),
+            batch_size, progress)
+        try:
+            results: List[CampaignResult] = []
+            total = 0
+            errors_seen = 0
+            chunk_seed = seed
+            while total < max_n:
+                res = next_chunk(batch_size, chunk_seed)
+                results.append(res)
+                total += res.n
+                errors_seen += res.sdc_total
+                chunk_seed += 1
+                if errors_seen >= min_errors:
+                    break
+            target = ((total + round_to - 1) // round_to) * round_to
+            while total < target and total < max_n:
+                res = next_chunk(min(batch_size, target - total), chunk_seed)
+                results.append(res)
+                total += res.n
+                chunk_seed += 1
+        finally:
+            finish()
+        return _merge_results(results, seed)
+
+    def replay_chunks(self, chunks: Sequence[Dict[str, int]],
+                      batch_size: int = 4096,
+                      progress: Optional[
+                          Callable[[int, Dict[str, int]], None]] = None,
+                      journal: "Optional[object]" = None) -> CampaignResult:
+        """Re-run a recorded multi-chunk campaign (``CampaignResult.chunks``)
+        exactly; ``progress`` and ``journal`` as in ``run_until_errors``."""
+        if not chunks:
+            raise ValueError(
+                "replay_chunks got an empty chunk list: the recorded "
+                "campaign produced no chunks (nothing to replay)")
+        next_chunk, finish = self._chunk_runner(
+            journal, self._journal_header(
+                "replay",
+                chunks=[{"seed": int(c["seed"]), "n": int(c["n"]),
+                         "start_num": int(c.get("start_num", 0))}
+                        for c in chunks],
+                batch_size=int(batch_size)),
+            batch_size, progress)
+        try:
+            results = [next_chunk(int(c["n"]), int(c["seed"]),
+                                  int(c.get("start_num", 0)))
+                       for c in chunks]
+        finally:
+            finish()
+        return _merge_results(results, int(chunks[0]["seed"]))
+
+
+def _merge_results(parts: List[CampaignResult], seed: int) -> CampaignResult:
+    """Concatenate chunk results into one campaign (rows in chunk order)."""
+    if not parts:
+        raise ValueError(
+            "campaign produced no chunks: _merge_results got an empty "
+            "parts list (the sizing loop never ran a batch -- check "
+            "min_errors/max_n/target arithmetic)")
+    first = parts[0]
+    if len({p.collect for p in parts}) > 1:
+        raise ValueError(
+            "cannot merge campaigns with mixed collect modes "
+            f"({sorted({p.collect for p in parts})})")
+    counts = {k: sum(p.counts[k] for p in parts) for k in first.counts}
+    stages: Dict[str, float] = {}
+    resilience: Dict[str, int] = {}
+    transfer: Dict[str, int] = {}
+    for p in parts:
+        for k, v in p.stages.items():
+            stages[k] = stages.get(k, 0.0) + v
+        for k, v in p.resilience.items():
+            resilience[k] = resilience.get(k, 0) + v
+        for k, v in p.transfer.items():
+            transfer[k] = transfer.get(k, 0) + int(v)
+    interesting = None
+    if first.collect != "dense":
+        offsets = np.cumsum([0] + [len(p.schedule) for p in parts[:-1]])
+        interesting = np.concatenate(
+            [p.interesting_rows + int(off)
+             for p, off in zip(parts, offsets)])
+    extra = None
+    if first.schedule.extra is not None:
+        # Each part's group column indexes its own injections: rebase.
+        offsets = np.cumsum([0] + [p.n for p in parts[:-1]])
+        extra = {k: np.concatenate([p.schedule.extra[k] for p in parts])
+                 for k in first.schedule.extra if k != "group"}
+        extra["group"] = np.concatenate(
+            [p.schedule.extra["group"] + np.int32(off)
+             for p, off in zip(parts, offsets)]).astype(np.int32)
+    sched = FaultSchedule(
+        *(np.concatenate([getattr(p.schedule, f) for p in parts])
+          for f in ("leaf_id", "lane", "word", "bit", "t", "section_idx")),
+        seed=seed, extra=extra, model=first.schedule.model)
+    return CampaignResult(
+        benchmark=first.benchmark, strategy=first.strategy,
+        n=sum(p.n for p in parts), counts=counts,
+        seconds=sum(p.seconds for p in parts),
+        codes=np.concatenate([p.codes for p in parts]),
+        errors=np.concatenate([p.errors for p in parts]),
+        corrected=np.concatenate([p.corrected for p in parts]),
+        steps=np.concatenate([p.steps for p in parts]),
+        schedule=sched, seed=seed,
+        chunks=[{"seed": p.seed, "n": p.n, "start_num": p.start_num}
+                for p in parts],
+        stages=stages, resilience=resilience, collect=first.collect,
+        interesting_rows=interesting, transfer=transfer)

@@ -1,0 +1,498 @@
+"""Campaign supervisor CLI of the port: the simulation/platform/supervisor.py
+surface on the card.
+
+The counterpart of ``coast_tpu/inject/supervisor.py``, with its flags, its
+section vocabulary, its cross-flag refusals and messages, its summary line
+and its logs::
+
+    python -m coast_tpu_torch.inject.supervisor -f matrixMultiply -s memory -t 1000
+    python -m coast_tpu_torch.inject.supervisor -f crc16 -O "-DWC" -s registers -t 500
+    python -m coast_tpu_torch.inject.supervisor -f matrixMultiply -O "-TMR" \\
+        -t 1000000 --batch-size 65536 --journal j.ndjson --stream-logs \\
+        --log-format ndjson -l logs/
+
+It runs on the card (``--board gpu``, the default; a host without one is an
+error) unless ``-d cpu`` asks for the host.  A ``--journal`` campaign killed
+at any point resumes with ``--resume`` at its first missing batch and gives
+the uninterrupted run's codes, counts and log lines.
+
+Flags whose subsystem the port does not have yet are refused with exit code
+2 and the ROADMAP Queue A item that brings them: ``--equiv``,
+``--delta-from``, ``--static-budget`` (item 17); ``--mesh`` and a
+``--placement`` other than ``compute`` (item 16); ``--metrics-port``,
+``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
+``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll`` other than 1
+is refused too: it tunes the reference's compiled scan, which has no
+counterpart here.  ``--port-range`` is accepted and ignored, as the
+reference does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List, Optional
+
+from coast_tpu_torch.inject.hierarchy import DCACHE_KINDS, ICACHE_KINDS
+
+#: Geometry-overlay sections: these draw their own cache schedules
+#: (coast_tpu_torch.inject.hierarchy), outside the seeded generate() paths.
+CACHE_SECTIONS = ("cache", "icache", "dcache", "l2cache")
+
+SECTION_CHOICES = ["stack", "text", "rodata", "data", "bss", "heap", "init",
+                   "registers", "memory", "params", "opt_state",
+                   "interconnect", *CACHE_SECTIONS]
+
+_KIND_SECTIONS = {
+    "memory": (*DCACHE_KINDS, "link"),
+    "interconnect": ("link",),
+    "data": ("mem",),
+    "bss": ("mem",),
+    "heap": ("mem",),
+    "init": ("mem",),
+    "rodata": ("ro",),
+    "registers": ("reg", "ctrl"),
+    "text": ICACHE_KINDS,
+    "params": ("param",),
+    "opt_state": ("opt_state",),
+}
+
+#: Flags of the reference whose subsystem the port does not have yet:
+#: (flag, test on the parsed args, why).  Each is refused with exit code 2.
+_UNPORTED_FLAGS = (
+    ("--equiv", lambda a: a.equiv, "ROADMAP Queue A item 17 (equivalence "
+     "reduction)"),
+    ("--delta-from", lambda a: a.delta_from, "ROADMAP Queue A item 17 "
+     "(delta campaigns)"),
+    ("--static-budget", lambda a: a.static_budget, "ROADMAP Queue A item "
+     "17 (the static propagation map)"),
+    ("--mesh", lambda a: a.mesh, "ROADMAP Queue A item 16 (the sharded "
+     "backend)"),
+    ("--placement", lambda a: a.placement != "compute", "ROADMAP Queue A "
+     "items 12 and 16 (the sharded stencil)"),
+    ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
+     "Queue A item 18 (live metrics)"),
+    ("--status-json", lambda a: a.status_json, "ROADMAP Queue A item 18 "
+     "(live metrics)"),
+    ("--heartbeat", lambda a: a.heartbeat > 0, "ROADMAP Queue A item 18 "
+     "(live metrics)"),
+    ("--console", lambda a: a.console, "ROADMAP Queue A item 18 (live "
+     "metrics)"),
+    ("--trace-out", lambda a: a.trace_out, "ROADMAP Queue A item 18 (the "
+     "span recorder and trace export)"),
+    ("--profile", lambda a: a.profile, "ROADMAP Queue A item 18 (the "
+     "campaign profiler)"),
+    ("--slo", lambda a: a.slo, "ROADMAP Queue A item 19 (reliability "
+     "SLOs)"),
+    ("--unroll", lambda a: a.unroll != 1, "it tunes the reference's "
+     "compiled scan, which has no counterpart in the port's step loop"),
+)
+
+
+def parse_command_line(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser(
+        description="Supervisor for batched fault injection on the card")
+    parser.add_argument("--filename", "-f", type=str, required=True,
+                        help="program to run: a benchmark registry name")
+    parser.add_argument("--port-range", "-p", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("-t", metavar="N", type=int, default=1,
+                        help="number of injections")
+    parser.add_argument("-e", "--errorCount", metavar="N", type=int,
+                        help="run until N errors seen, then complete the "
+                        "next 1000 injections")
+    parser.add_argument("--section", "-s", type=str, default="memory",
+                        choices=SECTION_CHOICES,
+                        help="memory section to inject faults into")
+    parser.add_argument("--board", "-d", type=str, default="gpu",
+                        choices=["gpu", "cpu", "tpu", "pynq", "hifive1"],
+                        help="execution backend: gpu (the card, default) or "
+                        "cpu (the host)")
+    parser.add_argument("--opt-passes", "-O", type=str, default="-TMR",
+                        help="protection to apply (opt CLI flag string). "
+                        "All of `-O -TMR`, `-O '-TMR -countErrors'` and "
+                        "`--opt-passes=-TMR` work; pass flags that "
+                        "collide with supervisor flags (e.g. the `-s` "
+                        "segmenting flag) need the quoted or `=` form")
+    parser.add_argument("--log-dir", "-l", type=str, default=None,
+                        help="directory in which to create the log files")
+    parser.add_argument("--no-logging", "-q", action="store_true",
+                        help="do not produce log files")
+    parser.add_argument("--verbosity", "-v", default="n",
+                        choices=["n", "c", "e", "s", "i", "a"])
+    parser.add_argument("--forceBreak", "-b", metavar="EXPRESSION", type=str,
+                        help="forced injection leaf:lane:word:bit:t")
+    parser.add_argument("--breakCount", "-c", metavar="ITERATION", type=int,
+                        default=1, help="how many forced injections to run")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="campaign schedule seed (replayable)")
+    parser.add_argument("--start-num", type=int, default=0,
+                        help="resume the seeded campaign at injection #N")
+    parser.add_argument("--batch-size", type=int, default=4096)
+    parser.add_argument("--unroll", type=int, default=1,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--fault-model", type=str, default="single",
+                        metavar="SPEC",
+                        help="what one injection IS: 'single' (default), "
+                        "'multibit(k=K)', 'cluster(span=S,k=K)', "
+                        "'burst(window=W,rate=R)' or 'link' (colon form "
+                        "works too: multibit:k=3).  Recorded in the log "
+                        "summary and the journal header; resume under a "
+                        "different model is refused with a typed error")
+    parser.add_argument("--placement", type=str, default="compute",
+                        choices=["compute", "link"], help=argparse.SUPPRESS)
+    parser.add_argument("--equiv", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--delta-from", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--static-budget", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--stratified", action="store_true",
+                        help="equal-allocation sampling per section: -t "
+                        "is divided across sections (floored at 1 each)")
+    parser.add_argument("--log-format", type=str, default="json",
+                        choices=["json", "ndjson", "columnar", "reference"],
+                        help="log writer: json = reference InjectionLog "
+                        "schema, ndjson/columnar = bulk formats, reference "
+                        "= the reference tool's own container")
+    parser.add_argument("--collect", type=str, default="dense",
+                        choices=["dense", "sparse"],
+                        help="result-collection mode: 'dense' (default) "
+                        "fetches every row's outcome columns; 'sparse' "
+                        "keeps the loop device-resident and fetches the "
+                        "class histogram and the interesting rows only.  "
+                        "Campaign identity (journaled)")
+    parser.add_argument("--stream-logs", action="store_true",
+                        help="serialize the log in a background thread as "
+                        "each batch is collected (the one-shot writer's "
+                        "bytes); ndjson/columnar/reference formats")
+    parser.add_argument("--mesh", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--journal", type=str, default=None,
+                        help="append-only campaign journal: every "
+                        "collected batch (or chunk, with -e) is fsync'd "
+                        "here so a crash/SIGKILL loses nothing; relaunch "
+                        "with --resume to continue at the first missing "
+                        "batch with identical results")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume the campaign recorded in --journal "
+                        "(its header must match this invocation)")
+    parser.add_argument("--stop-when", type=str, default=None,
+                        metavar="SPEC",
+                        help="statistical early stop, e.g. "
+                        "'sdc:0.002;min=4096': stop once every target "
+                        "class's Wilson CI half-width is at or below its "
+                        "threshold")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--status-json", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--heartbeat", type=float, default=0.0,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--console", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--trace-out", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--profile", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--slo", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--max-retries", type=int, default=0,
+                        help="retry transient dispatch failures up to N "
+                        "times per batch (exponential backoff + jitter); "
+                        "an out-of-memory failure halves the batch size "
+                        "instead.  0 keeps failures fatal")
+    parser.add_argument("--collect-timeout", type=float, default=None,
+                        help="watchdog seconds on the device-to-host copy "
+                        "of a batch's results: a wedged batch raises "
+                        "CampaignWedgedError and is re-dispatched; implies "
+                        "retries even if --max-retries is 0")
+    # `-O -TMR` ergonomics: pre-join the pass flags following -O into
+    # `-O=<flags>` before argparse sees them; tokens that ARE supervisor
+    # options stop the join.
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    known = {s for a in parser._actions for s in a.option_strings}
+    joined, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok in ("-O", "--opt-passes") and i + 1 < len(argv):
+            passes, j = [], i + 1
+            while (j < len(argv) and argv[j].startswith("-")
+                   and argv[j] not in known):
+                passes.append(argv[j])
+                j += 1
+            if passes:
+                joined.append(tok + "=" + " ".join(passes))
+                i = j
+                continue
+        joined.append(tok)
+        i += 1
+    args = parser.parse_args(joined)
+
+    for flag, given, why in _UNPORTED_FLAGS:
+        if given(args):
+            print(f"Error, {flag} is not supported by the port yet: {why}",
+                  file=sys.stderr)
+            sys.exit(2)
+    if args.board == "tpu":
+        print("Error, --board tpu is the JAX package's board (python -m "
+              "coast_tpu.inject.supervisor); this port runs on gpu or cpu",
+              file=sys.stderr)
+        sys.exit(2)
+    if args.port_range is not None:
+        print("Warning, --port-range/-p is deprecated and ignored: the "
+              "GDB/QEMU port fabric it parceled out no longer exists",
+              file=sys.stderr)
+    if args.board in ("pynq", "hifive1"):
+        print("This board not yet supported in this version", file=sys.stderr)
+        sys.exit(-1)
+    if args.stratified and (args.errorCount or args.start_num
+                            or args.section in CACHE_SECTIONS):
+        print("Error, --stratified cannot be combined with -e/--errorCount, "
+              "--start-num, or cache sections (those draw their own "
+              "schedules; strata are separately seeded streams)",
+              file=sys.stderr)
+        sys.exit(-1)
+    if args.errorCount and args.start_num:
+        print("Error, --start-num cannot be combined with -e/--errorCount",
+              file=sys.stderr)
+        sys.exit(-1)
+    if args.log_dir and not os.path.isdir(args.log_dir):
+        print(f"Error, directory {args.log_dir} does not exist!",
+              file=sys.stderr)
+        sys.exit(-1)
+    if args.resume and not args.journal:
+        print("Error, --resume requires --journal (there is nothing to "
+              "resume from)", file=sys.stderr)
+        sys.exit(-1)
+    if args.fault_model != "single":
+        from coast_tpu_torch.inject.schedule import FaultModel
+        try:
+            args.fault_model_parsed = FaultModel.parse(args.fault_model)
+        except ValueError as e:
+            print(f"Error, bad --fault-model: {e}", file=sys.stderr)
+            sys.exit(-1)
+        if args.forceBreak or args.section in CACHE_SECTIONS:
+            print("Error, --fault-model applies to the seeded campaign "
+                  "paths (-t/-e/--stratified), not --forceBreak or cache "
+                  "sections", file=sys.stderr)
+            sys.exit(-1)
+        if args.fault_model_parsed.kind == "link" and args.stratified:
+            print("Error, --stratified contradicts --fault-model link "
+                  "(link draws target only the interconnect sections; "
+                  "use the seeded -t path)", file=sys.stderr)
+            sys.exit(-1)
+    else:
+        args.fault_model_parsed = None
+    if args.stream_logs and (args.no_logging or args.errorCount
+                             or args.forceBreak
+                             or args.log_format == "json"):
+        print("Error, --stream-logs needs a single-schedule campaign "
+              "with --log-format ndjson/columnar/reference (not -e/"
+              "--errorCount, --forceBreak, -q/--no-logging, or the "
+              "default json format)", file=sys.stderr)
+        sys.exit(-1)
+    if args.collect == "sparse":
+        if args.errorCount or args.forceBreak:
+            print("Error, --collect sparse applies to the seeded -t/"
+                  "--stratified/cache campaign paths, not -e/"
+                  "--errorCount, --forceBreak, or --delta-from",
+                  file=sys.stderr)
+            sys.exit(-1)
+        if args.stream_logs and args.log_format != "ndjson":
+            print("Error, --collect sparse with --stream-logs supports "
+                  "--log-format ndjson only (sparse rows have no "
+                  "streaming columnar/reference form)", file=sys.stderr)
+            sys.exit(-1)
+        if args.log_format == "reference" and not args.no_logging:
+            print("Error, --collect sparse needs a summary-carrying "
+                  "--log-format (json/ndjson/columnar): the reference "
+                  "container has no summary block to hold the sparse "
+                  "histogram counts", file=sys.stderr)
+            sys.exit(-1)
+    if args.stop_when:
+        from coast_tpu_torch.obs.convergence import StopWhen, StopWhenError
+        if args.errorCount or args.forceBreak:
+            print("Error, --stop-when applies to the seeded/stratified/"
+                  "cache/delta campaign paths, not -e/--errorCount or "
+                  "--forceBreak", file=sys.stderr)
+            sys.exit(-1)
+        try:
+            args.stop_when_parsed = StopWhen.parse(args.stop_when)
+        except StopWhenError as e:
+            print(f"Error, bad --stop-when: {e}", file=sys.stderr)
+            sys.exit(-1)
+    else:
+        args.stop_when_parsed = None
+    if args.journal and (args.forceBreak or args.stratified
+                         or args.section in CACHE_SECTIONS):
+        print("Error, --journal supports the seeded campaign paths (-t/"
+              "-e), not --forceBreak, --stratified, or cache sections",
+              file=sys.stderr)
+        sys.exit(-1)
+    return args
+
+
+def build_program(bench: str, opt_passes: str, device: str):
+    """Build the protected program from an opt-CLI flag string, with the
+    opt parser's own flag semantics.  A benchmark or flag the port does
+    not have yet exits 2 with its ROADMAP item."""
+    from coast_tpu_torch.interface.config import ConfigError
+    from coast_tpu_torch.models import resolve_region
+    from coast_tpu_torch.opt import UsageError, build_overrides, parse_argv
+    from coast_tpu_torch.passes.strategies import DWC, TMR, unprotected
+    try:
+        region = resolve_region(bench)
+    except KeyError:
+        print(f"Error, file {bench} does not exist!", file=sys.stderr)
+        sys.exit(-1)
+    except NotImplementedError as e:
+        print(f"Error, {e}", file=sys.stderr)
+        sys.exit(2)
+    try:
+        flags, positional = parse_argv(opt_passes.split())
+        if positional:
+            raise UsageError(
+                f"unexpected positional argument(s) in -O: {positional}")
+        if flags.get("i") and flags.get("s"):
+            raise UsageError("-i and -s are mutually exclusive")
+        overrides = build_overrides(flags)
+    except (UsageError, ConfigError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        sys.exit(-1)
+    # The supervisor always wants the correction counter (it feeds the
+    # 'faults' column of the logs).
+    overrides["count_errors"] = True
+    try:
+        if flags.get("TMR"):
+            return TMR(region, device=device, **overrides), "TMR"
+        if flags.get("DWC"):
+            return DWC(region, device=device, **overrides), "DWC"
+        return unprotected(region, device=device, **overrides), "unprotected"
+    except NotImplementedError as e:
+        print(f"Error, {e}", file=sys.stderr)
+        sys.exit(2)
+
+
+def section_filter(prog, section: str):
+    """CLI section choice -> MemoryMap ``sections`` argument (kind names or
+    leaf names), or None for the full map (cache overlays)."""
+    if section in _KIND_SECTIONS:
+        return _KIND_SECTIONS[section]
+    if section == "stack":
+        names = [n for n, s in prog.region.spec.items()
+                 if getattr(s, "stack", False) or s.kind == "stack"]
+        if not names:
+            print(f"Error, {prog.region.name} has no stack-class leaves!",
+                  file=sys.stderr)
+            sys.exit(-1)
+        return names
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_command_line(argv)
+
+    from coast_tpu_torch.inject import logs
+    from coast_tpu_torch.inject.campaign import CampaignRunner
+    from coast_tpu_torch.inject.hierarchy import (MemHierarchy,
+                                                  generate_cache_schedule)
+
+    device = "cpu" if args.board == "cpu" else "cuda"
+    prog, strategy = build_program(args.filename, args.opt_passes, device)
+    retry = None
+    if args.max_retries > 0 or args.collect_timeout:
+        from coast_tpu_torch.inject.resilience import RetryPolicy
+        retry = RetryPolicy(max_attempts=max(1, args.max_retries) + 1,
+                            collect_timeout=args.collect_timeout)
+    try:
+        runner = CampaignRunner(prog,
+                                sections=section_filter(prog, args.section),
+                                strategy_name=strategy,
+                                retry=retry,
+                                fault_model=args.fault_model_parsed,
+                                collect=args.collect)
+    except ValueError:
+        print(f"Error, {prog.region.name} has no injectable leaves in "
+              f"section '{args.section}'!", file=sys.stderr)
+        return 1
+    mmap = runner.mmap
+
+    # Refuse an existing journal without --resume before anything runs
+    # (the library check only fires after the schedule is generated).
+    if args.journal and not args.resume and os.path.exists(args.journal) \
+            and os.path.getsize(args.journal) > 0:
+        print(f"Error, journal {args.journal} already exists; pass "
+              "--resume to continue it or delete the file to start "
+              "fresh", file=sys.stderr)
+        return 1
+
+    if args.forceBreak:
+        from coast_tpu_torch.opt import UsageError, _parse_inject
+        try:
+            fault = _parse_inject(args.forceBreak, prog)
+        except (UsageError, ValueError) as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 2
+        for i in range(args.breakCount):
+            rec = prog.run(fault)
+            print(f"forced injection {i}: E: {int(rec['errors'])} "
+                  f"F: {int(rec['corrected'])} T: {int(rec['steps'])} "
+                  f"dwc={bool(rec['dwc_fault'])} cfc={bool(rec['cfc_fault'])}")
+        return 0
+
+    log_dir = args.log_dir or "."
+    log_path = os.path.join(
+        log_dir, f"{prog.region.name}_{strategy}_{args.section}.json")
+    stream = None
+    if args.stream_logs:
+        stream = logs.StreamLogWriter(log_path, mmap, fmt=args.log_format)
+    try:
+        if args.section in CACHE_SECTIONS:
+            cache_name = None if args.section == "cache" else args.section
+            sched = generate_cache_schedule(
+                mmap, MemHierarchy("gpu"), args.t, args.seed,
+                prog.region.nominal_steps, cache_name)
+            res = runner.run_schedule(
+                sched, batch_size=min(args.batch_size, len(sched)),
+                stream=stream, stop_when=args.stop_when_parsed)
+        elif args.errorCount:
+            res = runner.run_until_errors(args.errorCount, seed=args.seed,
+                                          batch_size=args.batch_size,
+                                          journal=args.journal)
+        elif args.stratified:
+            from coast_tpu_torch.inject.schedule import (
+                generate_stratified_total)
+            sched = generate_stratified_total(mmap, args.t, args.seed,
+                                              prog.region.nominal_steps,
+                                              model=runner.fault_model)
+            res = runner.run_schedule(
+                sched, batch_size=min(args.batch_size, len(sched)),
+                stream=stream, stop_when=args.stop_when_parsed)
+        else:
+            res = runner.run(args.t, seed=args.seed,
+                             batch_size=args.batch_size,
+                             start_num=args.start_num, journal=args.journal,
+                             stream=stream, stop_when=args.stop_when_parsed)
+    except BaseException:
+        if stream is not None:
+            stream.abort()       # never leave a half-written final log
+        raise
+
+    print(res.summary())
+    if not args.no_logging:
+        if stream is not None:
+            stream.finish(res)
+        else:
+            writer = {"json": logs.write_json, "ndjson": logs.write_ndjson,
+                      "columnar": logs.write_columnar,
+                      "reference": logs.write_reference_json
+                      }[args.log_format]
+            writer(res, mmap, log_path)
+        print(f"wrote {log_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import os
 from typing import Callable, Dict
 
 from coast_tpu_torch.ir.region import Region
@@ -12,6 +14,7 @@ def _lazy(modname: str, fn: str = "make_region") -> Callable[[], Region]:
     def make() -> Region:
         mod = importlib.import_module(f"coast_tpu_torch.models.{modname}")
         return getattr(mod, fn)()
+    make.modname = modname
     return make
 
 
@@ -22,3 +25,56 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "matrixMultiply1024b512": _lazy("mm256", "make_region_1024_b512"),
     "crc16": _lazy("crc16"),
 }
+
+#: The reference registry's other names, not ported yet (ROADMAP Queue A
+#: item 12 brings each as a torch region; the train regions are item 14,
+#: the rtos kernel targets item 15, the sharded stencil items 12 and 16).
+UNPORTED = {
+    **{name: "item 12" for name in (
+        "quicksort", "aes", "sha256", "chstone_mips", "towersOfHanoi",
+        "chstone_sha", "chstone_adpcm", "chstone_blowfish", "chstone_dfadd",
+        "chstone_dfmul", "chstone_dfdiv", "chstone_dfsin", "chstone_gsm",
+        "chstone_motion", "chstone_jpeg", "crazyCF", "whetstone", "simd",
+        "scalarize", "cache_test", "schedule2", "trivial", "helloWorld",
+        "simpleTMR", "nestedCalls", "rtos_app")},
+    "rtos_mm": "item 15", "rtos_kUser": "item 15",
+    "train_mlp": "item 14", "train_mlp_adam": "item 14",
+    "stencil": "items 12 and 16",
+}
+
+
+def resolve_region(arg: str, **kw) -> Region:
+    """The program argument of the CLIs: a registry name.  Raises KeyError
+    for a name neither package knows, NotImplementedError (naming the
+    ROADMAP item) for a reference name or a restricted-C ``.c`` source the
+    port does not have yet, and TypeError for factory knobs, which no
+    ported region takes."""
+    if arg.endswith(".c"):
+        raise NotImplementedError(
+            f"{arg}: C-source programs need the restricted-C lifter, "
+            "ROADMAP Queue A item 17")
+    if arg in UNPORTED:
+        raise NotImplementedError(
+            f"benchmark {arg!r} is not ported yet; see ROADMAP Queue A "
+            f"{UNPORTED[arg]}")
+    if arg not in REGISTRY:
+        raise KeyError(arg)
+    if kw:
+        raise TypeError(
+            f"factory arguments {sorted(kw)} do not apply to {arg!r}")
+    return REGISTRY[arg]()
+
+
+def model_source(name: str) -> str:
+    """Absolute path of the port's model module behind a REGISTRY name:
+    line 1 of a reference-format log (the reference names its own model
+    module there; the reference's jsonParser refuses a log whose line-1
+    path does not exist).  Unknown names fall back to the package."""
+    make = REGISTRY.get(name)
+    if make is not None:
+        spec = importlib.util.find_spec(
+            f"coast_tpu_torch.models.{make.modname}")
+        if spec is not None and spec.origin:
+            return os.path.realpath(spec.origin)
+    import coast_tpu_torch
+    return os.path.realpath(coast_tpu_torch.__file__)

@@ -1,0 +1,276 @@
+"""The port's campaign supervisor CLI against the reference's.
+
+The same argv goes through ``coast_tpu.inject.supervisor.main`` (on the
+CPU) and ``coast_tpu_torch.inject.supervisor.main`` (``-d cpu``), with the
+log timestamp fixed in both packages.  The printed summaries are equal
+outside the volatile keys, and so are the log files: every per-injection
+line or row byte for byte, the reference format after its line 1 (which
+names each package's own model module).  A journal one package wrote and
+a kill cut short resumes under the other to the uninterrupted result.
+Flags whose subsystem the port does not have yet exit 2 naming their
+ROADMAP item; the shared refusals give the reference's messages.  The
+port's cache schedules equal the reference's bit for bit.
+"""
+
+import ast
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from coast_tpu_torch.inject import logs, supervisor
+
+torch.set_num_threads(1)
+
+FIXED_TS = "2026-01-01 00:00:00.000000"
+VOLATILE = ("seconds", "injections_per_sec", "stages", "transfer_bytes")
+
+
+@pytest.fixture(autouse=True)
+def fixed_timestamps(monkeypatch):
+    from coast_tpu.inject import logs as jlogs
+    monkeypatch.setattr(logs, "_timestamp", lambda: FIXED_TS)
+    monkeypatch.setattr(jlogs, "_timestamp", lambda: FIXED_TS)
+
+
+def ref_main(argv):
+    from coast_tpu.inject import supervisor as jsup
+    return jsup.main(argv)
+
+
+def summary_of(stdout):
+    """The summary dict a supervisor printed, without its volatile keys."""
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("{"))
+    return {k: v for k, v in ast.literal_eval(line).items()
+            if k not in VOLATILE}
+
+
+def drive(main, argv, log_dir, capsys):
+    log_dir.mkdir(exist_ok=True)
+    rc = main([*argv, "-d", "cpu", "-l", str(log_dir)])
+    assert rc == 0
+    return capsys.readouterr().out
+
+
+def assert_logs_equal(port_dir, ref_dir, fmt):
+    names = sorted(os.listdir(ref_dir))
+    assert sorted(os.listdir(port_dir)) == names and names
+    for name in names:
+        got = (port_dir / name).read_bytes()
+        want = (ref_dir / name).read_bytes()
+        if fmt == "reference":
+            assert got.split(b"\n", 1)[1] == want.split(b"\n", 1)[1]
+            continue
+        if fmt == "ndjson":
+            head_g, rows_g = got.split(b"\n", 1)
+            head_w, rows_w = want.split(b"\n", 1)
+            assert rows_g == rows_w
+            got_s = json.loads(head_g)["summary"]
+            want_s = json.loads(head_w)["summary"]
+        else:
+            got_j, want_j = json.loads(got), json.loads(want)
+            got_s, want_s = got_j.pop("summary"), want_j.pop("summary")
+            assert json.dumps(got_j) == json.dumps(want_j)
+        assert ({k: v for k, v in got_s.items() if k not in VOLATILE}
+                == {k: v for k, v in want_s.items() if k not in VOLATILE})
+
+
+# name -> argv (without -d/-l); each runs 100-1000 rows on the CPU.
+CAMPAIGNS = {
+    "t_mm_tmr_json": ["-f", "matrixMultiply", "-O", "-TMR", "-t", "240",
+                      "--batch-size", "80", "--seed", "3"],
+    "t_mm_dwc_start_num": ["-f", "matrixMultiply", "-O=-DWC", "-t", "150",
+                           "--batch-size", "64", "--seed", "2",
+                           "--start-num", "40", "--log-format", "columnar"],
+    "t_crc16_fused_sparse_multibit": [
+        "-f", "crc16", "-O", "-DWC -fuseStep", "-t", "200",
+        "--batch-size", "64", "--collect", "sparse",
+        "--fault-model", "multibit(k=4)", "--log-format", "ndjson"],
+    "t_mm_stream_ndjson": ["-f", "matrixMultiply", "-t", "200",
+                           "--batch-size", "64", "--stream-logs",
+                           "--log-format", "ndjson"],
+    "t_mm_stream_reference": ["-f", "matrixMultiply", "-t", "130",
+                              "--batch-size", "50", "--stream-logs",
+                              "--log-format", "reference"],
+    "e_mm_tmr": ["-f", "matrixMultiply", "-O", "-TMR", "-e", "2",
+                 "--batch-size", "100", "--seed", "4"],
+    "stratified_crc16": ["-f", "crc16", "-t", "120", "--stratified",
+                         "--log-format", "columnar"],
+    "registers_crc16": ["-f", "crc16", "-s", "registers", "-t", "100",
+                        "--batch-size", "50", "--seed", "5",
+                        "--log-format", "reference"],
+    "dcache_mm": ["-f", "matrixMultiply", "-s", "dcache", "-t", "120",
+                  "--batch-size", "60", "--seed", "6"],
+    "l2cache_crc16_unprotected": ["-f", "crc16", "-O", "", "-s",
+                                  "l2cache", "-t", "100", "--seed", "7",
+                                  "--log-format", "ndjson"],
+}
+
+
+def log_format(argv):
+    return argv[argv.index("--log-format") + 1] if "--log-format" in argv \
+        else "json"
+
+
+@pytest.mark.parametrize("name", sorted(CAMPAIGNS))
+def test_campaign_equals_the_reference(name, tmp_path, capsys):
+    argv = CAMPAIGNS[name]
+    got = drive(supervisor.main, argv, tmp_path / "port", capsys)
+    want = drive(ref_main, argv, tmp_path / "ref", capsys)
+    assert summary_of(got) == summary_of(want)
+    assert got.splitlines()[-1].startswith("wrote ")
+    assert_logs_equal(tmp_path / "port", tmp_path / "ref", log_format(argv))
+
+
+def test_force_break_equals_the_reference(capsys):
+    argv = ["-f", "matrixMultiply", "-b", "results:1:0:20:5", "-c", "2",
+            "-q", "-d", "cpu"]
+    assert supervisor.main(argv) == 0
+    got = capsys.readouterr().out
+    assert ref_main(argv) == 0
+    want = capsys.readouterr().out
+    assert got == want and got.count("forced injection") == 2
+
+
+def cut_journal(path, batches):
+    """What a kill leaves: the header and the first ``batches`` records."""
+    with open(path) as f:
+        lines = f.readlines()
+    with open(path, "w") as f:
+        f.writelines(lines[:1 + batches])
+
+
+@pytest.mark.parametrize("killed_by", ["port", "reference"])
+@pytest.mark.parametrize("case", [
+    ["-f", "matrixMultiply", "-O", "-TMR", "-t", "300", "--batch-size", "60",
+     "--seed", "9", "--log-format", "ndjson", "--stream-logs"],
+    ["-f", "crc16", "-O", "-DWC -fuseStep", "-t", "240", "--batch-size",
+     "60", "--collect", "sparse", "--fault-model", "multibit(k=4)",
+     "--log-format", "json"],
+], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse"])
+def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
+    """A journal cut after two batches resumes under the other package to
+    the uninterrupted run's summary and log."""
+    full = drive(supervisor.main, case, tmp_path / "full", capsys)
+    j = str(tmp_path / "j.ndjson")
+    first, second = ((supervisor.main, ref_main) if killed_by == "port"
+                     else (ref_main, supervisor.main))
+    drive(first, [*case, "--journal", j], tmp_path / "killed", capsys)
+    cut_journal(j, 2)
+    resumed = drive(second, [*case, "--journal", j, "--resume"],
+                    tmp_path / "resumed", capsys)
+    assert summary_of(resumed) == summary_of(full)
+    assert_logs_equal(tmp_path / "resumed", tmp_path / "full",
+                      log_format(case))
+    with open(j) as f:
+        records = [json.loads(ln) for ln in f]
+    assert sum(r.get("kind") == "batch" for r in records) == 5 - (
+        "crc16" in case)
+
+
+UNPORTED = [
+    (["--equiv"], "item 17"),
+    (["--delta-from", "base.ndjson"], "item 17"),
+    (["--static-budget"], "item 17"),
+    (["--mesh", "2"], "item 16"),
+    (["--placement", "link"], "16"),
+    (["--metrics-port", "0"], "item 18"),
+    (["--status-json", "status.json"], "item 18"),
+    (["--heartbeat", "1"], "item 18"),
+    (["--console"], "item 18"),
+    (["--trace-out", "trace.json"], "item 18"),
+    (["--profile"], "item 18"),
+    (["--slo", "sdc<0.1"], "item 19"),
+    (["--unroll", "2"], "scan"),
+    (["-d", "tpu"], "coast_tpu.inject.supervisor"),
+    (["-f", "quicksort"], "item 12"),
+    (["-f", "train_mlp"], "item 14"),
+    (["-f", "prog.c"], "item 17"),
+]
+
+
+@pytest.mark.parametrize("extra,why", UNPORTED,
+                         ids=[" ".join(a) for a, _ in UNPORTED])
+def test_unported_flag_refused_with_its_item(extra, why, capsys):
+    argv = ["-f", "matrixMultiply", "-t", "4", "-q", "-d", "cpu", *extra]
+    with pytest.raises(SystemExit) as exc:
+        supervisor.main(argv)
+    assert exc.value.code == 2
+    assert why in capsys.readouterr().err
+
+
+def refusal(main, argv, capsys):
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    return rc, capsys.readouterr().err.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("case", [
+    "resume_without_journal", "journal_exists", "journal_with_force_break",
+    "stream_with_json", "sparse_with_e", "board_pynq", "unknown_benchmark",
+    "missing_log_dir", "bad_fault_model", "bad_stop_when",
+])
+def test_shared_refusals_give_the_reference_messages(case, tmp_path, capsys):
+    existing = tmp_path / "old.ndjson"
+    existing.write_text('{"kind": "header"}\n')
+    base = ["-f", "matrixMultiply", "-t", "4", "-d", "cpu", "-q"]
+    argv = {
+        "resume_without_journal": [*base, "--resume"],
+        "journal_exists": [*base, "--journal", str(existing)],
+        "journal_with_force_break": [*base, "--journal",
+                                     str(tmp_path / "new.ndjson"),
+                                     "-b", "results:1:0:20:5"],
+        "stream_with_json": [*base[:-1], "--stream-logs"],
+        "sparse_with_e": [*base, "-e", "3", "--collect", "sparse"],
+        "board_pynq": ["-f", "matrixMultiply", "-d", "pynq"],
+        "unknown_benchmark": ["-f", "noSuchBench", "-d", "cpu"],
+        "missing_log_dir": [*base[:-1], "-l", str(tmp_path / "nowhere")],
+        "bad_fault_model": [*base, "--fault-model", "multibit(k=0)"],
+        "bad_stop_when": [*base, "--stop-when", "sdc:2"],
+    }[case]
+    assert refusal(supervisor.main, argv, capsys) == refusal(ref_main, argv,
+                                                             capsys)
+
+
+def test_stop_when_campaign_equals_the_reference(tmp_path, capsys):
+    argv = ["-f", "matrixMultiply", "-t", "400", "--batch-size", "50",
+            "--stop-when", "corrected:0.05;min=100", "--log-format",
+            "ndjson"]
+    got = drive(supervisor.main, argv, tmp_path / "port", capsys)
+    want = drive(ref_main, argv, tmp_path / "ref", capsys)
+    assert summary_of(got) == summary_of(want)
+    assert summary_of(got)["convergence"]["stopped"]
+    assert_logs_equal(tmp_path / "port", tmp_path / "ref", "ndjson")
+
+
+# -- hierarchy ----------------------------------------------------------------
+
+@pytest.mark.parametrize("bench", ["matrixMultiply", "crc16"])
+@pytest.mark.parametrize("cache", ["dcache", "l2cache", None])
+def test_cache_schedule_equals_the_reference(bench, cache):
+    import coast_tpu
+    from coast_tpu.inject import hierarchy as jh
+    from coast_tpu.inject.mem import MemoryMap as JMemoryMap
+    from coast_tpu.models import REGISTRY as JREGISTRY
+
+    import coast_tpu_torch as ct
+    from coast_tpu_torch.inject import hierarchy as th
+    from coast_tpu_torch.inject.mem import MemoryMap
+    from coast_tpu_torch.models import REGISTRY
+
+    prog = ct.TMR(REGISTRY[bench](), device="cpu")
+    jprog = coast_tpu.TMR(JREGISTRY[bench]())
+    got = th.generate_cache_schedule(MemoryMap(prog), th.MemHierarchy("gpu"),
+                                     300, 13, prog.region.nominal_steps,
+                                     cache)
+    want = jh.generate_cache_schedule(JMemoryMap(jprog),
+                                      jh.MemHierarchy("tpu"), 300, 13,
+                                      jprog.region.nominal_steps, cache)
+    for f in ("leaf_id", "lane", "word", "bit", "t", "section_idx"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.seed == want.seed
+    assert th.RegisterFile(prog).names == jh.RegisterFile(jprog).names
