@@ -89,6 +89,15 @@ Phases, in order; any failure exits non-zero:
      with a journal and a streamed ndjson log through the runner and then
      through the CLI; each rate beside phase 9's, the journal's and the
      log's bytes (no target);
+ 19. the BASELINE regions (run before phase 18): aes, sha256, quicksort
+     and the CHStone suite under TMR, and quicksort under DWC, 4096
+     injections at batch 4096, seed 1, unfused and fused: fused = unfused
+     on every row, K1 and K2 launched exactly their per-trip counts (a
+     CPU twin counts one trip's and one boundary's calls) times the loop
+     trips, and the first 256 rows rerun on the CPU equal on every
+     column; then chstone_jpeg TMR through the supervisor CLI, with and
+     without ``-pallasVoters``: the runner's records on the CLI's default
+     section, the same K1 launches; each case's inj/s and wall;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -98,10 +107,10 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12 and 14-17, K2 those of phases 7b, 9-12 and 14-17 (each phase's
-counts set to 0 just before it and read just after; a supervisor process
-reports its own at exit).  It imports nothing of JAX or of the coast_tpu
-package.
+9-12, 14-17 and 19, K2 those of phases 7b, 9-12, 14-17 and 19 (each
+phase's counts set to 0 just before it and read just after; a supervisor
+process reports its own at exit).  It imports nothing of JAX or of the
+coast_tpu package.
 """
 
 from __future__ import annotations
@@ -1408,6 +1417,168 @@ def durability(work: Path, board: str, card: str, TMR, REGISTRY,
     return tuple(launches)
 
 
+# Phase 19: the BASELINE regions (configs 2-4): aes, sha256, quicksort and
+# the CHStone suite, with quicksort (config 3) under DWC as well.
+BASELINE = ("aes", "sha256", "quicksort", "chstone_mips", "chstone_sha",
+            "chstone_adpcm", "chstone_blowfish", "chstone_dfadd",
+            "chstone_dfmul", "chstone_dfdiv", "chstone_dfsin", "chstone_gsm",
+            "chstone_motion", "chstone_jpeg")
+
+
+def sync_launches(prog, hv, fs) -> tuple:
+    """What one loop trip and one batch's boundary launch on ``prog``
+    ((K1 calls, K2 calls), K1 calls), and the torch operators one trip
+    dispatches, counted on a CPU twin of it: one trip of the engine's
+    step (after a first one) and one boundary vote, two rows."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountOps.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {"K1": 0, "K2": 0}
+    real = (hv.vote_sites, fs.commit_sites)
+
+    def k1(sites, n):
+        counts["K1"] += 1
+        return real[0](sites, n)
+
+    def k2(sites, n):
+        counts["K2"] += 1
+        return real[1](sites, n)
+
+    twin = type(prog)(prog.region, prog.cfg, "cpu")
+    hv.vote_sites, fs.commit_sites = k1, k2
+    try:
+        pstate, flags = twin.init_pstate(2)
+        pstate, flags = twin.step(pstate, flags, 0)
+        trip = (counts["K1"], counts["K2"])
+        counts.update(K1=0, K2=0)
+        twin.boundary_votes(pstate)
+        boundary = counts["K1"]
+        with CountOps():
+            twin.step(pstate, flags, 1)
+    finally:
+        hv.vote_sites, fs.commit_sites = real
+    return trip, boundary, CountOps.ops
+
+
+def baseline_regions(work: Path, board: str, card: str, torch, TMR, DWC,
+                     REGISTRY, CampaignRunner, hv, hc, fs,
+                     n: int = 4096, cpu_rows: int = 256) -> tuple:
+    """Phase 19: each BASELINE region (and quicksort under DWC) on the
+    card, ``n`` injections at batch ``n``, seed 1, unfused and fused: the
+    two records equal on every row; K1 launched exactly its per-trip count
+    a loop trip plus the boundary group, K2 (fused) exactly its per-trip
+    count; the first ``cpu_rows`` rows rerun on the CPU (plain voters and
+    commit), equal on every column.  Then chstone_jpeg TMR through the
+    supervisor CLI, with and without ``-pallasVoters``: the runner's
+    records and counts, and the same K1 launches.  Returns the (K1, K2)
+    launches."""
+    from coast_tpu_torch.inject import logs
+    from coast_tpu_torch.inject.supervisor import section_filter
+    device = "cpu" if board == "cpu" else "cuda"
+    launches = [0, 0]
+    rates = {}
+    t_phase = time.perf_counter()
+    cases = [(name, TMR) for name in BASELINE] + [("quicksort", DWC)]
+    for name, strat in cases:
+        region = REGISTRY[name]()
+        label = f"{name} {strat.__name__}"
+        results = {}
+        for fused in (False, True):
+            prog = strat(region, device=device, fuse_step=fused)
+            if prog._fuse_plan is None and fused:
+                fail(f"{label}: no fused plan on an integer region")
+            trip, boundary, ops = sync_launches(prog, hv, fs)
+            trips = count_trips(prog)
+            hv.LAUNCHES = hc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = CampaignRunner(prog, strategy_name=strat.__name__).run(
+                n, seed=1, batch_size=n)
+            wall = time.perf_counter() - t0
+            got = (hv.LAUNCHES, hc.LAUNCHES)
+            want = (trip[0] * trips[0] + boundary, trip[1] * trips[0])
+            if got != want:
+                fail(f"{label} fused={fused}: K1/K2 launches {got}, not "
+                     f"{want} ({trips[0]} trips of {trip}, boundary "
+                     f"{boundary})")
+            launches[0] += got[0]
+            launches[1] += got[1]
+            results[fused] = res
+            rates[f"{label}{' fused' if fused else ''}"] = (
+                res.injections_per_sec, wall)
+            log(f"{label}{' fused' if fused else ''}: {res.counts} "
+                f"{res.injections_per_sec:.1f} inj/s ({res.seconds:.2f} s, "
+                f"{wall:.2f} s wall), {trips[0]} trips of {ops} torch ops "
+                f"({1e6 * wall / (trips[0] * ops):.2f} us an op), K1 "
+                f"{got[0]} ({trip[0]} a trip + {boundary} boundary), K2 "
+                f"{got[1]} ({trip[1]} a trip) [{card}]")
+        why = records_differ(results[False], results[True])
+        if why:
+            fail(f"{label}: fused and unfused records differ: {why}")
+        dense = results[False]
+        sub = dense.schedule.slice(0, cpu_rows)
+        cpu = CampaignRunner(strat(region, device="cpu")).run_schedule(
+            sub, batch_size=cpu_rows)
+        for col in COLUMNS:
+            if not np.array_equal(getattr(dense, col)[:cpu_rows],
+                                  getattr(cpu, col)):
+                bad = np.flatnonzero(getattr(dense, col)[:cpu_rows]
+                                     != getattr(cpu, col))
+                fail(f"{label}: {col} differs between card and CPU on rows "
+                     f"{bad[:10].tolist()}")
+    log(f"phase 19 campaigns: fused = unfused on every row, the first "
+        f"{cpu_rows} rows equal the CPU's, {time.perf_counter() - t_phase:.1f}"
+        f" s [{card}]")
+
+    # chstone_jpeg TMR through the supervisor CLI, with and without the
+    # voter switch (C1), against the runner on the CLI's default section.
+    prog = TMR(REGISTRY["chstone_jpeg"](), device=device)
+    runner = CampaignRunner(prog, sections=section_filter(prog, "memory"),
+                            strategy_name="TMR")
+    hv.LAUNCHES = 0
+    res = runner.run(n, seed=1, batch_size=n)
+    launches[0] += hv.LAUNCHES
+    ref_dir = work / "jpeg_runner"
+    ref_dir.mkdir()
+    logs.write_ndjson(res, runner.mmap, str(ref_dir / "runner.json"))
+    want_rows = log_content(ref_dir, "ndjson")[1]
+    cli_k1 = {}
+    for extra in ("", " -pallasVoters"):
+        cli_dir = work / f"jpeg_cli{extra.replace(' -', '_')}"
+        cli_dir.mkdir()
+        t0 = time.perf_counter()
+        cli = run_cli(["-f", "chstone_jpeg", "-O", f"-TMR{extra}", "-t",
+                       str(n), "--batch-size", str(n), "--seed", "1",
+                       "--log-format", "ndjson", "-l", str(cli_dir)], board,
+                      f"chstone_jpeg -TMR{extra} CLI")
+        wall = time.perf_counter() - t0
+        counts = {k: cli["summary"][k] for k in res.counts}
+        if counts != res.counts:
+            fail(f"chstone_jpeg -TMR{extra} CLI: counts {counts} differ "
+                 f"from the runner's {res.counts}")
+        if log_content(cli_dir, "ndjson")[1] != want_rows:
+            fail(f"chstone_jpeg -TMR{extra} CLI: the per-injection log "
+                 "differs from the runner's records")
+        cli_k1[extra] = cli["k1"]
+        launches[0] += cli["k1"]
+        launches[1] += cli["k2"]
+        log(f"chstone_jpeg -O '-TMR{extra}' through the supervisor CLI: "
+            f"{counts}, the runner's records, "
+            f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, "
+            f"{wall:.2f} s process wall, K1 {cli['k1']} [{card}]")
+    if cli_k1[""] != cli_k1[" -pallasVoters"] or cli_k1[""] <= 0:
+        fail(f"-pallasVoters changed the K1 launches: {cli_k1}")
+    log(json.dumps({"phase19_inj_per_s": {
+        k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "card": card}))
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -1574,6 +1745,11 @@ def main() -> None:
         watchdog(work, "gpu", card, first),
         durability(work, "gpu", card, TMR, REGISTRY, CampaignRunner,
                    StreamLogWriter, bare)]
+    # 19. The BASELINE regions: aes, sha256, quicksort and the CHStone
+    # suite.
+    new_launches.append(baseline_regions(
+        work, "gpu", card, torch, TMR, DWC, REGISTRY, CampaignRunner, hv, hc,
+        fs))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)

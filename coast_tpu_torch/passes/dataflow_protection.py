@@ -65,9 +65,6 @@ _LATER_FIELDS = {
     "protected_lib_fns": "item 13 (function-scope wrappers)",
     "runtime_init_globals": "item 13 (the rest of passes/)",
     "cfcss": "item 13 (CFCSS)",
-    "pallas_voters": "item 7: every vote on the card already runs the "
-                     "Hopper K1 kernel; the TPU kernel switch has no "
-                     "counterpart",
     "isr_functions": "(refused by the reference too: a stepped region has "
                      "no interrupts)",
 }
@@ -98,6 +95,11 @@ class ProtectionConfig:
     clone_return_fns: Tuple[str, ...] = ()
     clone_after_call_fns: Tuple[str, ...] = ()
     protected_lib_fns: Tuple[str, ...] = ()
+    # The reference's voter lowering switch (-pallasVoters /
+    # -noPallasVoters): None, True or False, kept for the journal's
+    # config_sha.  It changes no record here: a vote on a CUDA tensor
+    # always launches K1 (ops/hopper_voters.py), one on a CPU tensor runs
+    # the plain voter, as the reference's switch only picks the lowering.
     pallas_voters: "bool | None" = None
     fuse_step: bool = False
     isr_functions: Tuple[str, ...] = ()

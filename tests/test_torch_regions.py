@@ -135,13 +135,19 @@ def test_lcg_and_splitmix_streams_equal():
 
 
 def test_registry_names_match_reference():
+    from coast_tpu.models import CHSTONE as JCHSTONE
     from coast_tpu.models import REGISTRY as JREGISTRY
+    from coast_tpu_torch.models import CHSTONE, UNPORTED
     assert set(REGISTRY) <= set(JREGISTRY)
     assert set(REGISTRY) == {"matrixMultiply", "matrixMultiply256",
                              "matrixMultiply1024", "matrixMultiply1024b512",
-                             "crc16"}
-    assert REGISTRY["matrixMultiply"]().name == "matrixMultiply"
-    assert REGISTRY["crc16"]().name == "crc16"
+                             "crc16", "quicksort", "aes", "sha256",
+                             *JCHSTONE}
+    assert CHSTONE == JCHSTONE
+    assert set(REGISTRY) | set(UNPORTED) == set(JREGISTRY)
+    assert not set(REGISTRY) & set(UNPORTED)
+    for name in REGISTRY:
+        assert REGISTRY[name]().name == JREGISTRY[name]().name == name
 
 
 @pytest.mark.parametrize("i", [-20, -9, -3, -1, 0, 4, 8, 9, 17, 2**31 - 1,
@@ -206,8 +212,10 @@ def test_unported_features_refuse_with_roadmap_item():
         ct.ProtectionConfig(protect_stack=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         ct.ProtectionConfig(cfcss=True)
-    with pytest.raises(NotImplementedError):
-        ct.ProtectionConfig(pallas_voters=True)
+    # C1: the reference's voter switch is accepted with every value.
+    for value in (None, True, False):
+        assert ct.ProtectionConfig(pallas_voters=value).pallas_voters \
+            is value
     region = mm.make_region()
     with pytest.raises(NotImplementedError, match="item 13"):
         ct.TMR(region, device="cpu", segmented=True)

@@ -106,6 +106,13 @@ CAMPAIGNS = {
     "l2cache_crc16_unprotected": ["-f", "crc16", "-O", "", "-s",
                                   "l2cache", "-t", "100", "--seed", "7",
                                   "--log-format", "ndjson"],
+    # The reference's voter switch (C1) on two of the BASELINE regions.
+    "t_aes_tmr_pallas_voters": ["-f", "aes", "-O", "-TMR -pallasVoters",
+                                "-t", "128", "--batch-size", "64",
+                                "--seed", "3"],
+    "t_quicksort_dwc_no_pallas_voters": [
+        "-f", "quicksort", "-O", "-DWC -noPallasVoters", "-t", "64",
+        "--batch-size", "64", "--log-format", "ndjson"],
 }
 
 
@@ -149,7 +156,9 @@ def cut_journal(path, batches):
     ["-f", "crc16", "-O", "-DWC -fuseStep", "-t", "240", "--batch-size",
      "60", "--collect", "sparse", "--fault-model", "multibit(k=4)",
      "--log-format", "json"],
-], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse"])
+    ["-f", "chstone_motion", "-O", "-TMR -pallasVoters", "-t", "300",
+     "--batch-size", "60", "--seed", "5", "--log-format", "json"],
+], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse", "motion_tmr_pallas_voters"])
 def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
     """A journal cut after two batches resumes under the other package to
     the uninterrupted run's summary and log."""
@@ -185,7 +194,8 @@ UNPORTED = [
     (["--slo", "sdc<0.1"], "item 19"),
     (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
-    (["-f", "quicksort"], "item 12"),
+    (["-f", "crazyCF"], "item 12"),
+    (["-f", "nestedCalls"], "item 13"),
     (["-f", "train_mlp"], "item 14"),
     (["-f", "prog.c"], "item 17"),
 ]
@@ -213,6 +223,7 @@ def refusal(main, argv, capsys):
     "resume_without_journal", "journal_exists", "journal_with_force_break",
     "stream_with_json", "sparse_with_e", "board_pynq", "unknown_benchmark",
     "missing_log_dir", "bad_fault_model", "bad_stop_when",
+    "pallas_voters_pair",
 ])
 def test_shared_refusals_give_the_reference_messages(case, tmp_path, capsys):
     existing = tmp_path / "old.ndjson"
@@ -231,9 +242,34 @@ def test_shared_refusals_give_the_reference_messages(case, tmp_path, capsys):
         "missing_log_dir": [*base[:-1], "-l", str(tmp_path / "nowhere")],
         "bad_fault_model": [*base, "--fault-model", "multibit(k=0)"],
         "bad_stop_when": [*base, "--stop-when", "sdc:2"],
+        "pallas_voters_pair": [*base, "-O",
+                               "-TMR -pallasVoters -noPallasVoters"],
     }[case]
     assert refusal(supervisor.main, argv, capsys) == refusal(ref_main, argv,
                                                              capsys)
+
+
+@pytest.mark.parametrize("passes", ["-TMR -pallasVoters",
+                                    "-DWC -noPallasVoters", "-TMR"])
+def test_voter_switch_config_sha_equals_the_reference(passes):
+    """C1: -pallasVoters / -noPallasVoters parse to the reference's config,
+    so the journal header's config_sha is the reference's."""
+    import coast_tpu
+    from coast_tpu import opt as jopt
+    from coast_tpu.inject.journal import config_fingerprint as jsha
+
+    import coast_tpu_torch as ct
+    from coast_tpu_torch import opt
+    from coast_tpu_torch.inject.journal import config_fingerprint
+    argv = passes.split()
+    jover = jopt.build_overrides(jopt.parse_argv(argv)[0])
+    over = opt.build_overrides(opt.parse_argv(argv)[0])
+    assert over == jover
+    n = 3 if "-TMR" in argv else 2
+    cfg = ct.ProtectionConfig(num_clones=n, **over)
+    assert cfg.pallas_voters is jover.get("pallas_voters")
+    assert config_fingerprint(cfg) == jsha(
+        coast_tpu.ProtectionConfig(num_clones=n, **jover))
 
 
 def test_stop_when_campaign_equals_the_reference(tmp_path, capsys):
