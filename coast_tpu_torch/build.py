@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels from ``csrc/`` at first use.
+"""Build the port's native code from ``csrc/`` at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``; the
@@ -7,6 +7,11 @@ PyTorch headers are involved, so a build takes seconds.  Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so a changed source is rebuilt and an unchanged one
 is reused.  A failed build raises: nothing falls back to a plain version.
+
+Each ``csrc/<name>.cpp`` is host code (the ndjson log encoder), compiled
+by ``g++`` the same way into ``build/host/`` on whichever machine first
+loads it (:func:`load_host`).  Concurrent builds (test workers) each
+write a temp file of their own and ``os.replace`` it into place.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # ``-Xptxas -v`` only adds ptxas's register and spill report to the output.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -103,3 +111,40 @@ def load(name: str) -> ctypes.CDLL:
             _loaded[name] = lib
         return lib
 
+
+def _host_target(name: str) -> Path:
+    digest = hashlib.sha256()
+    digest.update((CSRC / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return HOST_BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The built library of the host source ``csrc/<name>.cpp``, compiled
+    with ``g++`` at first use."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            target = _host_target(name)
+            if not target.exists():
+                HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [shutil.which("g++") or "g++", *GXX_FLAGS, "-o",
+                       str(tmp), str(CSRC / f"{name}.cpp")]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True,
+                                          text=True)
+                except OSError as e:
+                    raise RuntimeError(
+                        f"g++ could not run for csrc/{name}.cpp: {e}") from e
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"g++ failed for csrc/{name}.cpp (rc "
+                        f"{proc.returncode}):\n{' '.join(cmd)}\n"
+                        f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, target)
+            lib = ctypes.CDLL(str(target))
+            _loaded[key] = lib
+        return lib

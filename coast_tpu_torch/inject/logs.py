@@ -16,10 +16,10 @@ per-injection line or row the port writes equals the reference's byte for
 byte (``tests/test_torch_logs.py``); line 1 of the reference container
 names the port's own model module (``models.model_source``).
 
-Departure from the reference: rows are formatted by the Python template
-formatter only.  The reference also has a native C++ ndjson encoder
-(``coast_tpu/native/coast_core.cpp``), bit-identical and faster; its copy
-in the port is a later ROADMAP item.
+Dense ndjson rows, one-shot and streamed, are formatted by the native C++
+encoder (``native.ndjson_stream_rows`` / ``ndjson_stream_batch``); sparse
+rows keep the Python template formatter (``_ndjson_rows_py``), as in the
+reference, whose rules these are.  The two give the same bytes.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from coast_tpu_torch import native
 from coast_tpu_torch.inject import classify as cls
 from coast_tpu_torch.inject.campaign import CampaignResult, _rows_subset
 from coast_tpu_torch.inject.mem import MemoryMap
@@ -178,22 +179,20 @@ def _columns(res: CampaignResult, mmap: MemoryMap):
     return col, secs
 
 
+def _batch_arrays(part, out: Dict[str, "np.ndarray"]):
+    """Per-run columns of ONE collected batch (or a whole dense campaign)
+    as numpy arrays, the native encoder's input: the schedule slice
+    supplies where/when, the collected ``out`` dict the outcome columns."""
+    return {"leaf_id": part.leaf_id, "lane": part.lane, "word": part.word,
+            "bit": part.bit, "t": part.t, "code": out["code"],
+            "errors": out["errors"], "corrected": out["corrected"],
+            "steps": out["steps"]}
+
+
 def _batch_columns(part, out: Dict[str, "np.ndarray"]):
-    """Per-run columns of ONE collected batch as plain Python lists: the
-    schedule slice supplies where/when, the collected ``out`` dict the
-    outcome columns.  The streaming writer's unit of work."""
-    col = {
-        "leaf_id": part.leaf_id.tolist(),
-        "lane": part.lane.tolist(),
-        "word": part.word.tolist(),
-        "bit": part.bit.tolist(),
-        "t": part.t.tolist(),
-        "code": out["code"].tolist(),
-        "errors": out["errors"].tolist(),
-        "corrected": out["corrected"].tolist(),
-        "steps": out["steps"].tolist(),
-    }
-    return col
+    """:func:`_batch_arrays` as plain Python lists.  The streaming
+    writer's unit of work."""
+    return {k: v.tolist() for k, v in _batch_arrays(part, out).items()}
 
 
 def _injection_log_rows(col, sec_kind: Dict[int, str],
@@ -299,7 +298,10 @@ def write_json(res: CampaignResult, mmap: MemoryMap, path: str) -> None:
 def write_ndjson(res: CampaignResult, mmap: MemoryMap, path: str) -> None:
     """Newline-delimited bulk log: line 1 is the campaign summary (with a
     ``"format": "ndjson"`` marker), each following line one run in the
-    InjectionLog schema, formatted by the Python template loop.
+    InjectionLog schema.  A dense campaign's rows are formatted by the
+    native encoder in one C pass over the columns; a sparse campaign's
+    (the interesting rows, with their own numbers) by the Python
+    template loop.
 
     The stage accounting (res.stages['serialize']) is recorded *after*
     the write, so the summary line inside the file reflects the stages
@@ -307,7 +309,36 @@ def write_ndjson(res: CampaignResult, mmap: MemoryMap, path: str) -> None:
     describes earlier writers, not itself."""
     ts = _timestamp()
     with _serialize_stage(res):
-        _write_ndjson_py(res, mmap, ts, path)
+        if res.collect == "dense":
+            _write_ndjson_native(res, mmap, ts, path)
+        else:
+            _write_ndjson_py(res, mmap, ts, path)
+
+
+def _escaped_leaf_tables(mmap: MemoryMap):
+    """Per-leaf (kind, name) strings, JSON-escaped once a campaign, indexed
+    by leaf id: the native encoder only formats numbers."""
+    secs = {s.leaf_id: s for s in mmap.sections}
+    n_leaves = max(secs) + 1 if secs else 0
+    kind_by_leaf = [""] * n_leaves
+    name_by_leaf = [""] * n_leaves
+    for lid, s in secs.items():
+        kind_by_leaf[lid] = json.dumps(s.kind)[1:-1]
+        name_by_leaf[lid] = json.dumps(s.name)[1:-1]
+    return kind_by_leaf, name_by_leaf
+
+
+def _write_ndjson_native(res: CampaignResult, mmap: MemoryMap, ts: str,
+                         path: str) -> None:
+    col = _batch_arrays(res.schedule, {
+        "code": res.codes, "errors": res.errors, "corrected": res.corrected,
+        "steps": res.steps})
+    with _atomic_write(path, "wb") as f:
+        f.write((json.dumps({"summary": {**res.summary(),
+                                         "format": "ndjson"}})
+                 + "\n").encode())
+        native.ndjson_stream_rows(0, res.n, col,
+                                  *_escaped_leaf_tables(mmap), ts, f.write)
 
 
 def _ndjson_templates(ts: str):
@@ -446,6 +477,7 @@ class StreamLogWriter:
         self._secs = {s.leaf_id: s for s in mmap.sections}
         self._sec_kind = {lid: s.kind for lid, s in self._secs.items()}
         self._sec_name = {lid: s.name for lid, s in self._secs.items()}
+        self._tables = _escaped_leaf_tables(mmap)
         self._exec_path = exec_path
         if exec_path is not None and not os.path.exists(exec_path):
             raise FileNotFoundError(
@@ -638,13 +670,19 @@ class StreamLogWriter:
 
     def _serialize_batch(self, num0: int, part, out) -> None:
         if self.fmt == "ndjson":
-            col = _batch_columns(part, out)
             if self._sparse:
                 # Non-contiguous injection numbers: ``num0`` is the feed's
-                # list of them, written as an explicit number column.
-                col["number"], num0 = num0, 0
-            _ndjson_rows_py(col, self._sec_kind, self._sec_name, self._ts,
-                            num0, lambda s: self._rows_f.write(s.encode()))
+                # list of them, written as an explicit number column by the
+                # Python formatter (interesting rows are few).
+                col = _batch_columns(part, out)
+                col["number"] = num0
+                _ndjson_rows_py(col, self._sec_kind, self._sec_name,
+                                self._ts, 0,
+                                lambda s: self._rows_f.write(s.encode()))
+                return
+            native.ndjson_stream_batch(num0, _batch_arrays(part, out),
+                                       *self._tables, self._ts,
+                                       self._rows_f.write)
         elif self.fmt == "columnar":
             col = _batch_columns(part, out)
             for k in col:           # _COLUMN_KEYS

@@ -381,8 +381,9 @@ def section_filter(prog, section: str):
     if section in _KIND_SECTIONS:
         return _KIND_SECTIONS[section]
     if section == "stack":
-        names = [n for n, s in prog.region.spec.items()
-                 if getattr(s, "stack", False) or s.kind == "stack"]
+        # LeafSpec.stack leaves (the -protectStack frames); the rtos
+        # kernel's KIND_STACK stacks come with ROADMAP Queue A item 15.
+        names = [n for n, s in prog.region.spec.items() if s.stack]
         if not names:
             print(f"Error, {prog.region.name} has no stack-class leaves!",
                   file=sys.stderr)

@@ -66,13 +66,17 @@ class LeafSpec:
 
     ``xmr=None`` defers to the region default.  ``unsigned`` records that
     the reference holds the leaf as uint32 (the port carries the same bits
-    as int32)."""
+    as int32).  ``stack`` marks call-stack state on any ported kind: under
+    ``ProtectionConfig.protect_stack`` it is voted every step, whatever
+    the per-kind sync flags say, and the supervisor's ``-s stack`` picks
+    it."""
 
     kind: str = KIND_MEM
     xmr: Optional[bool] = None
     inject: bool = True
     no_verify: bool = False
     unsigned: bool = False
+    stack: bool = False
 
     def __post_init__(self):
         if self.kind in _LATER_KINDS:

@@ -38,6 +38,16 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "chstone_gsm": _lazy("chstone.gsm"),
     "chstone_motion": _lazy("chstone.motion"),
     "chstone_jpeg": _lazy("chstone.jpeg"),
+    "towersOfHanoi": _lazy("hanoi"),
+    "crazyCF": _lazy("crazycf"),
+    "whetstone": _lazy("whetstone"),
+    "simd": _lazy("vector", "make_simd_region"),
+    "scalarize": _lazy("vector", "make_scalarize_region"),
+    "cache_test": _lazy("cache_test"),
+    "schedule2": _lazy("schedule2"),
+    "trivial": _lazy("smoke", "make_trivial_region"),
+    "helloWorld": _lazy("smoke", "make_hello_region"),
+    "simpleTMR": _lazy("smoke", "make_simple_tmr_region"),
 }
 
 # The CHStone sub-suite (BASELINE config 4: full TMR campaign), the
@@ -48,13 +58,10 @@ CHSTONE = ("chstone_mips", "chstone_sha", "chstone_adpcm",
            "chstone_motion", "chstone_jpeg", "aes")
 
 #: The reference registry's other names, not ported yet, with the ROADMAP
-#: Queue A item that brings each: the rest of the benchmark regions (item
-#: 12), the function-scope regions (item 13), the train regions (item 14),
-#: the rtos kernel targets (item 15) and the sharded stencil (item 16).
+#: Queue A item that brings each: the function-scope regions (item 13),
+#: the train regions (item 14), the rtos kernel targets (item 15) and the
+#: sharded stencil (item 16).
 UNPORTED = {
-    **{name: "item 12" for name in (
-        "towersOfHanoi", "crazyCF", "whetstone", "simd", "scalarize",
-        "cache_test", "schedule2", "trivial", "helloWorld", "simpleTMR")},
     "nestedCalls": "item 13", "rtos_app": "item 13",
     "rtos_mm": "item 15", "rtos_kUser": "item 15",
     "train_mlp": "item 14", "train_mlp_adam": "item 14",

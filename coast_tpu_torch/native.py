@@ -1,18 +1,27 @@
-"""The numpy seed streams: counter-mode splitmix64 and the flip-group
-expansion.
+"""The host-side core: the numpy seed streams and the native ndjson
+log encoder.
 
-The counterpart of the numpy half of ``coast_tpu/native/__init__.py``.  The
-reference runs these in a C++ core when it is built and falls back to
-numpy with bit-identical results; the port keeps the numpy bodies only.
+The counterpart of ``coast_tpu/native/__init__.py``.  The reference runs
+its seed streams in a C++ core when it is built and falls back to numpy
+with bit-identical results; the port keeps the numpy bodies only.
 :func:`splitmix_fill` is the stream every seeded schedule draws from, and
 :func:`fault_expand` turns a base single-site schedule into the extra rows
 of its flip groups (``inject/schedule.FaultModel``), drawing from a
 derived stream keyed by :data:`FAULT_EXPAND_SALT`.
+
+:func:`ndjson_stream_rows` and :func:`ndjson_stream_batch` format dense
+campaign rows as InjectionLog ndjson lines in C++ (``csrc/ndjson.cpp``,
+built with ``g++`` at first use by ``build.load_host``), byte for byte
+the Python formatter of ``inject/logs.py``.  A ``ctypes`` call releases
+the interpreter lock, so the streaming writer's thread encodes while the
+campaign's step loop dispatches.  A failed build raises; nothing falls
+back to the Python formatter.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+import ctypes
+from typing import Callable, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -110,3 +119,121 @@ def fault_expand(seed: int, kind: str, sites: int, span: int, window: int,
             ((off % per_lane) // 32).astype(np.int32),
             (off % 32).astype(np.int32),
             np.where(t0 < 0, t0, tj).astype(np.int32))
+
+
+# -- the native ndjson encoder ------------------------------------------------
+
+_NDJSON_COLUMNS = ("leaf_id", "lane", "word", "bit", "t", "code", "errors",
+                   "corrected", "steps")
+#: Rows the native encoder has formatted in this process (a test reads
+#: it to see that a dense log went through the library).
+ENCODED_ROWS = 0
+
+
+def _ndjson_lib() -> ctypes.CDLL:
+    from coast_tpu_torch import build
+    lib = build.load_host("ndjson")
+    if not getattr(lib, "coast_typed", False):
+        i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        strs = ctypes.POINTER(ctypes.c_char_p)
+        for fn in (lib.coast_ndjson_encode, lib.coast_ndjson_encode_rows):
+            fn.argtypes = [ctypes.c_int64, ctypes.c_int64, *([i32] * 9),
+                           ctypes.c_int32, strs, strs, ctypes.c_char_p,
+                           ctypes.c_char_p, ctypes.c_int64]
+            fn.restype = ctypes.c_int64
+        lib.coast_typed = True
+    return lib
+
+
+def _tables(kind_by_leaf, name_by_leaf, ts: str):
+    """The C string tables of one campaign and the advisory bound on one
+    line's length (the writer checks every write; see _drain_encoded)."""
+    n_leaves = len(kind_by_leaf)
+    kinds = (ctypes.c_char_p * n_leaves)(*(s.encode() for s in kind_by_leaf))
+    names = (ctypes.c_char_p * n_leaves)(*(s.encode() for s in name_by_leaf))
+    ts_b = ts.encode()
+    longest = max([len(ts_b)] + [len(s) for s in kinds]
+                  + [len(s) for s in names])
+    line_bound = 320 + 2 * len(ts_b) + 3 * longest + 9 * 20
+    return n_leaves, kinds, names, ts_b, line_bound
+
+
+def _int32_columns(col) -> dict:
+    return {k: np.ascontiguousarray(col[k], np.int32)
+            for k in _NDJSON_COLUMNS}
+
+
+def ndjson_stream_rows(lo: int, hi: int, col: Mapping[str, np.ndarray],
+                       kind_by_leaf: Sequence[str],
+                       name_by_leaf: Sequence[str], ts: str,
+                       write: Callable[[bytes], object],
+                       chunk_bytes: int = 32 << 20) -> None:
+    """Rows [lo, hi) of whole-campaign columns (``col``: int32 arrays by
+    the names of ``_NDJSON_COLUMNS``) as ndjson lines numbered by row,
+    handed to ``write`` a bounded chunk at a time.  ``kind_by_leaf`` /
+    ``name_by_leaf`` are JSON-escaped strings indexed by leaf id."""
+    lib = _ndjson_lib()
+    n_leaves, kinds, names, ts_b, line_bound = _tables(
+        kind_by_leaf, name_by_leaf, ts)
+    cols = _int32_columns(col)
+    buf = ctypes.create_string_buffer(chunk_bytes)
+
+    def encode(i, j):
+        return lib.coast_ndjson_encode(
+            i, j, *(cols[k] for k in _NDJSON_COLUMNS), n_leaves, kinds,
+            names, ts_b, buf, chunk_bytes)
+
+    _drain_encoded(encode, lo, hi, max(1, chunk_bytes // line_bound), buf,
+                   write)
+
+
+def ndjson_stream_batch(number_base: int, col: Mapping[str, np.ndarray],
+                        kind_by_leaf: Sequence[str],
+                        name_by_leaf: Sequence[str], ts: str,
+                        write: Callable[[bytes], object],
+                        chunk_bytes: int = 32 << 20) -> None:
+    """ONE collected batch's rows as ndjson lines numbered
+    ``number_base``...: byte for byte the same rows of
+    :func:`ndjson_stream_rows` over the whole campaign's columns.  The
+    buffer is sized to the batch (bounded by ``chunk_bytes``): a
+    zero-filled 32 MiB a batch would cost more than the encode."""
+    lib = _ndjson_lib()
+    n_leaves, kinds, names, ts_b, line_bound = _tables(
+        kind_by_leaf, name_by_leaf, ts)
+    cols = _int32_columns(col)
+    n = len(cols["code"])
+    buf_bytes = int(min(chunk_bytes, line_bound * max(n, 1) + 4096))
+    buf = ctypes.create_string_buffer(buf_bytes)
+
+    def encode(i, j):
+        # Rows [i, j) of the batch: the column base and the number base
+        # move together, so chunking does not show in the output.
+        return lib.coast_ndjson_encode_rows(
+            j - i, number_base + i,
+            *(cols[k][i:j] for k in _NDJSON_COLUMNS), n_leaves, kinds,
+            names, ts_b, buf, buf_bytes)
+
+    _drain_encoded(encode, 0, n, max(1, buf_bytes // line_bound), buf,
+                   write)
+
+
+def _drain_encoded(encode, lo: int, hi: int, rows_per_chunk: int, buf,
+                   write) -> None:
+    """Encode rows [lo, hi) in chunks of ``rows_per_chunk``, halving a
+    chunk that overflowed the buffer (the encoder returns -1), and hand
+    each encoded chunk to ``write``."""
+    global ENCODED_ROWS
+    i = lo
+    while i < hi:
+        j = min(hi, i + rows_per_chunk)
+        wrote = encode(i, j)
+        while wrote == -1 and j - i > 1:
+            j = i + max(1, (j - i) // 2)
+            wrote = encode(i, j)
+        if wrote < 0:
+            raise RuntimeError(
+                f"coast_ndjson_encode failed (rc={wrote}) on rows "
+                f"[{i}, {j})")
+        write(ctypes.string_at(buf, wrote))
+        ENCODED_ROWS += j - i
+        i = j

@@ -55,7 +55,6 @@ Flags = Dict[str, torch.Tensor]
 # ROADMAP Queue A item that brings each.  A non-default value raises.
 _LATER_FIELDS = {
     "segmented": "item 13 (segmented -s scheduling)",
-    "protect_stack": "item 13 (-protectStack)",
     "ignore_fns": "item 13 (function-scope wrappers)",
     "skip_lib_calls": "item 13 (function-scope wrappers)",
     "replicate_fn_calls": "item 13 (function-scope wrappers)",
@@ -85,9 +84,11 @@ class ProtectionConfig:
     count_syncs: bool = False
     ignore_globals: Tuple[str, ...] = ()
     xmr_globals: Tuple[str, ...] = ()
+    # -protectStack: vote the call-stack leaves (LeafSpec.stack) every
+    # step, the analogue of voting the saved return-address copies.
+    protect_stack: bool = False
     # Fields of later slices (see _LATER_FIELDS): defaults only.
     segmented: bool = False
-    protect_stack: bool = False
     ignore_fns: Tuple[str, ...] = ()
     skip_lib_calls: Tuple[str, ...] = ()
     replicate_fn_calls: Tuple[str, ...] = ()
@@ -225,6 +226,10 @@ class ProtectedProgram:
                                         and name in flow.written)
             else:  # reg: voted only where a sync point uses it
                 self.step_sync[name] = False
+            if cfg.protect_stack and spec.stack:
+                # Stack protection stacks on the sync taxonomy: the frames
+                # are voted even where store/ctrl syncs are off.
+                self.step_sync[name] = True
         # Store-slice hints: vote only the rows a step stored.
         self._store_slice = dict(region.meta.get("store_slice") or {})
         if cfg.num_clones > 1:
@@ -268,6 +273,31 @@ class ProtectedProgram:
         return ProtectedProgram(
             self.region, dataclasses.replace(self.cfg, fuse_step=False),
             self.device)
+
+    def _sync_class_of(self, name: str) -> str:
+        """The sync class of a commit vote on ``name``: the reference's
+        ``coast:sync:<class>:<leaf>`` tag class."""
+        spec = self.region.spec[name]
+        if self.cfg.protect_stack and spec.stack:
+            return "stack"
+        return "store_data" if spec.kind == KIND_MEM else "ctrl"
+
+    def sync_tags(self) -> FrozenSet[Tuple[str, str]]:
+        """``(class, leaf)`` of every vote one step makes: the pre-step
+        ``load_addr`` votes, the commit votes by :meth:`_sync_class_of`
+        and the ``sor_crossing`` votes of shared leaves -- the reference's
+        ``coast:sync:`` tags of its step."""
+        n = self.cfg.num_clones
+        if n == 1 or not self._any_replicated:
+            return frozenset()
+        tags = {("load_addr", name) for name in self._pre_names}
+        for name, spec in self.region.spec.items():
+            if self.replicated[name]:
+                if self.step_sync[name]:
+                    tags.add((self._sync_class_of(name), name))
+            elif spec.kind != KIND_RO:
+                tags.add(("sor_crossing", name))
+        return frozenset(tags)
 
     # -- the memory map's view ---------------------------------------------
     def lanes_of(self, name: str) -> int:

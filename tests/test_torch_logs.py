@@ -224,6 +224,9 @@ def test_atomic_writers_never_truncate(campaigns, tmp_path, monkeypatch):
     monkeypatch.setattr(logs, "_columns", boom)
     with pytest.raises(RuntimeError):
         logs.write_columnar(res, r.mmap, path)
+    # A dense ndjson log's rows come from the native encoder, after the
+    # summary line is already in the temp file.
+    monkeypatch.setattr(logs.native, "ndjson_stream_rows", boom)
     with pytest.raises(RuntimeError):
         logs.write_ndjson(res, r.mmap, path)
     assert open(path).read() == good

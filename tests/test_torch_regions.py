@@ -142,7 +142,15 @@ def test_registry_names_match_reference():
     assert set(REGISTRY) == {"matrixMultiply", "matrixMultiply256",
                              "matrixMultiply1024", "matrixMultiply1024b512",
                              "crc16", "quicksort", "aes", "sha256",
-                             *JCHSTONE}
+                             *JCHSTONE, "towersOfHanoi", "crazyCF",
+                             "whetstone", "simd", "scalarize", "cache_test",
+                             "schedule2", "trivial", "helloWorld",
+                             "simpleTMR"}
+    assert len(REGISTRY) == 29
+    assert UNPORTED == {"nestedCalls": "item 13", "rtos_app": "item 13",
+                        "train_mlp": "item 14", "train_mlp_adam": "item 14",
+                        "rtos_mm": "item 15", "rtos_kUser": "item 15",
+                        "stencil": "item 16"}
     assert CHSTONE == JCHSTONE
     assert set(REGISTRY) | set(UNPORTED) == set(JREGISTRY)
     assert not set(REGISTRY) & set(UNPORTED)
@@ -208,8 +216,8 @@ def test_unported_features_refuse_with_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 15"):
         ct.LeafSpec(kind="stack")
     assert ct.ProtectionConfig(fuse_step=True).fuse_step    # item 11 landed
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ct.ProtectionConfig(protect_stack=True)
+    # -protectStack landed with towersOfHanoi's LeafSpec.stack frames.
+    assert ct.ProtectionConfig(protect_stack=True).protect_stack
     with pytest.raises(NotImplementedError, match="item 13"):
         ct.ProtectionConfig(cfcss=True)
     # C1: the reference's voter switch is accepted with every value.

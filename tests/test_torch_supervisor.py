@@ -194,7 +194,7 @@ UNPORTED = [
     (["--slo", "sdc<0.1"], "item 19"),
     (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
-    (["-f", "crazyCF"], "item 12"),
+    (["-f", "rtos_mm"], "item 15"),
     (["-f", "nestedCalls"], "item 13"),
     (["-f", "train_mlp"], "item 14"),
     (["-f", "prog.c"], "item 17"),
