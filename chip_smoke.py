@@ -111,6 +111,23 @@ Phases, in order; any failure exits non-zero:
      float regions' declared exemptions (``order_sensitive``); then
      towersOfHanoi through the supervisor CLI with ``-TMR -protectStack
      -s stack``: the runner's counts and log rows;
+ 21. BASELINE config 5, CFCSS stacked with TMR (run before phase 18):
+     matrixMultiply1024 under TMR+CFCSS, 512 injections at batch 128,
+     seed 1, dense, every section (K1 at the flagship shape, launched its
+     per-trip count a loop trip; 16 rows against the CPU outside the f32
+     exemption); matrixMultiply, crc16, chstone_mips and crazyCF under
+     TMR+CFCSS as phase 19 (4096 injections, unfused and fused, K1/K2
+     launches a trip, 256 rows against the CPU); a ``sections=["cfcss"]``
+     campaign on matrixMultiply: due_abort > 0, no SDC, 256 rows against
+     the CPU;
+ 22. function scope and scheduling (run before phase 18): nestedCalls
+     under each of the seven scope classes, TMR and DWC, and rtos_app
+     under its canonical config (``rtos/functions.config`` plus
+     ``rtos/Makefile``'s lists), TMR and DWC, as phase 19, with the K1
+     launches of the call-boundary votes a trip; ``-s`` (segmented)
+     against ``-i`` on matrixMultiply and crc16 TMR: equal records; then
+     ``-f matrixMultiply -O -TMR -CFCSS -s icache`` through the supervisor
+     CLI on the card and on the host: the same summary;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -120,7 +137,7 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17, 19 and 20, K2 those of phases 7b, 9-12, 14-17, 19 and 20 (each
+9-12, 14-17 and 19-22, K2 those of phases 7b, 9-12, 14-17 and 19-22 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
 coast_tpu package.
@@ -1514,9 +1531,17 @@ def sync_launches(prog, hv, fs) -> tuple:
     return trip, boundary, CountOps.ops
 
 
+def case_label(name: str, strat, cfg: dict) -> str:
+    """A case's label: region, strategy and its overrides (a list's first
+    value)."""
+    return " ".join([name, strat.__name__, *(
+        f"-{k}" + (f"={v[0]}" if isinstance(v, tuple) else "")
+        for k, v in cfg.items() if v)])
+
+
 def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
                  n: int = 4096, cpu_rows: int = 256,
-                 exempt=None) -> tuple:
+                 exempt=None, trip_log=None) -> tuple:
     """Each case ``(region name, strategy, config overrides)`` on the
     card, ``n`` injections at batch ``n``, seed 1, unfused and fused: the
     two records equal on every row (a float region's fused build is its
@@ -1524,7 +1549,9 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
     plus the boundary group, K2 (fused) exactly its per-trip count; the
     first ``cpu_rows`` rows rerun on the CPU (plain voters and commit),
     equal on every column outside ``exempt[name](leaf_order, leaf_id,
-    bit)``.  Returns the (K1, K2) launches and {label: (inj/s, wall)}."""
+    bit)``.  Returns the (K1, K2) launches and {label: (inj/s, wall)};
+    ``trip_log`` (a dict), if given, gets each campaign's loop trips by
+    (label, fused)."""
     from coast_tpu_torch.models import REGISTRY
     device = "cpu" if board == "cpu" else "cuda"
     exempt = exempt or {}
@@ -1532,8 +1559,7 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
     rates = {}
     for name, strat, cfg in cases:
         region = REGISTRY[name]()
-        label = " ".join([name, strat.__name__, *(
-            f"-{k}" for k, v in cfg.items() if v)])
+        label = case_label(name, strat, cfg)
         results = {}
         for fused in (False, True):
             prog = strat(region, device=device, fuse_step=fused, **cfg)
@@ -1555,6 +1581,8 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
                      f"{boundary})")
             launches[0] += got[0]
             launches[1] += got[1]
+            if trip_log is not None:
+                trip_log[label, fused] = trips[0]
             results[fused] = res
             rates[f"{label}{' fused' if fused else ''}"] = (
                 res.injections_per_sec, wall)
@@ -1722,6 +1750,231 @@ def corpus_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     log(json.dumps({"phase20_inj_per_s": {
         k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
         "card": card}))
+    return tuple(launches)
+
+
+# Phase 21: BASELINE config 5, CFCSS stacked with TMR (-TMR -CFCSS).
+CFCSS_REGIONS = ("matrixMultiply", "crc16", "chstone_mips", "crazyCF")
+
+
+def cfcss_regions(board: str, card: str, TMR, REGISTRY, CampaignRunner, hv,
+                  hc, fs, order_sensitive, n: int = 4096,
+                  cpu_rows: int = 256) -> tuple:
+    """Phase 21: matrixMultiply1024 under TMR+CFCSS, 512 injections at
+    batch 128, seed 1, dense, every section: K1 launched exactly its
+    per-trip count (a CPU twin's) a loop trip plus the boundary a batch,
+    and the first 16 rows equal the CPU's outside the f32 exemption.  Then
+    the integer regions under TMR+CFCSS through ``region_cases`` (unfused
+    and fused, K1/K2 launches, 256 rows against the CPU), and a
+    ``sections=["cfcss"]`` campaign on matrixMultiply: detected or
+    harmless, never an SDC, its first 256 rows equal the CPU's.  Returns
+    the (K1, K2) launches."""
+    device = "cpu" if board == "cpu" else "cuda"
+    t_phase = time.perf_counter()
+    region = REGISTRY["matrixMultiply1024"]()
+    prog = TMR(region, device=device, cfcss=True)
+    trip, boundary, _ = sync_launches(prog, hv, fs)
+    trips = count_trips(prog)
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = CampaignRunner(prog, strategy_name="TMR").run(512, seed=1,
+                                                        batch_size=128)
+    wall = time.perf_counter() - t0
+    got = (hv.LAUNCHES, hc.LAUNCHES)
+    want = (trip[0] * trips[0] + boundary * 4, trip[1] * trips[0])
+    if got != want or got[0] <= 0:
+        fail(f"matrixMultiply1024 TMR -CFCSS: K1/K2 launches {got}, not "
+             f"{want} ({trips[0]} trips of {trip}, boundary {boundary} a "
+             "batch)")
+    if sum(v for k, v in res.counts.items() if k != "cache_invalid") \
+            != res.n:
+        fail(f"matrixMultiply1024 TMR -CFCSS counts do not sum to {res.n}")
+    launches = list(got)
+    sub = res.schedule.slice(0, 16)
+    cpu_prog = TMR(region, device="cpu", cfcss=True)
+    cpu = CampaignRunner(cpu_prog).run_schedule(sub, batch_size=16)
+    exempt = order_sensitive(cpu_prog.leaf_order, sub.leaf_id, sub.bit)
+    for col in COLUMNS:
+        bad = getattr(res, col)[:16] != getattr(cpu, col)
+        if (bad & ~exempt).any():
+            fail(f"matrixMultiply1024 TMR -CFCSS: {col} differs between "
+                 f"card and CPU on rows {np.flatnonzero(bad & ~exempt)}")
+    log(f"matrixMultiply1024 TMR -CFCSS: {res.counts} "
+        f"{res.injections_per_sec:.1f} inj/s ({res.seconds:.2f} s, "
+        f"{wall:.2f} s wall), K1 {got[0]} ({trip[0]} a trip over "
+        f"{trips[0]} trips + {boundary} a batch), the first 16 rows equal "
+        f"the CPU's outside {int(exempt.sum())} exempt rows [{card}]")
+
+    got, rates = region_cases(
+        board, card, [(name, TMR, {"cfcss": True}) for name in CFCSS_REGIONS],
+        CampaignRunner, hv, hc, fs, n=n, cpu_rows=cpu_rows)
+    launches[0] += got[0]
+    launches[1] += got[1]
+    if got[1] <= 0:
+        fail("the fused TMR -CFCSS campaigns launched K2 no time")
+
+    prog = TMR(REGISTRY["matrixMultiply"](), device=device, cfcss=True)
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    sec = CampaignRunner(prog, sections=["cfcss"], strategy_name="TMR").run(
+        n, seed=1, batch_size=n)
+    launches[0] += hv.LAUNCHES
+    if sec.counts["due_abort"] <= 0 or sec.counts["sdc"] != 0:
+        fail(f"sections=['cfcss']: {sec.counts}: a CFCSS hit must be "
+             "detected or harmless")
+    sub = sec.schedule.slice(0, cpu_rows)
+    cpu = CampaignRunner(TMR(REGISTRY["matrixMultiply"](), device="cpu",
+                             cfcss=True)).run_schedule(sub,
+                                                       batch_size=cpu_rows)
+    for col in COLUMNS:
+        if not np.array_equal(getattr(sec, col)[:cpu_rows],
+                              getattr(cpu, col)):
+            fail(f"sections=['cfcss']: {col} differs between card and CPU")
+    log(f"matrixMultiply TMR -CFCSS sections=['cfcss']: {sec.counts} "
+        f"{sec.injections_per_sec:.1f} inj/s, due_abort > 0 and no SDC, "
+        f"the first {cpu_rows} rows equal the CPU's, K1 {hv.LAUNCHES} "
+        f"[{card}]")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log(json.dumps({"phase21_inj_per_s": {
+        **{k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "matrixMultiply1024 TMR -cfcss": [round(res.injections_per_sec, 1),
+                                          round(wall, 3)]},
+        "card": card}))
+    return tuple(launches)
+
+
+# Phase 22: function scope (nestedCalls under each class, rtos_app under
+# its canonical config) and segmented scheduling.
+SCOPE_CLASSES = {
+    "default": {}, "ignoreFns": {"ignore_fns": ("fold",)},
+    "skipLibCalls": {"skip_lib_calls": ("fold",)},
+    "replicateFnCalls": {"replicate_fn_calls": ("fold",)},
+    "protectedLibFn": {"protected_lib_fns": ("fold",)},
+    "cloneAfterCall": {"clone_after_call_fns": ("fold",)},
+    "cloneReturn": {"clone_return_fns": ("fold",)},
+}
+RTOS_CL = ["-cloneFns=run_mm,run_crc,heartbeat", "-protectedLibFn=ring_push",
+           "-cloneAfterCall=rng_next", "-cloneGlbls=ring",
+           f"-configFile={ROOT / 'rtos' / 'functions.config'}"]
+SCOPE_KEYS = ("ignore_globals", "xmr_globals", "ignore_fns",
+              "skip_lib_calls", "replicate_fn_calls", "clone_fns",
+              "clone_return_fns", "clone_after_call_fns",
+              "protected_lib_fns", "runtime_init_globals")
+
+
+def call_launches(prog, hv) -> int:
+    """The K1 launches one loop trip's call-boundary votes make on
+    ``prog``, counted on a CPU twin (two rows, after a first trip)."""
+    from coast_tpu_torch.interface import wrappers
+    count = [0]
+    real_vote, real_sites = wrappers._vote, hv.vote_sites
+    inside = [False]
+
+    def sites(group, n):
+        count[0] += inside[0]
+        return real_sites(group, n)
+
+    def vote(sets, n):
+        inside[0] = True
+        try:
+            return real_vote(sets, n)
+        finally:
+            inside[0] = False
+
+    twin = type(prog)(prog.region, prog.cfg, "cpu")
+    pstate, flags = twin.init_pstate(2)
+    pstate, flags = twin.step(pstate, flags, 0)
+    hv.vote_sites, wrappers._vote = sites, vote
+    try:
+        twin.step(pstate, flags, 1)
+    finally:
+        hv.vote_sites, wrappers._vote = real_sites, real_vote
+    return count[0]
+
+
+def scope_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
+                  CampaignRunner, hv, hc, fs, n: int = 4096,
+                  cpu_rows: int = 256) -> tuple:
+    """Phase 22: nestedCalls under each of the seven function-scope
+    classes, TMR and DWC, and rtos_app under its canonical config
+    (``rtos/functions.config`` and ``rtos/Makefile``'s lists), through
+    ``region_cases``, with the K1 launches of the call-boundary votes a
+    trip; then ``-s`` (segmented) against ``-i`` on matrixMultiply and
+    crc16 TMR, 4096 injections each: equal records; then
+    ``-f matrixMultiply -O -TMR -CFCSS -s icache`` through the supervisor
+    CLI on the card and on the host: the same summary.  Returns the
+    (K1, K2) launches."""
+    from coast_tpu_torch.opt import build_overrides, parse_argv
+    device = "cpu" if board == "cpu" else "cuda"
+    t_phase = time.perf_counter()
+    canonical = {k: v for k, v in build_overrides(
+        parse_argv(RTOS_CL)[0]).items() if v and k in SCOPE_KEYS}
+    cases = [("nestedCalls", strat, {**kw, "count_syncs": True})
+             for kw in SCOPE_CLASSES.values() for strat in (TMR, DWC)]
+    cases += [("rtos_app", strat, {**canonical, "count_syncs": True})
+              for strat in (TMR, DWC)]
+    trip_log = {}
+    got, rates = region_cases(board, card, cases, CampaignRunner, hv, hc, fs,
+                              n=n, cpu_rows=cpu_rows, trip_log=trip_log)
+    launches = list(got)
+    calls = {}
+    for name, strat, cfg in cases:
+        prog = strat(REGISTRY[name](), device=device, **cfg)
+        per_trip = call_launches(prog, hv)
+        label = case_label(name, strat, cfg)
+        calls[label] = (per_trip, per_trip * trip_log[label, False],
+                        per_trip * trip_log[label, True])
+    for label, (per_trip, unfused, fused) in calls.items():
+        log(f"{label}: {per_trip} call-boundary K1 launches a trip, "
+            f"{unfused} unfused and {fused} fused")
+    if sum(v[1] for v in calls.values()) <= 0:
+        fail("no call-boundary vote launched K1")
+    log(f"phase 22 scope campaigns: fused = unfused on every row, the first "
+        f"{cpu_rows} rows equal the CPU's, "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    for name in ("matrixMultiply", "crc16"):
+        results, ops = {}, {}
+        for seg in (False, True):
+            prog = TMR(REGISTRY[name](), device=device, segmented=seg)
+            trip, boundary, ops[seg] = sync_launches(prog, hv, fs)
+            trips = count_trips(prog)
+            hv.LAUNCHES = hc.LAUNCHES = 0
+            results[seg] = CampaignRunner(prog, strategy_name="TMR").run(
+                n, seed=1, batch_size=n)
+            if hv.LAUNCHES != trip[0] * trips[0] + boundary:
+                fail(f"{name} TMR segmented={seg}: K1 launches "
+                     f"{hv.LAUNCHES}, not {trip[0]} x {trips[0]} + "
+                     f"{boundary}")
+            launches[0] += hv.LAUNCHES
+        why = records_differ(results[False], results[True])
+        if why:
+            fail(f"{name} TMR: -s and -i records differ: {why}")
+        log(f"{name} TMR -s = -i on all {n} rows: {results[True].counts}; "
+            f"-i {results[False].injections_per_sec:.1f} inj/s, "
+            f"{ops[False]} torch ops a trip; -s "
+            f"{results[True].injections_per_sec:.1f} inj/s, {ops[True]} "
+            f"torch ops a trip [{card}]")
+
+    argv = ["-f", "matrixMultiply", "-O", "-TMR", "-CFCSS", "-s", "icache",
+            "-t", str(n), "--batch-size", str(n), "--seed", "1", "-q"]
+    cli = run_cli(argv, board, "matrixMultiply -TMR -CFCSS -s icache CLI")
+    host = run_cli(argv, "cpu", "matrixMultiply -TMR -CFCSS -s icache CLI "
+                   "on the host")
+    if steady(cli["summary"]) != steady(host["summary"]):
+        fail(f"-TMR -CFCSS -s icache: the card's summary "
+             f"{steady(cli['summary'])} differs from the host's "
+             f"{steady(host['summary'])}")
+    if cli["k1"] <= 0:
+        fail("-TMR -CFCSS -s icache CLI: launched K1 no time")
+    launches[0] += cli["k1"]
+    launches[1] += cli["k2"]
+    log(f"matrixMultiply -O '-TMR -CFCSS' -s icache through the supervisor "
+        f"CLI: {steady(cli['summary'])}, the host's summary, "
+        f"{cli['summary']['injections_per_sec']:.1f} inj/s, K1 {cli['k1']} "
+        f"[{card}]")
+    log(json.dumps({"phase22_inj_per_s": {
+        k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "call_boundary_k1": calls, "card": card}))
     return tuple(launches)
 
 
@@ -1899,6 +2152,13 @@ def main() -> None:
     # 20. The rest of the registry: the corpus, the float regions and
     # towersOfHanoi with -protectStack.
     new_launches.append(corpus_regions(
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    # 21. BASELINE config 5: CFCSS stacked with TMR.
+    new_launches.append(cfcss_regions(
+        "gpu", card, TMR, REGISTRY, CampaignRunner, hv, hc, fs,
+        order_sensitive))
+    # 22. Function scope, segmented scheduling and the CFCSS CLI.
+    new_launches.append(scope_regions(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)

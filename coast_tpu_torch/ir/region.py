@@ -24,6 +24,12 @@ Tensor contract (the port writes the batch axis out, there is no ``vmap``):
   * ``done(state)`` -> bool ``[R]``; ``check(state)`` -> int32 ``[R]``;
     ``output(state)`` -> int32 or float32 ``[R, words]``.
 
+A region with named sub-functions (``functions``) has the three-argument
+step ``step(state, t, fns)`` and calls them through ``fns``
+(:class:`FnNamespace`); the engine rewraps each per its scope class
+(``interface/wrappers.py``).  ``graph`` is the block graph CFCSS reads
+(``ir/graph.py``).
+
 Words are 32-bit.  A leaf the reference holds as uint32 is an int32 tensor
 here with ``LeafSpec.unsigned`` set (``torch.uint32`` has no add, compare
 or shift).
@@ -32,7 +38,8 @@ or shift).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import inspect
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -88,6 +95,29 @@ class LeafSpec:
                 f"bad leaf kind {self.kind!r}; one of {_PORTED_KINDS}")
 
 
+class FnNamespace:
+    """Attribute/by-name access to a region's sub-functions, plus the log
+    of call-boundary miscompares the engine's wrappers append to: int32
+    ``[S, B]`` flag blocks, one row per voted leaf (the per-call compares
+    of processCallSync)."""
+
+    def __init__(self, fns: Dict[str, Callable]):
+        self._fns = fns
+        self.miscompares: List = []
+
+    def __getattr__(self, name: str) -> Callable:
+        try:
+            return self.__dict__["_fns"][name]
+        except KeyError:
+            raise AttributeError(
+                f"region has no function {name!r} "
+                f"(have: {', '.join(sorted(self.__dict__['_fns']))})"
+            ) from None
+
+    def __getitem__(self, name: str) -> Callable:
+        return getattr(self, name)
+
+
 @dataclasses.dataclass
 class Region:
     """A protected dataflow region (the unit ``TMR``/``DWC`` operate on).
@@ -107,15 +137,18 @@ class Region:
     spec: Dict[str, LeafSpec]
     default_xmr: bool = True
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    # Reference fields whose engine support comes in later slices.
+    # The block graph CFCSS reads (ir/graph.BlockGraph); None: no CFCSS.
+    graph: Any = None
+    # Named sub-functions the three-argument step calls through ``fns``:
+    # the unit the function-scope lists name.
     functions: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    # Reference fields whose engine support comes in later slices.
     stack_guard: Optional[Callable] = None
     assert_guard: Optional[Callable] = None
     train_probe: Optional[Callable] = None
 
     def __post_init__(self):
-        later = {"functions": "Queue A item 13 (function-scope wrappers)",
-                 "stack_guard": "Queue A item 15 (rtos/)",
+        later = {"stack_guard": "Queue A item 15 (rtos/)",
                  "assert_guard": "Queue A item 15 (rtos/)",
                  "train_probe": "Queue A item 14 (train/mlp.py)"}
         for field, item in later.items():
@@ -128,6 +161,24 @@ class Region:
         """Resolve the replication scope of a leaf (annotation > default)."""
         s = self.spec[name]
         return self.default_xmr if s.xmr is None else s.xmr
+
+    def wants_fns(self) -> bool:
+        """True when step has the three-argument form ``step(state, t,
+        fns)``."""
+        try:
+            return len(inspect.signature(self.step).parameters) >= 3
+        except (TypeError, ValueError):
+            return False
+
+    def bound_step(self, fns: Any = None) -> Callable:
+        """The two-argument step with the function namespace bound: with
+        ``fns=None`` the raw sub-functions (the module before cloning);
+        the engine passes its namespace of wrapped functions."""
+        if not self.wants_fns():
+            return self.step
+        if fns is None:
+            fns = FnNamespace(dict(self.functions))
+        return lambda state, t: self.step(state, t, fns)
 
     def validate(self) -> State:
         """Spec/state and dtype sanity check; returns the CPU init image."""
@@ -153,8 +204,9 @@ class Region:
         dev = device_mod.resolve(device)
         state = {k: v.unsqueeze(0) for k, v in self.init(dev).items()}
         halted = torch.zeros(1, dtype=torch.bool, device=dev)
+        step = self.bound_step()
         for t in range(self.max_steps):
-            new = {**state, **self.step(state, t)}
+            new = {**state, **step(state, t)}
             state = {k: torch.where(rows(halted, v), state[k], v)
                      for k, v in new.items()}
             halted = halted | self.done(state)

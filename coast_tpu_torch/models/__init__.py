@@ -48,6 +48,8 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "trivial": _lazy("smoke", "make_trivial_region"),
     "helloWorld": _lazy("smoke", "make_hello_region"),
     "simpleTMR": _lazy("smoke", "make_simple_tmr_region"),
+    "nestedCalls": _lazy("nested_calls"),
+    "rtos_app": _lazy("rtos_app"),
 }
 
 # The CHStone sub-suite (BASELINE config 4: full TMR campaign), the
@@ -58,11 +60,9 @@ CHSTONE = ("chstone_mips", "chstone_sha", "chstone_adpcm",
            "chstone_motion", "chstone_jpeg", "aes")
 
 #: The reference registry's other names, not ported yet, with the ROADMAP
-#: Queue A item that brings each: the function-scope regions (item 13),
-#: the train regions (item 14), the rtos kernel targets (item 15) and the
-#: sharded stencil (item 16).
+#: Queue A item that brings each: the train regions (item 14), the rtos
+#: kernel targets (item 15) and the sharded stencil (item 16).
 UNPORTED = {
-    "nestedCalls": "item 13", "rtos_app": "item 13",
     "rtos_mm": "item 15", "rtos_kUser": "item 15",
     "train_mlp": "item 14", "train_mlp_adam": "item 14",
     "stencil": "item 16",

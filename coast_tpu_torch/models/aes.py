@@ -9,7 +9,7 @@ leaves, ShiftRows a static permutation, MixColumns GF(2^8) arithmetic on
 int32 bytes.  Every byte is masked to 8 bits where it is read (the
 reference's uchar semantics once a flip lands); the round-key and S-box
 reads are ``jnp.take(mode="clip")``: a negative index reads entry 0.
-The reference's control-flow graph waits for ROADMAP Queue A item 13.
+Its block graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts, lcg_words
@@ -261,5 +262,10 @@ def make_region() -> Region:
             "phase": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "encrypt", "decrypt", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3)],
+            block_of=lambda s: pick(s["phase"] >= 2, 3,
+                                    pick(s["phase"] == 0, 1, 2))),
         meta={"oracle": "Number of errors: 0", "dataflow": DATAFLOW},
     )

@@ -6,8 +6,8 @@ visited word read-modify-written; 3 x 1024 = 3,072 nominal steps.  The
 cursor ``idx`` is a state word: the read is ``jnp.take(mode="clip")``,
 the store ``.at[idx].set(mode="drop")``, so a flipped cursor clamps on
 the read and drops the write as in the reference.  ``i // 1024`` and
-``i % 1024`` are floor division and floor modulo, as jnp's are.  The
-reference's control-flow graph waits for ROADMAP Queue A item 13.
+``i % 1024`` are floor division and floor modulo, as jnp's are.  
+Its block graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import KIND_CTRL, KIND_MEM, LeafSpec, Region
 from coast_tpu_torch.models.common import Consts
 from coast_tpu_torch.ops.indexing import lookup, take_clip, update_drop
@@ -92,5 +93,6 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph("walk", "i", N_STEPS),
         meta={"dataflow": DATAFLOW},
     )

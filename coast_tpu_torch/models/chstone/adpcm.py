@@ -15,8 +15,8 @@ sums; the table reads ``TAB[i]`` follow ``a[i]``'s rule (one negative
 wrap, then a clamp: the high-band code ``ih`` of a corrupted code word
 indexes past QQ2/WH), the sample and code reads are
 ``jnp.take(mode="clip")`` and the code and result writes
-``.at[].set(mode="drop")``.  The reference's control-flow graph waits
-for ROADMAP Queue A item 13.
+``.at[].set(mode="drop")``.  Its block graph (``graph``, read
+by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -522,6 +523,11 @@ def make_region() -> Region:
         max_steps=N_STEPS + 8,
         spec=spec,
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "encode", "decode", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3)],
+            block_of=lambda s: pick(s["i"] >= N_STEPS, 3,
+                                    pick(s["i"] >= SIZE // 2, 2, 1))),
         meta={"oracle": "pure-python C-long G.722 reference",
               "golden_compressed_head": g_comp[:4].tolist(),
               "dataflow": DATAFLOW},

@@ -16,8 +16,8 @@ the pure-python oracle below (both copied from the reference, with the
 published zero-key vector 0x4EF99745 0x6198DD78 pinned in the tests).
 The table writes are ``.at[].set(mode="drop")``: the P-pair index runs
 past the array once the schedule reaches the S-boxes, and those writes
-are dropped.  The reference's control-flow graph waits for ROADMAP
-Queue A item 13.
+are dropped.  Its block graph (``graph``, read by CFCSS) is the
+reference's.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -261,6 +262,11 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "BF_set_key", "BF_cfb64_encrypt", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3)],
+            block_of=lambda s: pick(s["i"] >= N_STEPS, 3,
+                                    pick(s["i"] >= KS_STEPS, 2, 1))),
         meta={"oracle": "pure-python Blowfish (pi tables via Machin)",
               "golden_head": golden[0].tolist(), "dataflow": DATAFLOW},
     )

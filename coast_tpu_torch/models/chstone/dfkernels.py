@@ -14,8 +14,8 @@ soft-float of :mod:`df64`:
 
 The vector reads are ``jnp.take(mode="clip")`` and the result writes
 ``.at[].set(mode="drop")``; ``i // 10`` and ``i % 10`` are floor division
-and modulo.  The reference's control-flow graph waits for ROADMAP Queue A
-item 13.
+and modulo.  Its block graph (``graph``, read by CFCSS) is the
+reference's.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.models.chstone import df64
@@ -152,6 +153,7 @@ def _make_df_op_region(kname: str, op: str, op_fn: Callable) -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph(f"float64_{op}", "i", N_VECTORS),
         meta={"oracle": f"numpy float64 {op} (NaN-canonicalised)",
               "dataflow": OP_DATAFLOW},
     )
@@ -275,6 +277,7 @@ def make_dfsin() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph("sin_term", "i", SIN_STEPS),
         meta={"oracle": "numpy float64 identical-recurrence Taylor sine",
               "dataflow": SIN_DATAFLOW},
     )

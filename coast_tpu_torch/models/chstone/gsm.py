@@ -20,8 +20,8 @@ restoring division, bit normalisation) runs on int32 leaves with the
 reference's wrapping products; ``gsm_norm`` counts leading zeros with a
 popcount (``ops/u32.py``, the counterpart of ``lax.population_count``).
 The sample reads are ``jnp.take(mode="clip")`` (the lag window's negative
-indices read s[0]) and the writes ``.at[].set(mode="drop")``.  The
-reference's control-flow graph waits for ROADMAP Queue A item 13.
+indices read s[0]) and the writes ``.at[].set(mode="drop")``.  Its
+block graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -402,6 +403,15 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "Autocorrelation", "Reflection_coefficients",
+                   "Quantization_and_coding", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3), (3, 3), (3, 4),
+                   (1, 3)],
+            block_of=lambda s: pick(
+                s["i"] >= N_STEPS, 4,
+                pick(s["i"] >= STEP_LAR, 3,
+                     pick(s["i"] >= STEP_SCHUR0, 2, 1)))),
         meta={"oracle": "pure-python GSM 06.10 fixed-point LPC",
               "dataflow": DATAFLOW},
     )

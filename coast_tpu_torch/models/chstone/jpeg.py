@@ -14,8 +14,8 @@ reference).
 The coefficient write is ``coef.at[blk, k].set(mode="drop")`` (a 2-D
 index), the block read ``jnp.take(coef, blk, axis=0)`` in fill mode (both
 indices are clipped first, so neither drops nor fills); the IDCT
-products wrap as int32.  The reference's control-flow graph waits for
-ROADMAP Queue A item 13.
+products wrap as int32.  Its block graph (``graph``, read by
+CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.chstone._bits import BitReader, BitWriter, jshow
@@ -471,6 +472,12 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "decode_dc", "decode_ac", "idct", "exit"],
+            edges=[(0, 1), (1, 2), (2, 2), (2, 3), (3, 1), (3, 4)],
+            block_of=lambda s: pick(
+                s["blk"] >= NB, 4,
+                pick(s["k"] >= 64, 3, pick(s["k"] == 0, 1, 2)))),
         meta={"oracle": "pure-python baseline JPEG decode, shared int IDCT",
               "dataflow": DATAFLOW},
     )

@@ -12,8 +12,8 @@ The bitstream is encoded at build time by inverting the decoder; the
 golden comes from the pure-python decoder (both copied from the
 reference).  The table reads are ``tab[i, 0]`` (one negative wrap, then
 a clamp), the predictor read ``jnp.take(mode="clip")`` and the writes
-``.at[].set(mode="drop")``.  The reference's control-flow graph waits
-for ROADMAP Queue A item 13.
+``.at[].set(mode="drop")``.  Its block graph (``graph``, read
+by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.models.chstone._bits import BitReader, BitWriter, jshow
@@ -259,6 +260,7 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph("motion_vector", "i", N_STEPS),
         meta={"oracle": "pure-python Table B-10 VLC decoder",
               "dataflow": DATAFLOW},
     )

@@ -15,8 +15,8 @@ The block read is ``jnp.take(jnp.take(msg, stream, axis=0), blk,
 mode="clip")``: the outer take has no mode, so a stream index outside
 the array would read the fill word 0xFFFFFFFF (``stream`` is clipped
 first, so it never is); the digest read is the same fill-mode take.
-``i // 129`` and ``i % 129`` are floor division and modulo.  The
-reference's control-flow graph waits for ROADMAP Queue A item 13.
+``i // 129`` and ``i % 129`` are floor division and modulo.  Its
+block graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -162,6 +163,7 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph("sha_transform", "i", TOTAL_STEPS),
         meta={"golden": golden.tolist(),
               "oracle": "hashlib.sha1 digests of both streams",
               "dataflow": DATAFLOW},

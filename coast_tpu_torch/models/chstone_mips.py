@@ -12,8 +12,8 @@ load are ``jnp.take(mode="clip")`` on word addresses made with a logical
 shift; SLTU/SLTIU compare unsigned; MULT/MULTU take the unsigned high
 word (``ops/u32.py`` ``umulhi``) with the signed correction; the register
 and store writes are ``.at[].set(mode="drop")``; ``reg[0]`` is forced to
-0 after every instruction.  The reference's basic-block graph waits for
-ROADMAP Queue A item 13.
+0 after every instruction.  Its basic-block graph (``graph``,
+read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
+from coast_tpu_torch.models.common import Consts
 from coast_tpu_torch.ops.indexing import take_clip, update_drop
 from coast_tpu_torch.ops.u32 import lsr, mullo, ult, umulhi
 from coast_tpu_torch.passes.verification import RegionDataflow
@@ -70,7 +72,33 @@ def _select(cases, default):
     return out
 
 
+# The reference's basic-block partition of the program's 44 instructions
+# (block number by instruction index): 1 startup, 2 exit_seq, 3 cs_head,
+# 4 cs_swap, 5 cs_ret, 6 main_pro, 7 outer_head, 8 outer_body,
+# 9 inner_head, 10 call_cs, 11 after_call, 12 outer_inc, 13 main_epi;
+# 14 is exit (pc == 0).
+_BLK_OF_IDX = np.asarray(
+    [1] * 6 + [2] * 3 + [3] * 10 + [4] * 2 + [5] + [6] * 5 + [7] * 2
+    + [8] + [9] * 2 + [10] * 3 + [11] * 2 + [12] * 2 + [13] * 5, np.int32)
+
+GRAPH_NAMES = ["entry", "startup", "exit_seq", "cs_head", "cs_swap",
+               "cs_ret", "main_pro", "outer_head", "outer_body",
+               "inner_head", "call_cs", "after_call", "outer_inc",
+               "main_epi", "exit"]
+GRAPH_EDGES = [(0, 1), (1, 6),                     # jal main
+               (6, 7), (7, 8), (7, 13),            # outer loop head
+               (8, 9), (9, 10), (9, 12),           # inner loop head
+               (10, 3), (3, 4), (3, 5), (4, 5),    # compare_swap body
+               (5, 11), (11, 9),                   # jr $ra -> after jal
+               (12, 7), (13, 2), (2, 14),          # epilogue -> halt
+               # One step is one instruction: staying inside a
+               # multi-instruction block is the self-transition.
+               (1, 1), (2, 2), (3, 3), (4, 4), (6, 6), (7, 7), (9, 9),
+               (10, 10), (11, 11), (12, 12), (13, 13)]
+
+
 def make_region() -> Region:
+    blocks = Consts(blk=_BLK_OF_IDX)
     regs0 = np.zeros(32, np.int32)
     regs0[29] = 0x7FFFEFFC
     dmem0 = np.zeros(64, np.int32)
@@ -208,6 +236,13 @@ def make_region() -> Region:
         return torch.cat([state["dmem"][:, :8], state["n_inst"][:, None]],
                          dim=1)
 
+    def block_of(state):
+        pc = state["pc"]
+        idx = (pc & 0xFF) >> 2               # non-negative: a logical shift
+        table = blocks.on(pc.device).blk
+        return pick(pc == 0, 14,
+                    table[torch.clamp(idx, 0, len(table) - 1).long()])
+
     return Region(
         name="chstone_mips",
         init=init,
@@ -230,5 +265,7 @@ def make_region() -> Region:
             "lo": LeafSpec(KIND_REG),
         },
         default_xmr=True,
+        graph=BlockGraph(names=GRAPH_NAMES, edges=GRAPH_EDGES,
+                         block_of=block_of),
         meta={"oracle": "RESULT: PASS", "dataflow": DATAFLOW},
     )

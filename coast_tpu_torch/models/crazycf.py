@@ -6,8 +6,8 @@ over a 96-word data array.  Each step reads the current word with
 (``v % 7``, an unsigned remainder) and applies that case's update to the
 uint32 accumulator; every case is computed and one selected, as the
 reference does.  ``data`` and ``acc`` are uint32 in the reference, int32
-words here.  The reference's 10-node control-flow graph (read by CFCSS)
-waits for ROADMAP Queue A item 13.
+words here.  Its 10-node block graph (``graph``, read by CFCSS) is
+the reference's.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
                                        LeafSpec, Region)
 from coast_tpu_torch.ops.indexing import take_clip
@@ -106,6 +107,19 @@ def make_region() -> Region:
     def output(state):
         return state["acc"].reshape(-1, 1)
 
+    def block_of(state):
+        i = state["i"]
+        v = take_clip(state["data"], torch.clamp(i, 0, N - 1))
+        return pick(i >= N, 9, wide(v) % 7 + 2)
+
+    # block_of reports the case block (2..8) the step will execute; every
+    # case can follow every case (via the merge).
+    names = ["entry", "dispatch"] + [f"case{k}" for k in range(7)] + ["exit"]
+    edges = [(0, c) for c in range(2, 9)]
+    edges += [(a, b) for a in range(2, 9) for b in range(2, 9)]
+    edges += [(c, 9) for c in range(2, 9)]
+    edges += [(0, 1), (1, 2)]          # keep dispatch reachable
+
     return Region(
         name="crazyCF",
         init=init,
@@ -121,5 +135,6 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(names=names, edges=edges, block_of=block_of),
         meta={"golden": golden, "dataflow": DATAFLOW},
     )

@@ -3,9 +3,9 @@
 The counterpart of ``coast_tpu/models/crc16.py``: reflected CCITT
 polynomial 0x8408, init 0xFFFF, over the 13-byte message "Automated TMR";
 one region step per message byte.  ``check`` compares the CRC word with
-the build-time golden CRC, ``output`` is the CRC word.  The reference's
-control-flow graph (``Region.graph``, read by the trace instrumentation)
-has no counterpart yet (ROADMAP Queue A item 13).
+the build-time golden CRC, ``output`` is the CRC word.  Its block
+graph (``graph``, read by CFCSS and the trace instrumentation) is the
+reference's.
 
 Two rules of the reference's int32 arithmetic matter once a fault lands:
 
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        LeafSpec, Region)
 from coast_tpu_torch.passes.verification import RegionDataflow
@@ -106,6 +107,7 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=loop_graph("loop", "i", n),
         meta={"golden": GOLDEN, "oracle": f"result: {GOLDEN:x}",
               "dataflow": DATAFLOW},
     )

@@ -13,7 +13,7 @@ array, and the check wants 2^8 - 1 moves with every disk on peg C.
 Frame reads are ``jnp.take(mode="clip")`` of a clipped ``top`` and frame
 writes ``.at[].set(mode="drop")``, as in the reference.  The stage and
 move selects are int32 here (``jnp.where(s0, 1, 2)`` is int32 in JAX).
-The reference's control-flow graph waits for ROADMAP Queue A item 13.
+Its block graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        LeafSpec, Region)
 from coast_tpu_torch.ops.indexing import take_clip, update_drop
@@ -152,6 +153,10 @@ def make_region() -> Region:
             "moves": LeafSpec(KIND_REG),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "towers", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2)],
+            block_of=lambda s: pick(s["sp"] <= 0, 2, 1)),
         meta={"oracle": "all disks on peg C in 2^n-1 moves",
               "dataflow": DATAFLOW},
     )

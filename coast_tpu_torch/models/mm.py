@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.ops.indexing import row_select, row_update
@@ -144,6 +145,13 @@ def make_region() -> Region:
             "phase": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "compute", "store", "exit"],
+            edges=[(0, 1), (1, 2), (2, 1), (2, 3)],
+            # The loop-exit test lives in the store/latch block: 'exit' is
+            # reached only from a post-store state (phase back at 0).
+            block_of=lambda s: pick(s["phase"] == 0,
+                                    pick(s["i"] >= SIDE, 3, 1), 2)),
         meta={"golden_xor": golden_xor, "oracle": "Number of errors: 0",
               "dataflow": DATAFLOW},
     )

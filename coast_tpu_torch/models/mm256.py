@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import lcg_words
@@ -159,6 +160,11 @@ def make_region(side: int = SIDE, block: int = BLOCK,
             "phase": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "compute", "store", "exit"],
+            edges=[(0, 1), (1, 2), (2, 1), (2, 3)],
+            block_of=lambda s: pick(s["phase"] == 0,
+                                    pick(s["i"] >= n_blocks, 3, 1), 2)),
         meta={"oracle": "Number of errors: 0",
               "bf16_matmul": bf16_matmul,
               "dataflow": DATAFLOW,

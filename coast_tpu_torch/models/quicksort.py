@@ -8,8 +8,8 @@ checked against the descending golden.  The sort is an odd-even
 transposition sort: one region step a phase, each phase a 580-wide
 compare-exchange of the pairs ``(offset + 2k, offset + 2k + 1)``.  The
 phase and pass counters are the control state; ``phase % 2`` is a floor
-modulo, as in the reference.  The reference's control-flow graph waits
-for ROADMAP Queue A item 13.
+modulo, as in the reference.  Its block graph (``graph``, read
+by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import lcg_words
@@ -123,5 +124,10 @@ def make_region() -> Region:
             "errs": LeafSpec(KIND_REG),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "sort_fwd", "sort_rev", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3)],
+            block_of=lambda s: pick(s["pass_"] >= PASSES, 3,
+                                    pick(s["pass_"] < 2, 1, 2))),
         meta={"oracle": "local_errors == 0", "dataflow": DATAFLOW},
     )

@@ -15,8 +15,8 @@ Indices come from state words (the tape, the counts, the log length), so
 each reference idiom keeps its rule (``ops/indexing.py``): ``cnt[row]``
 and ``q[row, 0]`` wrap once and clamp, ``jnp.take(q, row, axis=0)``
 reads the fill word out of range, every ``.at[].set`` drops an
-out-of-range write, and the tape reads clamp.  The reference's
-control-flow graph waits for ROADMAP Queue A item 13.
+out-of-range write, and the tape reads clamp.  Its block
+graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -253,5 +254,15 @@ def make_region() -> Region:
             "i": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "new_job", "upgrade_prio", "block",
+                   "quantum_expire", "unblock", "finish", "exit"],
+            edges=([(0, b) for b in range(1, 7)]
+                   + [(a, b) for a in range(1, 7) for b in range(1, 7)]
+                   + [(a, 7) for a in range(1, 7)]),
+            block_of=lambda s: pick(
+                s["i"] >= N_CMDS, 7,
+                torch.clamp(take_clip(s["tape"], 2 * torch.clamp(
+                    s["i"], 0, N_CMDS - 1)), 0, 5) + 1)),
         meta={"dataflow": DATAFLOW},
     )

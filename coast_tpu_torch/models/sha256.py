@@ -12,8 +12,8 @@ hashlib gives.  Stepped at round granularity:
 ``w``, ``h``, ``regs``, ``k`` and ``golden`` are uint32 in the reference,
 int32 words here (``ops/u32.py`` gives the logical shifts).  The reads
 are ``jnp.take(mode="clip")`` (a negative index reads word 0) and the
-schedule store is ``w.at[j].set(mode="drop")``.  The reference's
-control-flow graph waits for ROADMAP Queue A item 13.
+schedule store is ``w.at[j].set(mode="drop")``.  Its block
+graph (``graph``, read by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import BlockGraph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.ops.indexing import take_clip, update_drop
@@ -169,6 +170,10 @@ def make_region() -> Region:
             "phase": LeafSpec(KIND_CTRL),
         },
         default_xmr=True,
+        graph=BlockGraph(
+            names=["entry", "schedule", "compress", "finalize", "exit"],
+            edges=[(0, 1), (1, 1), (1, 2), (2, 2), (2, 3), (3, 4)],
+            block_of=lambda s: torch.clamp(s["phase"] + 1, 1, 4)),
         meta={"oracle": "Number of errors: 0",
               "golden_hex": hashlib.sha256(MESSAGE).hexdigest(),
               "dataflow": DATAFLOW},

@@ -4,8 +4,8 @@ The counterpart of ``coast_tpu/models/smoke.py``: near-empty programs that
 still satisfy the whole Region contract, so every strategy and the
 campaign machinery run on degenerate inputs (one step, a tiny loop, a
 string).  ``trivial`` is the engine's one-step edge case: a fault window
-of one step and a watchdog of four.  The reference's control-flow graphs
-wait for ROADMAP Queue A item 13.
+of one step and a watchdog of four.  Their block graphs (``graph``,
+read by CFCSS) are the reference's.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.models.common import Consts
@@ -58,6 +59,7 @@ def make_trivial_region() -> Region:
         max_steps=4,
         spec={"ret": LeafSpec(KIND_REG), "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("main", "i", 1),
         meta={"dataflow": TRIVIAL_DATAFLOW},
     )
 
@@ -101,6 +103,7 @@ def make_hello_region() -> Region:
               "out": LeafSpec(KIND_MEM, unsigned=True),
               "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("puts", "i", n),
         meta={"message": _HELLO.decode(), "dataflow": HELLO_DATAFLOW},
     )
 
@@ -132,5 +135,6 @@ def make_simple_tmr_region() -> Region:
         max_steps=N_ACC + 8,
         spec={"acc": LeafSpec(KIND_REG), "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("accumulate", "i", N_ACC),
         meta={"golden": golden, "dataflow": SIMPLE_TMR_DATAFLOW},
     )

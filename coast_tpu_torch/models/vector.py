@@ -17,7 +17,7 @@ step, so every vote is an elementwise compare of a vector.
   reference's 1e-4 tolerance.  :func:`order_sensitive` names the flips
   whose records may differ from the reference's.
 
-The reference's control-flow graphs wait for ROADMAP Queue A item 13.
+Their block graphs (``graph``, read by CFCSS) are the reference's.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import KIND_CTRL, KIND_MEM, LeafSpec, Region
 from coast_tpu_torch.models.common import Consts
 from coast_tpu_torch.ops.u32 import const, lsr
@@ -98,6 +99,7 @@ def make_simd_region() -> Region:
         spec={"v": LeafSpec(KIND_MEM, unsigned=True),
               "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("vloop", "i", N_STEPS),
         meta={"dataflow": SIMD_DATAFLOW},
     )
 
@@ -147,6 +149,7 @@ def make_scalarize_region() -> Region:
         spec={"x": LeafSpec(KIND_MEM), "y": LeafSpec(KIND_MEM),
               "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("axpy", "i", F_STEPS),
         meta={"dataflow": SCALARIZE_DATAFLOW},
     )
 

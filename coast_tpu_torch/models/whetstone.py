@@ -6,8 +6,8 @@ whets.c): one step is one iteration of Whetstone module 1 over the f32
 and each product is its own operator, one rounding an operator, as in
 the reference and its numpy golden.  The check has the reference's 1e-4
 tolerance.  :func:`order_sensitive` names the flips whose records may
-differ from the reference's.  The reference's control-flow graph waits
-for ROADMAP Queue A item 13.
+differ from the reference's.  Its block graph (``graph``, read
+by CFCSS) is the reference's.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from coast_tpu_torch.interop import state_from_numpy
+from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import KIND_CTRL, KIND_REG, LeafSpec, Region
 from coast_tpu_torch.models.common import Consts
 from coast_tpu_torch.passes.verification import RegionDataflow
@@ -81,6 +82,7 @@ def make_region() -> Region:
         max_steps=N_ITER + 8,
         spec={"e": LeafSpec(KIND_REG), "i": LeafSpec(KIND_CTRL)},
         default_xmr=True,
+        graph=loop_graph("module1", "i", N_ITER),
         meta={"golden_bits": [hex(int(x)) for x in golden.view(np.uint32)],
               "dataflow": DATAFLOW},
     )

@@ -1,5 +1,5 @@
-"""The host-side core: the numpy seed streams and the native ndjson
-log encoder.
+"""The host-side core: the numpy seed streams, the native ndjson log
+encoder and the CFCSS signature assignment.
 
 The counterpart of ``coast_tpu/native/__init__.py``.  The reference runs
 its seed streams in a C++ core when it is built and falls back to numpy
@@ -120,6 +120,62 @@ def fault_expand(seed: int, kind: str, sites: int, span: int, window: int,
             (off % 32).astype(np.int32),
             np.where(t0 < 0, t0, tj).astype(np.int32))
 
+
+
+def cfcss_assign(n: int, edges, seed: int = 0, sig_bits: int = 16) -> dict:
+    """CFCSS signature assignment over a block graph (node 0 = entry):
+    ``dict(sigs, diffs, fanin, dedge, attempts)``, equal to the
+    reference's.  Unique random signatures from the ``seed + attempt``
+    stream, the designated-predecessor differences, the fan-in adjusters
+    folded into per-edge words (``dedge[u, v]``), then the soundness check
+    (no illegal jump ``u -> v`` may verify); a failed check draws again,
+    at most 64 times.  Host-side, once a program."""
+    seed = seed & _MASK64
+    edges = np.ascontiguousarray(np.asarray(edges, np.int32).reshape(-1, 2))
+    if n <= 0 or not (1 < sig_bits <= 32):
+        raise ValueError("cfcss_assign failed (rc=-2)")
+    if np.any(edges < 0) or np.any(edges >= n):
+        raise ValueError("cfcss_assign failed (rc=-2)")
+    mask = 0xFFFFFFFF if sig_bits == 32 else (1 << sig_bits) - 1
+    for attempt in range(64):
+        used = set()
+        sigs = np.zeros(n, np.uint32)
+        ctr = 0
+        for v in range(n):
+            spins = 0
+            while True:
+                s = _splitmix_at(seed + attempt, ctr) & mask
+                ctr += 1
+                spins += 1
+                if s not in used:
+                    break
+                if spins > mask + 8:
+                    raise ValueError("cfcss_assign failed (rc=-1)")
+            used.add(s)
+            sigs[v] = s
+
+        is_edge = np.zeros((n, n), bool)
+        u0 = np.full(n, -1, np.int32)
+        pred_count = np.zeros(n, np.int32)
+        for u, v in edges:
+            if is_edge[u, v]:
+                continue
+            is_edge[u, v] = True
+            pred_count[v] += 1
+            if u0[v] < 0 or u < u0[v]:
+                u0[v] = u
+        fanin = pred_count > 1
+        diffs = np.where(u0 >= 0, sigs[np.maximum(u0, 0)] ^ sigs, sigs)
+        dedge = np.zeros((n, n), np.uint32)
+        for u, v in edges:
+            if fanin[v]:
+                dedge[u, v] = sigs[u0[v]] ^ sigs[u]
+
+        g = sigs[:, None] ^ diffs[None, :]          # illegal jump u -> v
+        if not np.logical_and(~is_edge, g == sigs[None, :]).any():
+            return {"sigs": sigs, "diffs": diffs.astype(np.uint32),
+                    "fanin": fanin, "dedge": dedge, "attempts": attempt + 1}
+    raise ValueError("cfcss_assign failed (rc=-1)")
 
 # -- the native ndjson encoder ------------------------------------------------
 

@@ -162,16 +162,18 @@ def done_cone(region: Region) -> FrozenSet[str]:
 
 
 def build_plan(prog) -> FusePlan:
-    """The fused-step plan of a built ProtectedProgram.  The reference's
-    ``wants_fns()`` branch (keep every freeze when function-scope wrappers
-    run) has no counterpart yet: the port's Region refuses ``functions``
-    (ROADMAP Queue A item 13)."""
+    """The fused-step plan of a built ProtectedProgram.  A region whose
+    step calls named sub-functions keeps every freeze, as the reference
+    does: its wrappers are outside the declared written set's view."""
     region = prog.region
-    frozen = frozenset(
-        name for name in region.spec
-        if (name in prog.flow.written
-            or prog.step_sync.get(name, False)
-            or prog.pre_sync.get(name, False)))
+    if region.wants_fns():
+        frozen = frozenset(region.spec)
+    else:
+        frozen = frozenset(
+            name for name in region.spec
+            if (name in prog.flow.written
+                or prog.step_sync.get(name, False)
+                or prog.pre_sync.get(name, False)))
     exact = not any(t.dtype.is_floating_point or t.dtype.is_complex
                     for t in region.init("cpu").values())
     return FusePlan(

@@ -3,9 +3,10 @@
 The counterpart of ``coast_tpu/opt.py``'s flag tables, ``parse_argv``,
 ``build_overrides`` and ``_parse_inject``, with the reference's flag names
 (single-dash long flags, ``-flag=v1,v2`` comma lists) and error messages,
-so the supervisor's ``-O`` string means the same program in both packages.
-A flag whose engine path is not ported yet parses here and is refused by
-``ProtectionConfig`` with the ROADMAP item that brings it.  The CLI's own
+so the supervisor's ``-O`` string means the same program in both packages:
+``-CFCSS``, ``-s``, the function-scope lists, ``-isrFunctions`` and
+``-runtimeInitGlobals`` reach the engine, which checks the names as the
+reference does.  The CLI's own
 ``main`` (``python -m coast_tpu.opt``: ``-dumpModule``, the lint gate,
 ``-propOut``) is ROADMAP Queue A item 17.
 """

@@ -22,6 +22,15 @@ is pure, so votes nothing reads are not made: the views ``done()`` and the
 store-slice hint read are voted leaf by leaf on first read, and the final
 view reuses the boundary votes.
 
+``cfcss=True`` stacks CFCSS (``passes/cfcss.py``): two injectable
+runtime leaves a lane and a signature check at every block entry, which
+latches ``cfc_fault``.  A region with named sub-functions runs them
+through the function-scope wrappers of ``interface/wrappers.py``, whose
+call-boundary votes are K1 launches latched like the engine's own.
+``segmented=True`` (``-s``) runs the region step once per lane on
+``[B, ...]`` slices instead of once over the ``[B * n]`` rows; its
+records equal the interleaved engine's.
+
 ``fuse_step=True`` builds the fused engine (``ops/fused_step.py``) when
 every leaf is integer: the latches packed into one word per row, the
 ``done()`` view voted only on the leaves it reads, the freeze only on
@@ -43,30 +52,17 @@ import torch
 
 from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.interop import fault_from_numpy
-from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO, Region,
-                                       State, rows)
+from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
+                                       FnNamespace, Region, State, rows)
 from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters, site_table
 from coast_tpu_torch.ops.voters import Site
 from coast_tpu_torch.passes.verification import analyze, verify_options
 
 Flags = Dict[str, torch.Tensor]
 
-# Reference config fields whose engine paths later slices port, with the
-# ROADMAP Queue A item that brings each.  A non-default value raises.
-_LATER_FIELDS = {
-    "segmented": "item 13 (segmented -s scheduling)",
-    "ignore_fns": "item 13 (function-scope wrappers)",
-    "skip_lib_calls": "item 13 (function-scope wrappers)",
-    "replicate_fn_calls": "item 13 (function-scope wrappers)",
-    "clone_fns": "item 13 (function-scope wrappers)",
-    "clone_return_fns": "item 13 (function-scope wrappers)",
-    "clone_after_call_fns": "item 13 (function-scope wrappers)",
-    "protected_lib_fns": "item 13 (function-scope wrappers)",
-    "runtime_init_globals": "item 13 (the rest of passes/)",
-    "cfcss": "item 13 (CFCSS)",
-    "isr_functions": "(refused by the reference too: a stepped region has "
-                     "no interrupts)",
-}
+# The function-scope classes whose wrappers cross lanes: segmented
+# scheduling cannot express their call-boundary sync.
+_CROSS_LANE = ("ignored", "skip_lib", "protected_lib", "clone_after_call")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +83,10 @@ class ProtectionConfig:
     # -protectStack: vote the call-stack leaves (LeafSpec.stack) every
     # step, the analogue of voting the saved return-address copies.
     protect_stack: bool = False
-    # Fields of later slices (see _LATER_FIELDS): defaults only.
+    # -s (segmented) instead of -i (interleaved) replica scheduling.
     segmented: bool = False
+    # Function-scope lists, applied to the region's named sub-functions
+    # (Region.functions); fn_scope_of gives the reference's precedence.
     ignore_fns: Tuple[str, ...] = ()
     skip_lib_calls: Tuple[str, ...] = ()
     replicate_fn_calls: Tuple[str, ...] = ()
@@ -103,17 +101,44 @@ class ProtectionConfig:
     # the plain voter, as the reference's switch only picks the lowering.
     pallas_voters: "bool | None" = None
     fuse_step: bool = False
+    # -isrFunctions: refused by verify_options (a stepped region has no
+    # interrupts), as the reference refuses it.
     isr_functions: Tuple[str, ...] = ()
+    # -runtimeInitGlobals: every replicated leaf is initialised from the
+    # init() image (init_pstate), so the semantics hold for all leaves;
+    # the names are checked to exist.
     runtime_init_globals: Tuple[str, ...] = ()
+    # -CFCSS stacking (passes/cfcss.py).
     cfcss: bool = False
 
-    def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if (f.name in _LATER_FIELDS
-                    and getattr(self, f.name) != f.default):
-                raise NotImplementedError(
-                    f"ProtectionConfig.{f.name} is not ported yet; see "
-                    f"ROADMAP Queue A {_LATER_FIELDS[f.name]}")
+    def fn_scope_of(self, name: str) -> str:
+        """A sub-function's scope class, by the reference's precedence:
+        cloneAfterCall > protectedLibFn > cloneReturn > cloneFns >
+        ignoreFns > replicateFnCalls > skipLibCalls > replicated."""
+        if name in self.clone_after_call_fns:
+            return "clone_after_call"
+        if name in self.protected_lib_fns:
+            return "protected_lib"
+        if name in self.clone_return_fns:
+            return "replicated_return"
+        if name in self.clone_fns:
+            return "replicated"
+        if name in self.ignore_fns:
+            return "ignored"
+        if name in self.replicate_fn_calls:
+            return "replicated"
+        if name in self.skip_lib_calls:
+            return "skip_lib"
+        return "replicated"
+
+    def fn_lists(self) -> Dict[str, Tuple[str, ...]]:
+        return {"ignoreFns": self.ignore_fns,
+                "skipLibCalls": self.skip_lib_calls,
+                "replicateFnCalls": self.replicate_fn_calls,
+                "cloneFns": self.clone_fns,
+                "cloneReturn": self.clone_return_fns,
+                "cloneAfterCall": self.clone_after_call_fns,
+                "protectedLibFn": self.protected_lib_fns}
 
     def resolve_xmr(self, region: Region, name: str) -> bool:
         if self.num_clones == 1:
@@ -252,9 +277,27 @@ class ProtectedProgram:
         # The pre-step load sync's leaves, in spec order.
         self._pre_names = [name for name in region.spec
                            if cfg.num_clones > 1 and self.pre_sync.get(name)]
+        # Function-scope resolution: each named sub-function's class.  The
+        # raw-bound step serves one lane, -s and the unprotected build.
+        self._wants_fns = region.wants_fns()
+        self._raw_step = region.bound_step()
+        self.fn_scope: Dict[str, str] = {
+            name: cfg.fn_scope_of(name) for name in region.functions}
+        cross_lane = [n for n, c in self.fn_scope.items() if c in _CROSS_LANE]
+        if cfg.segmented and cross_lane and cfg.num_clones > 1:
+            raise ValueError(
+                "segmented (-s) replica scheduling cannot express the "
+                "cross-lane call-boundary sync of function scope classes "
+                f"for {sorted(cross_lane)}; use interleaved (-i) scheduling")
         self.leaf_order = [n for n in region.spec if region.spec[n].inject]
         one = {k: v.unsqueeze(0) for k, v in image.items()}
         self.output_words = int(region.output(one).shape[1])
+        # The CFCSS runtime, installed by passes.cfcss.apply_cfcss.
+        self._cfcss_init = None
+        self._cfcss_step = None
+        if cfg.cfcss:
+            from coast_tpu_torch.passes.cfcss import apply_cfcss
+            apply_cfcss(self)
         # Fused-step plan, made last so it sees the final sync tables.  It
         # activates only for exact (integer) dataflow; a float region keeps
         # the unfused program while cfg.fuse_step stays set.
@@ -274,6 +317,20 @@ class ProtectedProgram:
             self.region, dataclasses.replace(self.cfg, fuse_step=False),
             self.device)
 
+    # -- CFCSS stacking (passes/cfcss.py) ------------------------------------
+    def install_cfcss(self, init_fn, step_fn) -> None:
+        """Register the CFCSS runtime: its leaves (``init_fn(batch)`` gives
+        them laned, ``[B, n]``) become injectable replicated leaves after
+        the region's, in name order (the reference's pytree order), and
+        ``step_fn`` runs at every block entry."""
+        self._cfcss_init = init_fn
+        self._cfcss_step = step_fn
+        for name, arr in sorted(init_fn(1).items()):
+            self.replicated[name] = True
+            self._shapes[name] = tuple(arr.shape[2:])
+            if name not in self.leaf_order:
+                self.leaf_order.append(name)
+
     def _sync_class_of(self, name: str) -> str:
         """The sync class of a commit vote on ``name``: the reference's
         ``coast:sync:<class>:<leaf>`` tag class."""
@@ -284,19 +341,26 @@ class ProtectedProgram:
 
     def sync_tags(self) -> FrozenSet[Tuple[str, str]]:
         """``(class, leaf)`` of every vote one step makes: the pre-step
-        ``load_addr`` votes, the commit votes by :meth:`_sync_class_of`
-        and the ``sor_crossing`` votes of shared leaves -- the reference's
+        ``load_addr`` votes, the commit votes by :meth:`_sync_class_of`,
+        the ``sor_crossing`` votes of shared leaves, the CFCSS check and
+        the ``call_boundary`` votes (by function) -- the reference's
         ``coast:sync:`` tags of its step."""
-        n = self.cfg.num_clones
-        if n == 1 or not self._any_replicated:
-            return frozenset()
-        tags = {("load_addr", name) for name in self._pre_names}
+        tags = set()
+        if self._cfcss_step is not None:
+            from coast_tpu_torch.passes.cfcss import G_LEAF
+            tags.add(("cfcss", G_LEAF))
+        if self.cfg.num_clones == 1 or not self._any_replicated:
+            return frozenset(tags)
+        tags.update(("load_addr", name) for name in self._pre_names)
         for name, spec in self.region.spec.items():
             if self.replicated[name]:
                 if self.step_sync[name]:
                     tags.add((self._sync_class_of(name), name))
             elif spec.kind != KIND_RO:
                 tags.add(("sor_crossing", name))
+        tags.update(("call_boundary", name)
+                    for name, cls in self.fn_scope.items()
+                    if cls in ("ignored", "protected_lib"))
         return frozenset(tags)
 
     # -- the memory map's view ---------------------------------------------
@@ -307,9 +371,12 @@ class ProtectedProgram:
         return math.prod(self._shapes[name])
 
     def injectable_sections(self):
-        """(name, kind, lanes, words_per_lane) rows for the memory map."""
-        return [(name, self.region.spec[name].kind, self.lanes_of(name),
-                 self.lane_words(name)) for name in self.leaf_order]
+        """(name, kind, lanes, words_per_lane) rows for the memory map; the
+        CFCSS runtime leaves have kind 'cfcss'."""
+        return [(name, self.region.spec[name].kind
+                 if name in self.region.spec else "cfcss",
+                 self.lanes_of(name), self.lane_words(name))
+                for name in self.leaf_order]
 
     # -- state construction -------------------------------------------------
     def init_pstate(self, batch: int) -> Tuple[State, Flags]:
@@ -322,6 +389,9 @@ class ProtectedProgram:
             pstate[name] = arr.expand(*lead, *arr.shape).clone(
                 memory_format=torch.contiguous_format)
 
+        if self._cfcss_init is not None:
+            pstate.update(self._cfcss_init(batch))
+
         if self._fuse_plan is not None:
             return pstate, fused_step.flags_init(batch, self.device)
 
@@ -331,15 +401,19 @@ class ProtectedProgram:
         flags = {"dwc_fault": zeros(torch.bool), "tmr_cnt": zeros(torch.int32),
                  "sync_cnt": zeros(torch.int32), "steps": zeros(torch.int32),
                  "done": zeros(torch.bool)}
+        if self._cfcss_step is not None:
+            flags["cfc_fault"] = zeros(torch.bool)
         return pstate, flags
 
     # -- lane execution -----------------------------------------------------
-    def _run_lanes(self, region_state: State, t: int, batch: int) -> State:
-        """The region step once per lane.  Returns the written leaves, with
-        a lane axis ``[B, n, ...]`` when the program has lanes."""
+    def row_view(self, region_state: Mapping[str, torch.Tensor],
+                 batch: int) -> Mapping[str, torch.Tensor]:
+        """The state as the step's rows: ``[B * n, ...]`` (campaign row
+        major, lane minor; shared leaves expanded on first read) when the
+        program has lanes, else the ``[B, ...]`` state itself."""
         n = self.cfg.num_clones
         if n == 1 or not self._any_replicated:
-            return self.region.step(region_state, t)
+            return region_state
 
         def lane_rows(name, arr):
             if self.replicated[name]:
@@ -347,10 +421,57 @@ class ProtectedProgram:
             return (arr.unsqueeze(1).expand(batch, n, *arr.shape[1:])
                     .reshape(batch * n, *arr.shape[1:]))
 
-        out = self.region.step(_LazyView(region_state, lane_rows), t)
+        return _LazyView(region_state, lane_rows)
+
+    def _fn_env(self, batch: int) -> FnNamespace:
+        """The step's function namespace: each named sub-function wrapped
+        per its scope class; call-boundary flags go to its log."""
+        from coast_tpu_torch.interface import wrappers as W
+        env = FnNamespace({})
+        env.batch, env.device = batch, self.device
+        n = self.cfg.num_clones
+        wrapped = {}
+        for name, fn in self.region.functions.items():
+            cls = self.fn_scope[name]
+            if n == 1 or cls in ("replicated", "replicated_return"):
+                # The per-lane call: a .RR return skips the boundary sync,
+                # which is the per-lane default too.
+                wrapped[name] = fn
+            elif cls == "ignored":
+                wrapped[name] = W.lane_ignored(fn, n, env, name=name)
+            elif cls == "skip_lib":
+                wrapped[name] = W.lane_skip_lib(fn, n, name=name)
+            elif cls == "protected_lib":
+                wrapped[name] = W.lane_protected_lib(fn, n, env, name=name)
+            else:  # clone_after_call
+                wrapped[name] = W.lane_clone_after_call(fn, n, name=name)
+        env._fns = wrapped
+        return env
+
+    def _run_lanes(self, region_state: State, t: int, batch: int
+                   ) -> Tuple[State, List[torch.Tensor]]:
+        """The region step once per lane -> ``(written leaves, call-boundary
+        flag blocks)``; the leaves carry a lane axis ``[B, n, ...]`` when
+        the program has lanes.  Interleaved: one step over the ``[B * n]``
+        rows.  Segmented (``-s``): one step a lane on its ``[B, ...]``
+        slices, each lane's whole step before the next."""
+        n = self.cfg.num_clones
+        if n == 1 or not self._any_replicated:
+            return self._raw_step(region_state, t), []
+        if self.cfg.segmented:
+            outs = [self._raw_step({k: v[:, lane] if self.replicated[k]
+                                    else v for k, v in region_state.items()},
+                                   t)
+                    for lane in range(n)]
+            return {k: torch.stack([o[k] for o in outs], dim=1)
+                    for k in outs[0]}, []
+        env = self._fn_env(batch) if self._wants_fns else None
+        out = self.region.bound_step(env)(
+            self.row_view(region_state, batch), t)
         # Contiguous: K1 reads a replica set as [B, n, words].
-        return {k: v.reshape(batch, n, *v.shape[1:]).contiguous()
-                for k, v in out.items()}
+        return ({k: v.reshape(batch, n, *v.shape[1:]).contiguous()
+                 for k, v in out.items()},
+                env.miscompares if env is not None else [])
 
     def _slice_view(self, region_state: State) -> _LazyView:
         """The pre-step view a store-slice hint reads: ctrl leaves voted
@@ -416,10 +537,14 @@ class ProtectedProgram:
 
     # -- one protected step -------------------------------------------------
     def _halted(self, flags: Flags) -> torch.Tensor:
-        """Rows that stopped evolving: completed or aborted."""
+        """Rows that stopped evolving: completed or aborted (DWC or
+        CFCSS)."""
         if "latch" in flags:
             return flags["latch"] != 0
-        return flags["done"] | flags["dwc_fault"]
+        halted = flags["done"] | flags["dwc_fault"]
+        if "cfc_fault" in flags:
+            halted = halted | flags["cfc_fault"]
+        return halted
 
     def _vote_repair(self, lanes: List[torch.Tensor]
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
@@ -440,7 +565,7 @@ class ProtectedProgram:
         plan = self._fuse_plan
         batch = flags["steps"].shape[0]
         halted = self._halted(flags)
-        region_state = dict(pstate)
+        region_state = {name: pstate[name] for name in self.region.spec}
         # One int32 [S, R] flag block per grouped vote, a row per site.
         miscompares: List[torch.Tensor] = []
         # Sync points every row passes, and the per-row ones (a store-slice
@@ -465,7 +590,35 @@ class ProtectedProgram:
             miscompares.append(mis)
             syncs += len(self._pre_names)
 
-        laned = self._run_lanes(region_state, t, batch)
+        flags = dict(flags)
+        if self._cfcss_step is not None:
+            # The CFCSS check at block entry, each lane classified from the
+            # state the step runs with (after the pre-step repairs).  A
+            # mismatch halts the row before the block body commits.  Only
+            # the runtime leaves carry the hook's update: the repairs stay
+            # local to this step, so a frozen row keeps its pre-step image.
+            tracker = {name: pstate[name] for name in pstate
+                       if name not in self.region.spec}
+            if plan is not None:
+                cfc = fused_step.latch_get(flags["latch"],
+                                           fused_step.LATCH_CFC)
+                updates, cfc = self._cfcss_step(region_state, tracker, cfc,
+                                                halted)
+                flags["latch"] = fused_step.latch_or(
+                    flags["latch"], fused_step.LATCH_CFC, cfc)
+            else:
+                updates, cfc = self._cfcss_step(
+                    region_state, tracker, flags["cfc_fault"], halted)
+                flags["cfc_fault"] = cfc
+            halted = halted | cfc
+            pstate = {**pstate, **updates}
+
+        laned, call_mis = self._run_lanes(region_state, t, batch)
+        if call_mis and n > 1:
+            # Call-boundary syncs of the function-scope wrappers: each
+            # voted leaf is one sync and one miscompare row.
+            miscompares.extend(call_mis)
+            syncs += sum(block.shape[0] for block in call_mis)
         slice_view = (self._slice_view(region_state)
                       if self._store_slice and n > 1 else None)
 
@@ -548,7 +701,6 @@ class ProtectedProgram:
         # commits: a miscompare this step freezes the row at its pre-step
         # image.
         fault_now = torch.zeros_like(halted)
-        flags = dict(flags)
         if miscompares:
             mis = (miscompares[0] if len(miscompares) == 1
                    else torch.cat(miscompares))
@@ -584,6 +736,11 @@ class ProtectedProgram:
             flags["latch"] = fused_step.latch_or(
                 flags["latch"], fused_step.LATCH_DONE, ~commit_halt & done_now)
         flags["steps"] = flags["steps"] + (~commit_halt).to(torch.int32)
+
+        # The CFCSS runtime leaves, as the entry hook left them.
+        for name in pstate:
+            if name not in new_state:
+                new_state[name] = pstate[name]
 
         # Freeze halted rows: the row's image stops evolving the step it
         # halts (and a DWC fault step never commits).  The fused build
@@ -625,7 +782,9 @@ class ProtectedProgram:
         row)``, the count None when nothing is replicated."""
         names = [name for name in pstate if self.replicated[name]]
         if self.cfg.num_clones == 1 or not names:
-            return pstate, None
+            # One lane: only the CFCSS runtime leaves carry a lane axis.
+            return {k: v[:, 0] if self.replicated[k] else v
+                    for k, v in pstate.items()}, None
         voted, mis = _grouped(hopper_voters.vote_sites,
                               [Site(pstate[name]) for name in names],
                               self.cfg.num_clones)
@@ -683,7 +842,8 @@ class ProtectedProgram:
         return sites, fire_at, cols["t"]
 
     def run_batch(self, fault: Optional[Mapping[str, object]] = None,
-                  batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                  batch: Optional[int] = None, trace: bool = False,
+                  return_state: bool = False) -> Dict[str, torch.Tensor]:
         """Run ``B`` campaign rows to completion.  ``fault`` holds int32
         columns leaf_id/lane/word/bit/t: numpy arrays on the host, or
         tensors already on the program's device (the device generator's,
@@ -691,7 +851,15 @@ class ProtectedProgram:
         a row; ``[B, sites]`` is a flip group, site ``g`` firing at its own
         ``t[:, g]``, the sites applied in order ``g = 0..sites-1``.
         ``fault=None`` runs ``batch`` fault-free rows.  Returns the run
-        record, one entry per row."""
+        record, one entry per row.
+
+        ``trace=True`` runs all ``max_steps`` trips and adds, per row and
+        step, the block about to execute (``block_of`` of the voted view,
+        after the step's flip; 0 without a graph) and whether the row was
+        live: ``trace_block`` and ``trace_live``, ``[B, max_steps]``, the
+        raw material of ``passes/instrument.py``.  ``return_state=True``
+        adds ``final_state``, the voted final view (what a debugger reads
+        at the exit marker)."""
         sites, fire_at, fault_t = [], frozenset(), None
         if fault is not None:
             sites, fire_at, fault_t = self._flip_plan(fault)
@@ -702,15 +870,21 @@ class ProtectedProgram:
 
         # The bounded loop (fused, max_steps == nominal_steps) runs every
         # trip with no host sync; the others stop once every row halted.
-        bounded = self._fuse_plan is not None and self._fuse_plan.bounded_scan
+        bounded = (trace or self._fuse_plan is not None
+                   and self._fuse_plan.bounded_scan)
+        blocks, lives = [], []
         for t in range(self.region.max_steps):
+            if t in fire_at or trace:
+                live = ~self._halted(flags)
             if t in fire_at:
                 # No injection once halted: a flip into a finished or
                 # aborted row's frozen image would mis-classify it.
-                live = ~self._halted(flags)
                 for g, site in enumerate(sites):
                     bitflip.apply_site(pstate, site,
                                        (fault_t[:, g] == t) & live)
+            if trace:
+                blocks.append(self._trace_block(pstate, batch))
+                lives.append(live)
             pstate, flags = self.step(pstate, flags, t)
             if not bounded and self._all_halted(flags):
                 break
@@ -728,8 +902,12 @@ class ProtectedProgram:
                                       device=self.device)
             # The packed latch makes the gate one compare: done set and no
             # fault bit.
-            reached_call = (flags["latch"] == fused_step.LATCH_DONE_ONLY
-                            if fused else flags["done"] & ~flags["dwc_fault"])
+            if fused:
+                reached_call = flags["latch"] == fused_step.LATCH_DONE_ONLY
+            else:
+                reached_call = flags["done"] & ~flags["dwc_fault"]
+                if "cfc_fault" in flags:
+                    reached_call = reached_call & ~flags["cfc_fault"]
             if n == 2:
                 bad = reached_call & (mis_cnt > 0)
                 if fused:
@@ -744,7 +922,7 @@ class ProtectedProgram:
             flags = fused_step.unpack_latch(flags)
 
         no = torch.zeros(batch, dtype=torch.bool, device=self.device)
-        return {
+        rec = {
             "errors": self.region.check(view),
             "corrected": flags["tmr_cnt"],
             "steps": flags["steps"],
@@ -756,12 +934,28 @@ class ProtectedProgram:
             "assert_fault": flags.get("assert_fault", no),
             "output": self.region.output(view),
         }
+        if trace:
+            rec["trace_block"] = torch.stack(blocks, dim=1)
+            rec["trace_live"] = torch.stack(lives, dim=1)
+        if return_state:
+            rec["final_state"] = view
+        return rec
 
-    def run(self, fault: Optional[Mapping[str, object]] = None
+    def _trace_block(self, pstate: State, batch: int) -> torch.Tensor:
+        """The block the next step executes, from the voted view of the
+        region's leaves: int32 ``[B]``."""
+        if self.region.graph is None:
+            return torch.zeros(batch, dtype=torch.int32, device=self.device)
+        return self.region.graph.block_of(self.voted_view(
+            {name: pstate[name] for name in self.region.spec}))
+
+    def run(self, fault: Optional[Mapping[str, object]] = None,
+            trace: bool = False, return_state: bool = False
             ) -> Dict[str, torch.Tensor]:
         """Run one injection to completion; a batch of one.  ``fault`` keys:
         leaf_id, lane, word, bit, t: ints or 0-d arrays for one site,
-        vectors of shape [sites] for a flip group."""
+        vectors of shape [sites] for a flip group.  ``trace`` and
+        ``return_state`` as in :meth:`run_batch`."""
         cols = None
         if fault is not None:
             cols = {}
@@ -769,8 +963,13 @@ class ProtectedProgram:
                 if isinstance(v, torch.Tensor):
                     v = v.cpu().numpy()
                 cols[k] = np.asarray(v, np.int32)[None]
-        rec = self.run_batch(cols, batch=1)
-        return {k: v[0] for k, v in rec.items()}
+        rec = self.run_batch(cols, batch=1, trace=trace,
+                             return_state=return_state)
+        out = {k: v[0] for k, v in rec.items() if k != "final_state"}
+        if return_state:
+            out["final_state"] = {k: v[0]
+                                  for k, v in rec["final_state"].items()}
+        return out
 
 
 def protect(region: Region, cfg: ProtectionConfig,

@@ -8,8 +8,12 @@ its dataflow in ``meta["dataflow"]`` and the tests hold the declaration
 equal to the reference's ``analyze()`` of the JAX twin.
 
 ``verify_options`` ports the rule checks that concern the scope lists
-(``ignore_globals`` / ``xmr_globals``) and the read-only / control rules
-they interact with; violations raise :class:`SoRViolation`.
+(``ignore_globals`` / ``xmr_globals``, the function-scope lists,
+``-isrFunctions`` and ``-runtimeInitGlobals``) and the read-only / control
+rules they interact with; violations raise :class:`SoRViolation` with the
+reference's messages.  A region with named sub-functions declares the
+dataflow of its step with the raw functions bound, as the reference's
+analysis sees it.
 """
 
 from __future__ import annotations
@@ -87,6 +91,29 @@ def verify_options(region: Region, cfg) -> FrozenSet[str]:
     for name in sorted(set(cfg.ignore_globals) & set(cfg.xmr_globals)):
         errors.append(f"leaf '{name}' listed in both -ignore_globals and "
                       "-xmr_globals")
+    # Function-scope lists name existing functions; -isrFunctions has no
+    # meaning here and -runtimeInitGlobals names leaves: each is refused,
+    # never silently inert.
+    for flag, names in cfg.fn_lists().items():
+        for name in names:
+            if name not in region.functions:
+                have = ", ".join(sorted(region.functions)) or "<none>"
+                errors.append(
+                    f"-{flag}: no function named '{name}' in region "
+                    f"'{region.name}' (have: {have})")
+    for name in cfg.isr_functions:
+        errors.append(
+            f"-isrFunctions: '{name}': interrupt service routines do not "
+            "exist in a stepped TPU region; remove the flag (the reference "
+            "excludes ISRs from cloning, inspection.cpp:183-186 -- here "
+            "there is nothing to exclude)")
+    for name in cfg.runtime_init_globals:
+        if name not in region.spec:
+            errors.append(
+                f"-runtimeInitGlobals: no leaf named '{name}' in region "
+                f"'{region.name}' (every replicated leaf is already "
+                "runtime-initialised from the init() image by "
+                "init_pstate, the addGlobalRuntimeInit analogue)")
     if errors:
         raise SoRViolation(errors)
 

@@ -145,10 +145,9 @@ def test_registry_names_match_reference():
                              *JCHSTONE, "towersOfHanoi", "crazyCF",
                              "whetstone", "simd", "scalarize", "cache_test",
                              "schedule2", "trivial", "helloWorld",
-                             "simpleTMR"}
-    assert len(REGISTRY) == 29
-    assert UNPORTED == {"nestedCalls": "item 13", "rtos_app": "item 13",
-                        "train_mlp": "item 14", "train_mlp_adam": "item 14",
+                             "simpleTMR", "nestedCalls", "rtos_app"}
+    assert len(REGISTRY) == 31
+    assert UNPORTED == {"train_mlp": "item 14", "train_mlp_adam": "item 14",
                         "rtos_mm": "item 15", "rtos_kUser": "item 15",
                         "stencil": "item 16"}
     assert CHSTONE == JCHSTONE
@@ -218,15 +217,16 @@ def test_unported_features_refuse_with_roadmap_item():
     assert ct.ProtectionConfig(fuse_step=True).fuse_step    # item 11 landed
     # -protectStack landed with towersOfHanoi's LeafSpec.stack frames.
     assert ct.ProtectionConfig(protect_stack=True).protect_stack
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ct.ProtectionConfig(cfcss=True)
+    # Item 13 landed: CFCSS, the scope lists and -s are accepted.
+    assert ct.ProtectionConfig(cfcss=True).cfcss
+    assert ct.ProtectionConfig(ignore_fns=("f",),
+                               runtime_init_globals=("x",)).ignore_fns
     # C1: the reference's voter switch is accepted with every value.
     for value in (None, True, False):
         assert ct.ProtectionConfig(pallas_voters=value).pallas_voters \
             is value
     region = mm.make_region()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ct.TMR(region, device="cpu", segmented=True)
+    assert ct.TMR(region, device="cpu", segmented=True).cfg.segmented
     with pytest.raises(NotImplementedError, match="item 14"):
         ct.Region(**{**{k: getattr(region, k) for k in (
             "name", "init", "step", "done", "check", "output",

@@ -113,6 +113,21 @@ CAMPAIGNS = {
     "t_quicksort_dwc_no_pallas_voters": [
         "-f", "quicksort", "-O", "-DWC -noPallasVoters", "-t", "64",
         "--batch-size", "64", "--log-format", "ndjson"],
+    # The function-scope regions, CFCSS (BASELINE config 5) and segmented
+    # scheduling, which the CLI's -O string reaches.
+    "t_nestedCalls_tmr_ignore_fns": [
+        "-f", "nestedCalls", "-O", "-TMR -ignoreFns=fold -countSyncs",
+        "-t", "96", "--batch-size", "48", "--seed", "2"],
+    "t_rtos_app_dwc_scope_lists": [
+        "-f", "rtos_app", "--opt-passes=-DWC -configFile=rtos/functions.config"
+        " -protectedLibFn=ring_push -cloneAfterCall=rng_next", "-t", "64",
+        "--batch-size", "64", "--log-format", "ndjson"],
+    "t_mm_tmr_cfcss_segmented": [
+        "-f", "matrixMultiply", "-O", "-TMR -CFCSS -s", "-t", "120",
+        "--batch-size", "60", "--seed", "4"],
+    "text_crc16_cfcss_fused": [
+        "-f", "crc16", "-O", "-DWC -CFCSS -fuseStep", "-s", "text", "-t",
+        "100", "--seed", "8", "--log-format", "columnar"],
 }
 
 
@@ -195,7 +210,7 @@ UNPORTED = [
     (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
     (["-f", "rtos_mm"], "item 15"),
-    (["-f", "nestedCalls"], "item 13"),
+    (["-f", "rtos_kUser"], "item 15"),
     (["-f", "train_mlp"], "item 14"),
     (["-f", "prog.c"], "item 17"),
 ]
