@@ -99,7 +99,7 @@ Phases, in order; any failure exits non-zero:
      injections at batch 4096, seed 1, unfused and fused: fused = unfused
      on every row, K1 and K2 launched exactly their per-trip counts (a
      CPU twin counts one trip's and one boundary's calls) times the loop
-     trips, and the first 256 rows rerun on the CPU equal on every
+     trips, and the first 64 rows rerun on the CPU equal on every
      column; then chstone_jpeg TMR through the supervisor CLI, with and
      without ``-pallasVoters``: the runner's records on the CLI's default
      section, the same K1 launches; each case's inj/s and wall;
@@ -128,6 +128,26 @@ Phases, in order; any failure exits non-zero:
      against ``-i`` on matrixMultiply and crc16 TMR: equal records; then
      ``-f matrixMultiply -O -TMR -CFCSS -s icache`` through the supervisor
      CLI on the card and on the host: the same summary;
+ 23. the preemptive RTOS kernel targets (run before phase 18): rtos_mm
+     and rtos_kUser under their canonical config (``rtos/Makefile``'s
+     lists plus ``rtos/kernel.config``), TMR and DWC: fault-free rows
+     clean unfused and fused; 65,536 injections at batch 4096, seed 42,
+     as phase 19 (fused = unfused, sparse = dense, K1/K2 launches a trip,
+     256 rows against the CPU), each with DUE_STACK_OVERFLOW and
+     DUE_ASSERT rows, its counts rolled up over ``rtos_sections``; the
+     reference's recorded canonical campaign
+     (``artifacts/rtos_campaign.json``, read as data) rerun on the card
+     with equal counts; ``-f rtos_mm -O '-TMR <canonical>' -s stack``
+     through the supervisor CLI against the runner;
+ 24. the protected training step (run before phase 18): train_mlp and
+     train_mlp_adam, the card's golden against the host's (losses within
+     1e-5, weights bit-equal), fault-free rows success at batch 1 and
+     4096 under unprotected, DWC, TMR and selective xMR; 65,536
+     injections at batch 4096, seed 11, unprotected and selective, 16,384
+     under DWC and TMR (unfused: float regions; K1 launches a trip; 256
+     rows against the CPU); unprotected
+     with train_self_heal and train_sdc rows and no raw sdc, selective
+     with corrected rows and fewer train_sdc;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -137,7 +157,7 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-22, K2 those of phases 7b, 9-12, 14-17 and 19-22 (each
+9-12, 14-17 and 19-24, K2 those of phases 7b, 9-12, 14-17 and 19-23 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
 coast_tpu package.
@@ -1541,27 +1561,33 @@ def case_label(name: str, strat, cfg: dict) -> str:
 
 def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
                  n: int = 4096, cpu_rows: int = 256,
-                 exempt=None, trip_log=None) -> tuple:
+                 exempt=None, trip_log=None, batch: int = None,
+                 seed: int = 1, engines=(False, True), sparse: bool = False,
+                 dense_log=None) -> tuple:
     """Each case ``(region name, strategy, config overrides)`` on the
-    card, ``n`` injections at batch ``n``, seed 1, unfused and fused: the
-    two records equal on every row (a float region's fused build is its
-    unfused program); K1 launched exactly its per-trip count a loop trip
-    plus the boundary group, K2 (fused) exactly its per-trip count; the
-    first ``cpu_rows`` rows rerun on the CPU (plain voters and commit),
-    equal on every column outside ``exempt[name](leaf_order, leaf_id,
-    bit)``.  Returns the (K1, K2) launches and {label: (inj/s, wall)};
-    ``trip_log`` (a dict), if given, gets each campaign's loop trips by
-    (label, fused)."""
+    card, ``n`` injections at ``batch`` (default ``n``), ``seed``, unfused
+    and fused (``engines``): the records equal on every row (a float
+    region's fused build is its unfused program); K1 launched exactly its
+    per-trip count a loop trip plus the boundary group a batch, K2 (fused)
+    exactly its per-trip count; with ``sparse``, a sparse campaign of the
+    last engine equal to the dense one; the first ``cpu_rows`` rows rerun
+    on the CPU (plain voters and commit), equal on every column outside
+    ``exempt[name](leaf_order, leaf_id, bit)``.  Returns the (K1, K2)
+    launches and {label: (inj/s, wall)}; ``trip_log`` (a dict), if given,
+    gets each campaign's loop trips by (label, fused), ``dense_log`` each
+    case's unfused dense result by label."""
     from coast_tpu_torch.models import REGISTRY
     device = "cpu" if board == "cpu" else "cuda"
     exempt = exempt or {}
+    batch = batch or n
+    batches = -(-n // batch)
     launches = [0, 0]
     rates = {}
     for name, strat, cfg in cases:
         region = REGISTRY[name]()
         label = case_label(name, strat, cfg)
         results = {}
-        for fused in (False, True):
+        for fused in engines:
             prog = strat(region, device=device, fuse_step=fused, **cfg)
             if (fused and prog._fuse_plan is None
                     and prog.fuse_plan_info.exact_dataflow):
@@ -1571,10 +1597,11 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
             hv.LAUNCHES = hc.LAUNCHES = 0
             t0 = time.perf_counter()
             res = CampaignRunner(prog, strategy_name=strat.__name__).run(
-                n, seed=1, batch_size=n)
+                n, seed=seed, batch_size=batch)
             wall = time.perf_counter() - t0
             got = (hv.LAUNCHES, hc.LAUNCHES)
-            want = (trip[0] * trips[0] + boundary, trip[1] * trips[0])
+            want = (trip[0] * trips[0] + boundary * batches,
+                    trip[1] * trips[0])
             if got != want:
                 fail(f"{label} fused={fused}: K1/K2 launches {got}, not "
                      f"{want} ({trips[0]} trips of {trip}, boundary "
@@ -1592,10 +1619,28 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
                 f"({1e6 * wall / (trips[0] * ops):.2f} us an op), K1 "
                 f"{got[0]} ({trip[0]} a trip + {boundary} boundary), K2 "
                 f"{got[1]} ({trip[1]} a trip) [{card}]")
-        why = records_differ(results[False], results[True])
-        if why:
-            fail(f"{label}: fused and unfused records differ: {why}")
-        dense = results[False]
+            if sparse and fused == engines[-1]:
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                res = CampaignRunner(prog, strategy_name=strat.__name__,
+                                     collect="sparse").run(
+                    n, seed=seed, batch_size=batch)
+                launches[0] += hv.LAUNCHES
+                launches[1] += hc.LAUNCHES
+                why = records_differ(results[engines[0]], res)
+                if why:
+                    fail(f"{label}: sparse and dense records differ: {why}")
+                rates[f"{label}{' fused' if fused else ''} sparse"] = (
+                    res.injections_per_sec, res.seconds)
+                log(f"{label}{' fused' if fused else ''} sparse = dense: "
+                    f"{res.injections_per_sec:.1f} inj/s, transfer down "
+                    f"{res.transfer['down']} B [{card}]")
+        for fused in engines[1:]:
+            why = records_differ(results[engines[0]], results[fused])
+            if why:
+                fail(f"{label}: fused and unfused records differ: {why}")
+        dense = results[engines[0]]
+        if dense_log is not None:
+            dense_log[label] = dense
         sub = dense.schedule.slice(0, cpu_rows)
         cpu_prog = strat(region, device="cpu", **cfg)
         cpu = CampaignRunner(cpu_prog).run_schedule(sub, batch_size=cpu_rows)
@@ -1978,6 +2023,224 @@ def scope_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     return tuple(launches)
 
 
+# Phase 23: the preemptive RTOS kernel targets (ROADMAP item 15) under
+# their canonical config (rtos/Makefile's lists plus rtos/kernel.config).
+RTOS_TARGETS = ("rtos_mm", "rtos_kUser")
+
+
+def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
+                        REGISTRY, CampaignRunner, hv, hc, fs,
+                        n: int = 65536, batch: int = 4096, seed: int = 42,
+                        cpu_rows: int = 256) -> tuple:
+    """Phase 23: rtos_mm and rtos_kUser under the canonical config, TMR
+    and DWC: fault-free rows clean, unfused and fused; then ``n``
+    injections at ``batch``, seed ``seed``, through ``region_cases``
+    (fused = unfused, sparse = dense, K1/K2 launches a trip, 256 rows
+    against the CPU), each with DUE_STACK_OVERFLOW and DUE_ASSERT rows and
+    its counts rolled up over ``rtos_sections``; the reference's recorded
+    canonical campaign (``artifacts/rtos_campaign.json``: rtos_mm TMR,
+    2,048 rows at 256, seed 42) rerun on the card, its counts equal; then
+    ``-f rtos_mm -O '-TMR <canonical>' -s stack`` through the supervisor
+    CLI against the runner.  Returns the (K1, K2) launches."""
+    from coast_tpu_torch.inject import classify as cls
+    from coast_tpu_torch.inject import logs
+    from coast_tpu_torch.inject.supervisor import section_filter
+    from coast_tpu_torch.rtos import campaign as rc
+    device = "cpu" if board == "cpu" else "cuda"
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    for name in RTOS_TARGETS:
+        for strat in (TMR, DWC):
+            for fused in (False, True):
+                prog = strat(REGISTRY[name](), device=device,
+                             fuse_step=fused, **rc.canonical_overrides(name))
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                rec = prog.run_batch(batch=batch)
+                launches[0] += hv.LAUNCHES
+                launches[1] += hc.LAUNCHES
+                codes = cls.classify(rec, prog.output_words)
+                if not ((codes == cls.SUCCESS).all()
+                        and (rec["steps"] == prog.region.nominal_steps).all()
+                        and not rec["stack_fault"].any()
+                        and not rec["assert_fault"].any()):
+                    fail(f"{name} {strat.__name__} fused={fused}: a "
+                         "fault-free row is not clean")
+    log(f"phase 23: fault-free rtos_mm and rtos_kUser rows clean, TMR and "
+        f"DWC, unfused and fused, {batch} rows each [{card}]")
+
+    cases = [(name, strat, rc.canonical_overrides(name))
+             for name in RTOS_TARGETS for strat in (TMR, DWC)]
+    dense = {}
+    got, rates = region_cases(board, card, cases, CampaignRunner, hv, hc, fs,
+                              n=n, batch=batch, seed=seed, cpu_rows=cpu_rows,
+                              sparse=True, dense_log=dense)
+    launches[0] += got[0]
+    launches[1] += got[1]
+    sections = {}
+    for (name, strat, cfg), label in zip(cases, dense):
+        res = dense[label]
+        if not (res.counts["due_stack_overflow"] and
+                res.counts["due_assert"]):
+            fail(f"{label}: no stack-overflow or no assert DUE in "
+                 f"{res.counts}")
+        prog = strat(REGISTRY[name](), device="cpu", **cfg)
+        table = rc.category_table(res, CampaignRunner(prog).mmap,
+                                  prog.region.meta["rtos_sections"])
+        sections[label] = {cat: {k: v for k, v in row.items() if v}
+                           for cat, row in table.items()}
+        log(f"{label}: DUE sub-buckets {rc.due_sub_buckets(res.counts)}; "
+            f"by rtos section {sections[label]}")
+
+    # The reference's recorded canonical campaign, read as data.
+    with open(ROOT / "artifacts" / "rtos_campaign.json") as fh:
+        recorded = json.load(fh)
+    prog = rc.canonical_prog(recorded["benchmark"], 3, device)
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    res = CampaignRunner(prog, strategy_name="TMR").run(
+        recorded["injections"], seed=recorded["seed"], batch_size=256)
+    launches[0] += hv.LAUNCHES
+    log(f"the reference's recorded {recorded['benchmark']} campaign "
+        f"({recorded['injections']} rows, seed {recorded['seed']}): "
+        f"{recorded['counts']}; on the card: {res.counts} [{card}]")
+    if res.counts != recorded["counts"]:
+        fail("the canonical rtos_mm campaign's counts differ from the "
+             "reference's recorded ones")
+
+    # -s stack through the supervisor CLI.
+    name = "rtos_mm"
+    flags = " ".join(f"-{k}={','.join(v)}"
+                     for k, v in rc.CL_LISTS[name].items())
+    opt = f"-TMR {flags} -configFile={ROOT / 'rtos' / 'kernel.config'}"
+    prog = rc.canonical_prog(name, 3, device)
+    runner = CampaignRunner(prog, sections=section_filter(prog, "stack"),
+                            strategy_name="TMR")
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    res = runner.run(4096, seed=seed, batch_size=4096)
+    launches[0] += hv.LAUNCHES
+    ref_dir = work / "rtos_runner"
+    ref_dir.mkdir()
+    logs.write_ndjson(res, runner.mmap, str(ref_dir / "runner.json"))
+    want_rows = log_content(ref_dir, "ndjson")[1]
+    cli_dir = work / "rtos_cli"
+    cli_dir.mkdir()
+    t0 = time.perf_counter()
+    cli = run_cli(["-f", name, "-O", opt, "-s", "stack", "-t", "4096",
+                   "--batch-size", "4096", "--seed", str(seed),
+                   "--log-format", "ndjson", "-l", str(cli_dir)], board,
+                  f"{name} -TMR -s stack CLI")
+    wall = time.perf_counter() - t0
+    counts = {k: cli["summary"][k] for k in res.counts}
+    if counts != res.counts:
+        fail(f"{name} -s stack CLI: counts {counts} differ from the "
+             f"runner's {res.counts}")
+    if log_content(cli_dir, "ndjson")[1] != want_rows:
+        fail(f"{name} -s stack CLI: the per-injection log differs from the "
+             "runner's records")
+    if cli["k1"] <= 0 or counts["due_stack_overflow"] <= 0:
+        fail(f"{name} -s stack CLI: K1 {cli['k1']}, counts {counts}")
+    launches[0] += cli["k1"]
+    launches[1] += cli["k2"]
+    log(f"{name} -O '-TMR <canonical>' -s stack through the supervisor CLI: "
+        f"{counts}, the runner's records, "
+        f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, "
+        f"{wall:.2f} s process wall, K1 {cli['k1']} [{card}]")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log(json.dumps({"phase23_inj_per_s": {
+        k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "rtos_sections": sections, "card": card}))
+    return tuple(launches)
+
+
+# Phase 24: the protected training step (ROADMAP item 14).
+TRAIN_REGIONS = ("train_mlp", "train_mlp_adam")
+TRAIN_RTOL = 1e-5
+
+
+def train_regions(board: str, card: str, torch, DWC, TMR, unprotected,
+                  REGISTRY, CampaignRunner, hv, hc, fs, n: int = 65536,
+                  batch: int = 4096, seed: int = 11,
+                  cpu_rows: int = 256) -> tuple:
+    """Phase 24: train_mlp and train_mlp_adam.  The card's golden loss
+    trajectory against the host's (within ``TRAIN_RTOL``; the weights bit
+    for bit); fault-free rows at batch 1 and ``batch`` classify success
+    under unprotected, DWC, TMR and selective xMR; then ``n`` injections
+    at ``batch``, seed ``seed``, unprotected and selective (``n // 4``
+    under DWC and TMR) through ``region_cases`` (the float regions run
+    unfused; K1 launches a trip; 256 rows against the CPU): the
+    unprotected campaign has train_self_heal and train_sdc rows and no raw
+    sdc, the selective one corrected rows and fewer train_sdc.  Returns
+    the (K1, K2) launches."""
+    from coast_tpu_torch.inject import classify as cls
+    from coast_tpu_torch.train import mlp
+    device = "cpu" if board == "cpu" else "cuda"
+    t_phase = time.perf_counter()
+    strategies = (unprotected, DWC, TMR, mlp.selective_xmr)
+    launches = [0, 0]
+    for name in TRAIN_REGIONS:
+        optimizer = REGISTRY[name]().meta["train"]["optimizer"]
+        gold, host = mlp.golden(optimizer, device), mlp.golden(optimizer,
+                                                               "cpu")
+        rel = float(np.max(np.abs(gold["losses"] - host["losses"])
+                           / np.abs(host["losses"])))
+        same = all(gold["params"][k].tobytes() == host["params"][k].tobytes()
+                   for k in gold["params"])
+        if rel > TRAIN_RTOL or not gold["losses"][-1] < gold["losses"][0]:
+            fail(f"{name}: the card's loss trajectory {gold['losses']} is "
+                 f"not within {TRAIN_RTOL} of the host's {host['losses']}")
+        if not same:
+            fail(f"{name}: the card's golden weights differ from the host's")
+        log(f"{name}: golden losses {gold['losses'][0]:.6f} -> "
+            f"{gold['losses'][-1]:.6f}, max relative difference to the "
+            f"host's {rel:.3g}, weights bit-equal [{card}]")
+        for strat in strategies:
+            prog = strat(REGISTRY[name](), device=device)
+            for rows in (1, batch):
+                hv.LAUNCHES = 0
+                rec = prog.run_batch(batch=rows)
+                launches[0] += hv.LAUNCHES
+                codes = cls.classify(rec, prog.output_words)
+                if not ((codes == cls.SUCCESS).all()
+                        and (rec["train_probe"] == 0).all()):
+                    hist = np.bincount(codes.cpu().numpy(),
+                                       minlength=cls.NUM_CLASSES)
+                    fail(f"{name} {strat.__name__} batch {rows}: fault-free "
+                         f"classes {hist.tolist()}, not all success")
+    log(f"phase 24: fault-free rows success at batch 1 and {batch} under "
+        f"every strategy [{card}]")
+
+    # Unprotected and selective at ``n`` (their counts are compared), DWC
+    # and TMR at a quarter of it (the script's time limit).
+    dense, rates = {}, {}
+    for picked, rows in (((unprotected, mlp.selective_xmr), n),
+                         ((DWC, TMR), n // 4)):
+        cases = [(name, strat, {}) for name in TRAIN_REGIONS
+                 for strat in picked]
+        got, more = region_cases(board, card, cases, CampaignRunner, hv, hc,
+                                 fs, n=rows, batch=batch, seed=seed,
+                                 cpu_rows=cpu_rows, engines=(False,),
+                                 dense_log=dense)
+        rates.update(more)
+        launches[0] += got[0]
+        launches[1] += got[1]
+    for name in TRAIN_REGIONS:
+        unprot = dense[case_label(name, unprotected, {})].counts
+        sel = dense[case_label(name, mlp.selective_xmr, {})].counts
+        if not (unprot["train_self_heal"] and unprot["train_sdc"]
+                and unprot["sdc"] == 0):
+            fail(f"{name} unprotected: {unprot}")
+        if not (sel["corrected"] > 0
+                and sel["train_sdc"] < unprot["train_sdc"]):
+            fail(f"{name} selective_xmr: {sel} against unprotected {unprot}")
+        log(f"{name}: unprotected train_self_heal {unprot['train_self_heal']}"
+            f" train_sdc {unprot['train_sdc']}; selective corrected "
+            f"{sel['corrected']} train_sdc {sel['train_sdc']} [{card}]")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log(json.dumps({"phase24_inj_per_s": {
+        k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "counts": {k: v.counts for k, v in dense.items()}, "card": card}))
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -1986,7 +2249,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a card")
     try:
-        from coast_tpu_torch import DWC, TMR, build
+        from coast_tpu_torch import DWC, TMR, build, unprotected
         from coast_tpu_torch.inject.campaign import CampaignRunner
         from coast_tpu_torch.inject.device_gen import DeviceScheduleGen
         from coast_tpu_torch.inject.logs import StreamLogWriter
@@ -2146,9 +2409,10 @@ def main() -> None:
                    StreamLogWriter, bare)]
     # 19. The BASELINE regions: aes, sha256, quicksort and the CHStone
     # suite.
+    # Its CPU reruns cover 64 rows a case: the script's time limit.
     new_launches.append(baseline_regions(
         work, "gpu", card, torch, TMR, DWC, REGISTRY, CampaignRunner, hv, hc,
-        fs))
+        fs, cpu_rows=64))
     # 20. The rest of the registry: the corpus, the float regions and
     # towersOfHanoi with -protectStack.
     new_launches.append(corpus_regions(
@@ -2160,6 +2424,13 @@ def main() -> None:
     # 22. Function scope, segmented scheduling and the CFCSS CLI.
     new_launches.append(scope_regions(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    # 23. The preemptive RTOS kernel targets with their guards.
+    new_launches.append(rtos_kernel_targets(
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    # 24. The protected training step.
+    new_launches.append(train_regions(
+        "gpu", card, torch, DWC, TMR, unprotected, REGISTRY, CampaignRunner,
+        hv, hc, fs))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)

@@ -19,13 +19,15 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
     res = CampaignRunner(prog).run(4096, seed=1)
 """
 
-from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG, KIND_RO,
-                                       LeafSpec, Region)
+from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_OPT_STATE,
+                                       KIND_PARAM, KIND_REG, KIND_RO,
+                                       KIND_STACK, LeafSpec, Region)
 from coast_tpu_torch.passes.dataflow_protection import (ProtectedProgram,
                                                         ProtectionConfig,
                                                         protect)
 from coast_tpu_torch.passes.strategies import DWC, EDDI, TMR, unprotected
 
-__all__ = ["KIND_CTRL", "KIND_MEM", "KIND_REG", "KIND_RO", "LeafSpec",
+__all__ = ["KIND_CTRL", "KIND_MEM", "KIND_REG", "KIND_RO", "KIND_STACK",
+           "KIND_PARAM", "KIND_OPT_STATE", "LeafSpec",
            "Region", "ProtectedProgram", "ProtectionConfig", "protect",
            "DWC", "EDDI", "TMR", "unprotected"]

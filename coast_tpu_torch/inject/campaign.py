@@ -368,6 +368,9 @@ class CampaignRunner:
                 f"unknown collect mode {collect!r}; one of 'dense', "
                 "'sparse'")
         self.prog = prog
+        # A training region's counts always carry the train classes; every
+        # other region keeps the base key set.
+        self._train = prog.region.train_probe is not None
         self.retry = retry
         self.mmap = MemoryMap(prog, sections)
         self.strategy_name = strategy_name or f"N={prog.cfg.num_clones}"
@@ -625,7 +628,7 @@ class CampaignRunner:
                 state = self._sparse_setup(sched, batch_size, transfer)
 
         def counts_now() -> Dict[str, int]:
-            counts = cls.counts_dict(live_counts)
+            counts = cls.counts_dict(live_counts, self._train)
             counts["cache_invalid"] = live_invalid
             return counts
 
@@ -858,7 +861,7 @@ class CampaignRunner:
                 binc = np.bincount(merged["code"][~invalid_draw],
                                    minlength=cls.NUM_CLASSES)
                 invalid_total = int(invalid_draw.sum())
-            counts = cls.counts_dict(binc)
+            counts = cls.counts_dict(binc, self._train)
             counts["cache_invalid"] = invalid_total
         seconds = time.perf_counter() - t0
         res = CampaignResult(
@@ -1003,7 +1006,7 @@ class CampaignRunner:
                 live += np.bincount(out["code"][fired],
                                     minlength=cls.NUM_CLASSES)
                 live_invalid += int((~fired).sum())
-                counts = cls.counts_dict(live)
+                counts = cls.counts_dict(live, self._train)
                 counts["cache_invalid"] = live_invalid
                 j.append_batch(lo, out, counts, {})
             want = {k: int(v) for k, v in res.counts.items()}

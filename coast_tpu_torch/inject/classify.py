@@ -2,7 +2,10 @@
 
 The counterpart of ``coast_tpu/inject/classify.py``, with the same codes
 and the same precedence: INVALID > DUE_STACK_OVERFLOW > DUE_ASSERT >
-DUE_ABORT > DUE_TIMEOUT > SDC > CORRECTED > SUCCESS.
+DUE_ABORT > DUE_TIMEOUT > SDC > CORRECTED > SUCCESS.  A record carrying
+``train_probe`` (a training region's) has its SDC split into
+TRAIN_SELF_HEAL (the loss re-converged) and TRAIN_SDC (it did not); a
+record without it classifies as before.
 """
 
 from __future__ import annotations
@@ -42,6 +45,13 @@ def classify(rec: Dict[str, torch.Tensor], output_words: int) -> torch.Tensor:
     invalid = (errors < 0) | (errors > output_words)
     code = torch.where(rec["corrected"] > 0, CORRECTED, SUCCESS)
     code = torch.where(errors > 0, SDC, code)
+    if "train_probe" in rec:
+        # Training regions only: split SDC by whether the loss trajectory
+        # re-converged, before the DUE/INVALID overrides (a hung or
+        # aborted training step stays a DUE).
+        code = torch.where(code == SDC,
+                           torch.where(rec["train_probe"] >= 2, TRAIN_SDC,
+                                       TRAIN_SELF_HEAL), code)
     code = torch.where(~rec["done"], DUE_TIMEOUT, code)
     code = torch.where(rec["dwc_fault"] | rec["cfc_fault"], DUE_ABORT, code)
     code = torch.where(rec["assert_fault"], DUE_ASSERT, code)

@@ -35,6 +35,7 @@ import sys
 from typing import List, Optional
 
 from coast_tpu_torch.inject.hierarchy import DCACHE_KINDS, ICACHE_KINDS
+from coast_tpu_torch.ir.region import KIND_STACK
 
 #: Geometry-overlay sections: these draw their own cache schedules
 #: (coast_tpu_torch.inject.hierarchy), outside the seeded generate() paths.
@@ -381,9 +382,10 @@ def section_filter(prog, section: str):
     if section in _KIND_SECTIONS:
         return _KIND_SECTIONS[section]
     if section == "stack":
-        # LeafSpec.stack leaves (the -protectStack frames); the rtos
-        # kernel's KIND_STACK stacks come with ROADMAP Queue A item 15.
-        names = [n for n, s in prog.region.spec.items() if s.stack]
+        # Both stack notions: the -protectStack frames (LeafSpec.stack)
+        # and the rtos kernel's per-task KIND_STACK stacks.
+        names = [n for n, s in prog.region.spec.items()
+                 if s.stack or s.kind == KIND_STACK]
         if not names:
             print(f"Error, {prog.region.name} has no stack-class leaves!",
                   file=sys.stderr)

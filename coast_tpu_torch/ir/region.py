@@ -51,17 +51,19 @@ KIND_MEM = "mem"    # written memory (store sync points)
 KIND_REG = "reg"    # loop-carried data registers
 KIND_CTRL = "ctrl"  # loop counters, predicates (terminator sync)
 KIND_RO = "ro"      # read-only inputs; never written by step()
+# Per-task kernel stacks (rtos/): memory semantics, voted where written
+# under the 'stack' sync class.
 KIND_STACK = "stack"
+# Training regions (train/): parameters and optimizer state, memory
+# semantics under their own sync classes.
 KIND_PARAM = "param"
 KIND_OPT_STATE = "opt_state"
 KIND_LINK = "link"
 
-_PORTED_KINDS = (KIND_MEM, KIND_REG, KIND_CTRL, KIND_RO)
+_PORTED_KINDS = (KIND_MEM, KIND_REG, KIND_CTRL, KIND_RO, KIND_STACK,
+                 KIND_PARAM, KIND_OPT_STATE)
 # Kinds of the reference that later slices bring over (ROADMAP Queue A).
 _LATER_KINDS = {
-    KIND_STACK: "Queue A item 15 (rtos/)",
-    KIND_PARAM: "Queue A item 14 (train/mlp.py)",
-    KIND_OPT_STATE: "Queue A item 14 (train/mlp.py)",
     KIND_LINK: "Queue A item 16 (the sharded backend)",
 }
 WORD_DTYPES = (torch.int32, torch.float32)
@@ -76,7 +78,9 @@ class LeafSpec:
     as int32).  ``stack`` marks call-stack state on any ported kind: under
     ``ProtectionConfig.protect_stack`` it is voted every step, whatever
     the per-kind sync flags say, and the supervisor's ``-s stack`` picks
-    it."""
+    it.  ``canary_word`` (``KIND_STACK`` leaves only) is the flat word
+    index, within a lane, of the canary word guarding the stack: metadata,
+    the region's ``stack_guard`` owns the check."""
 
     kind: str = KIND_MEM
     xmr: Optional[bool] = None
@@ -84,6 +88,7 @@ class LeafSpec:
     no_verify: bool = False
     unsigned: bool = False
     stack: bool = False
+    canary_word: Optional[int] = None
 
     def __post_init__(self):
         if self.kind in _LATER_KINDS:
@@ -93,6 +98,10 @@ class LeafSpec:
         if self.kind not in _PORTED_KINDS:
             raise ValueError(
                 f"bad leaf kind {self.kind!r}; one of {_PORTED_KINDS}")
+        if self.canary_word is not None and self.kind != KIND_STACK:
+            raise ValueError(
+                f"canary_word is only meaningful on {KIND_STACK!r} leaves, "
+                f"not {self.kind!r}")
 
 
 class FnNamespace:
@@ -142,20 +151,16 @@ class Region:
     # Named sub-functions the three-argument step calls through ``fns``:
     # the unit the function-scope lists name.
     functions: Dict[str, Callable] = dataclasses.field(default_factory=dict)
-    # Reference fields whose engine support comes in later slices.
+    # The kernel's own checks (rtos/): ``state`` rows -> bool ``[R]``
+    # (True: tripped), evaluated by the engine on every lane's stepped,
+    # pre-vote state.  ``stack_guard`` latches DUE_STACK_OVERFLOW,
+    # ``assert_guard`` DUE_ASSERT.
     stack_guard: Optional[Callable] = None
     assert_guard: Optional[Callable] = None
+    # Training regions (train/): the voted final view -> int32 ``[R]``, 0
+    # the loss trajectory stayed within tolerance, 1 it deviated and
+    # re-converged, 2 it stayed diverged; classify splits SDC on it.
     train_probe: Optional[Callable] = None
-
-    def __post_init__(self):
-        later = {"stack_guard": "Queue A item 15 (rtos/)",
-                 "assert_guard": "Queue A item 15 (rtos/)",
-                 "train_probe": "Queue A item 14 (train/mlp.py)"}
-        for field, item in later.items():
-            if getattr(self, field):
-                raise NotImplementedError(
-                    f"region {self.name}: {field} is not ported yet; see "
-                    f"ROADMAP {item}")
 
     def leaf_is_xmr(self, name: str) -> bool:
         """Resolve the replication scope of a leaf (annotation > default)."""

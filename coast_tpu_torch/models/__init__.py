@@ -10,11 +10,12 @@ from typing import Callable, Dict
 from coast_tpu_torch.ir.region import Region
 
 
-def _lazy(modname: str, fn: str = "make_region") -> Callable[[], Region]:
+def _lazy(modname: str, fn: str = "make_region",
+          package: str = "coast_tpu_torch.models") -> Callable[[], Region]:
     def make() -> Region:
-        mod = importlib.import_module(f"coast_tpu_torch.models.{modname}")
+        mod = importlib.import_module(f"{package}.{modname}")
         return getattr(mod, fn)()
-    make.modname = modname
+    make.module = f"{package}.{modname}"
     return make
 
 
@@ -50,6 +51,12 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "simpleTMR": _lazy("smoke", "make_simple_tmr_region"),
     "nestedCalls": _lazy("nested_calls"),
     "rtos_app": _lazy("rtos_app"),
+    "rtos_mm": _lazy("rtos_kernel", "make_rtos_mm"),
+    "rtos_kUser": _lazy("rtos_kernel", "make_rtos_kuser"),
+    # The protected training step (coast_tpu_torch.train).
+    "train_mlp": _lazy("mlp", "make_region", "coast_tpu_torch.train"),
+    "train_mlp_adam": _lazy("mlp", "make_region_adam",
+                            "coast_tpu_torch.train"),
 }
 
 # The CHStone sub-suite (BASELINE config 4: full TMR campaign), the
@@ -60,13 +67,8 @@ CHSTONE = ("chstone_mips", "chstone_sha", "chstone_adpcm",
            "chstone_motion", "chstone_jpeg", "aes")
 
 #: The reference registry's other names, not ported yet, with the ROADMAP
-#: Queue A item that brings each: the train regions (item 14), the rtos
-#: kernel targets (item 15) and the sharded stencil (item 16).
-UNPORTED = {
-    "rtos_mm": "item 15", "rtos_kUser": "item 15",
-    "train_mlp": "item 14", "train_mlp_adam": "item 14",
-    "stencil": "item 16",
-}
+#: Queue A item that brings each: the sharded stencil (item 16).
+UNPORTED = {"stencil": "item 16"}
 
 
 def resolve_region(arg: str, **kw) -> Region:
@@ -98,8 +100,7 @@ def model_source(name: str) -> str:
     path does not exist).  Unknown names fall back to the package."""
     make = REGISTRY.get(name)
     if make is not None:
-        spec = importlib.util.find_spec(
-            f"coast_tpu_torch.models.{make.modname}")
+        spec = importlib.util.find_spec(make.module)
         if spec is not None and spec.origin:
             return os.path.realpath(spec.origin)
     import coast_tpu_torch

@@ -6,14 +6,24 @@ The counterpart of ``coast_tpu/opt.py``'s flag tables, ``parse_argv``,
 so the supervisor's ``-O`` string means the same program in both packages:
 ``-CFCSS``, ``-s``, the function-scope lists, ``-isrFunctions`` and
 ``-runtimeInitGlobals`` reach the engine, which checks the names as the
-reference does.  The CLI's own
-``main`` (``python -m coast_tpu.opt``: ``-dumpModule``, the lint gate,
-``-propOut``) is ROADMAP Queue A item 17.
+reference does.
+
+:func:`main` (``python -m coast_tpu_torch.opt [-TMR|-DWC] [flags]
+<benchmark>``) builds the program and runs it once on the card, optionally
+with one flip (``-inject=leaf:lane:word:bit:t``), and prints the guest's
+``C: E: F: T:`` line with the reference's exit codes: 134 and a hook line
+on stderr for a stack-overflow or assert trip, a DWC or CFCSS abort; 124
+for a timeout; else the error count (at most 100).  What needs a walk of
+the step's graph (``-dumpModule``, ``-lintOut``, ``-propOut`` and the
+replication-integrity gate the reference runs before every TMR/DWC build)
+is ROADMAP Queue A item 17: the first three exit 2 naming it, and the
+gate is not run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import sys
+from typing import Dict, List, Optional, Tuple
 
 _BOOL_FLAGS = {
     "TMR", "DWC", "EDDI", "CFCSS",
@@ -137,3 +147,139 @@ def build_overrides(flags: Dict[str, object]) -> Dict[str, object]:
     elif flags.get("noFuseStep"):
         overrides["fuse_step"] = False
     return overrides
+
+
+# Flags whose reference behaviour walks the step's graph (ROADMAP item 17).
+_GRAPH_FLAGS = ("dumpModule", "lintOut", "propOut")
+
+
+def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
+    """The ``opt`` CLI: build ``<benchmark>`` under the flags and run it
+    once on ``device`` (the card unless the caller passes ``"cpu"``)."""
+    argv = sys.argv[1:] if argv is None else argv
+    try:
+        flags, positional = parse_argv(argv)
+    except UsageError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 2
+    from coast_tpu_torch.models import REGISTRY, UNPORTED
+    if len(positional) != 1 or positional[0] not in {**REGISTRY,
+                                                     **UNPORTED}:
+        print("usage: python -m coast_tpu_torch.opt [-TMR|-DWC] [flags] "
+              f"<benchmark>\nbenchmarks: {', '.join(sorted(REGISTRY))}",
+              file=sys.stderr)
+        return 2
+    for name in _GRAPH_FLAGS:
+        if name in flags:
+            print(f"ERROR: -{name} is not ported yet; see ROADMAP Queue A "
+                  "item 17 (graph walks of the step)", file=sys.stderr)
+            return 2
+    strategies = [s for s in ("TMR", "DWC", "EDDI") if flags.get(s)]
+    if len(strategies) > 1:
+        print(f"ERROR: choose one of -TMR/-DWC/-EDDI, got {strategies}",
+              file=sys.stderr)
+        return 2
+    if flags.get("i") and flags.get("s"):
+        print("ERROR: -i and -s are mutually exclusive", file=sys.stderr)
+        return 2
+
+    from coast_tpu_torch.interface.config import ConfigError
+    try:
+        overrides = build_overrides(flags)
+    except UsageError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 2
+    except ConfigError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+    from coast_tpu_torch.models import resolve_region
+    from coast_tpu_torch.passes.strategies import DWC, EDDI, TMR, unprotected
+    from coast_tpu_torch.passes.verification import SoRViolation
+    strategy = strategies[0] if strategies else None
+    try:
+        region = resolve_region(positional[0])
+        if strategy == "TMR":
+            prog = TMR(region, device=device, **overrides)
+        elif strategy == "DWC":
+            prog = DWC(region, device=device, **overrides)
+        elif strategy == "EDDI":
+            EDDI(region)           # raises: deprecated, switch to DWC
+            return 1
+        else:
+            prog = unprotected(region, device=device, **{
+                k: v for k, v in overrides.items()
+                if k not in ("ignore_globals", "xmr_globals")})
+    except SoRViolation as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    except NotImplementedError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+    if flags.get("verbose"):
+        for name in sorted(region.spec):
+            print(f"# leaf {name}: kind={region.spec[name].kind} "
+                  f"replicated={prog.replicated[name]}", file=sys.stderr)
+    fault = None
+    if "inject" in flags:
+        try:
+            fault = _parse_inject(flags["inject"], prog)   # type: ignore
+        except (UsageError, ValueError) as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 2
+    if "printFnName" in flags:
+        print("WARNING: -printFnName has no effect here (profile stats "
+              "print host-side)", file=sys.stderr)
+
+    want_trace = bool(flags.get("DebugStatements")
+                      or (flags.get("SmallProfile")
+                          and not flags.get("noPrint")))
+    want_state = bool(flags.get("ExitMarker"))
+    rec = prog.run(fault, trace=want_trace, return_state=want_state)
+    if want_trace or want_state:
+        from coast_tpu_torch.passes import instrument
+        host = {k: v.cpu().numpy() for k, v in rec.items()
+                if k != "final_state"}
+        if flags.get("DebugStatements"):
+            for line in instrument.format_trace(
+                    prog, host, tuple(flags.get("fnPrintList", ()))):
+                print(line)
+        if flags.get("SmallProfile") and not flags.get("noPrint"):
+            for line in instrument.format_profile_stats(
+                    instrument.profile_counts(prog, host)):
+                print(line)
+        if want_state:
+            digest = instrument.state_digest(
+                {k: v.cpu().numpy() for k, v in rec["final_state"].items()})
+            print("EXIT_MARKER: " + " ".join(
+                f"{k}={v:#010x}" for k, v in digest.items()))
+
+    errors = int(rec["errors"])
+    if bool(rec["stack_fault"]):
+        # The kernel's stack-overflow hook line.
+        print("HALT: stack overflow in task <kernel>", file=sys.stderr)
+        return 134
+    if bool(rec["assert_fault"]):
+        print("ASSERT FAILED: kernel invariant", file=sys.stderr)
+        return 134
+    if bool(rec["dwc_fault"]):
+        print("FAULT_DETECTED_DWC: abort()", file=sys.stderr)
+        return 134                       # SIGABRT convention
+    if bool(rec["cfc_fault"]):
+        print("FAULT_DETECTED_CFC: abort()", file=sys.stderr)
+        return 134
+    if not bool(rec["done"]):
+        print("TIMEOUT: watchdog expired", file=sys.stderr)
+        return 124                       # timeout(1) convention
+    if flags.get("countSyncs"):
+        print(f"__SYNC_COUNT: {int(rec['sync_count'])}")
+    print(f"C: 0 E: {errors} F: {int(rec['corrected'])} "
+          f"T: {int(rec['steps'])}")
+    # Clamp below the 124/134 sentinels: a large error count stays
+    # distinguishable from timeout, abort and success.
+    return min(errors, 100)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,12 @@ call-boundary votes are K1 launches latched like the engine's own.
 ``[B, ...]`` slices instead of once over the ``[B * n]`` rows; its
 records equal the interleaved engine's.
 
+A region's ``stack_guard`` / ``assert_guard`` (the rtos kernel's own
+checks) are evaluated on every lane's stepped, pre-vote state; a trip in
+any lane latches ``stack_fault`` / ``assert_fault`` and halts the row after
+its step commits.  A training region's ``train_probe`` reads the voted
+final view into the record's ``train_probe``.
+
 ``fuse_step=True`` builds the fused engine (``ops/fused_step.py``) when
 every leaf is integer: the latches packed into one word per row, the
 ``done()`` view voted only on the leaves it reads, the freeze only on
@@ -52,7 +58,8 @@ import torch
 
 from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.interop import fault_from_numpy
-from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_RO,
+from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_OPT_STATE,
+                                       KIND_PARAM, KIND_RO, KIND_STACK,
                                        FnNamespace, Region, State, rows)
 from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters, site_table
 from coast_tpu_torch.ops.voters import Site
@@ -63,6 +70,11 @@ Flags = Dict[str, torch.Tensor]
 # The function-scope classes whose wrappers cross lanes: segmented
 # scheduling cannot express their call-boundary sync.
 _CROSS_LANE = ("ignored", "skip_lib", "protected_lib", "clone_after_call")
+# Kinds with memory semantics: store-data sync where the step writes them,
+# single-copy under -noMemReplication.
+_STORE_KINDS = (KIND_MEM, KIND_STACK, KIND_PARAM, KIND_OPT_STATE)
+# The unfused engine's optional terminal latches (CFCSS, the kernel guards).
+_OPTIONAL_FAULTS = ("cfc_fault", "stack_fault", "assert_fault")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +159,8 @@ class ProtectionConfig:
             return False
         if name in self.xmr_globals:
             return True
-        if self.no_mem_replication and region.spec[name].kind in (KIND_MEM,
-                                                                  KIND_RO):
+        if self.no_mem_replication and region.spec[name].kind in (
+                *_STORE_KINDS, KIND_RO):
             return False
         if region.spec[name].kind == KIND_RO:
             return False
@@ -244,9 +256,11 @@ class ProtectedProgram:
                                          and not cfg.no_store_addr_sync)
                                         or not (in_load or in_store))
                 self.pre_sync[name] = in_load and not cfg.no_load_sync
-            elif spec.kind == KIND_MEM:
+            elif spec.kind in _STORE_KINDS:
                 # Store-data sync exists where stores exist: a leaf the
-                # step never writes is not voted per step.
+                # step never writes is not voted per step.  Kernel stacks,
+                # parameters and optimizer state follow the same rule
+                # under their own sync classes.
                 self.step_sync[name] = (not cfg.no_store_data_sync
                                         and name in flow.written)
             else:  # reg: voted only where a sync point uses it
@@ -290,6 +304,8 @@ class ProtectedProgram:
                 "cross-lane call-boundary sync of function scope classes "
                 f"for {sorted(cross_lane)}; use interleaved (-i) scheduling")
         self.leaf_order = [n for n in region.spec if region.spec[n].inject]
+        self._guarded = (region.stack_guard is not None
+                         or region.assert_guard is not None)
         one = {k: v.unsqueeze(0) for k, v in image.items()}
         self.output_words = int(region.output(one).shape[1])
         # The CFCSS runtime, installed by passes.cfcss.apply_cfcss.
@@ -337,15 +353,24 @@ class ProtectedProgram:
         spec = self.region.spec[name]
         if self.cfg.protect_stack and spec.stack:
             return "stack"
-        return "store_data" if spec.kind == KIND_MEM else "ctrl"
+        if spec.kind == KIND_MEM:
+            return "store_data"
+        if spec.kind == KIND_CTRL:
+            return "ctrl"
+        if spec.kind in (KIND_PARAM, KIND_OPT_STATE):
+            return spec.kind
+        return "stack"
 
     def sync_tags(self) -> FrozenSet[Tuple[str, str]]:
         """``(class, leaf)`` of every vote one step makes: the pre-step
         ``load_addr`` votes, the commit votes by :meth:`_sync_class_of`,
         the ``sor_crossing`` votes of shared leaves, the CFCSS check and
-        the ``call_boundary`` votes (by function) -- the reference's
+        the ``call_boundary`` votes (by function) and, on a guarded
+        region, the ``guard`` reads of every leaf -- the reference's
         ``coast:sync:`` tags of its step."""
         tags = set()
+        if self._guarded:
+            tags.update(("guard", name) for name in self.region.spec)
         if self._cfcss_step is not None:
             from coast_tpu_torch.passes.cfcss import G_LEAF
             tags.add(("cfcss", G_LEAF))
@@ -403,6 +428,9 @@ class ProtectedProgram:
                  "done": zeros(torch.bool)}
         if self._cfcss_step is not None:
             flags["cfc_fault"] = zeros(torch.bool)
+        if self._guarded:
+            flags["stack_fault"] = zeros(torch.bool)
+            flags["assert_fault"] = zeros(torch.bool)
         return pstate, flags
 
     # -- lane execution -----------------------------------------------------
@@ -537,14 +565,44 @@ class ProtectedProgram:
 
     # -- one protected step -------------------------------------------------
     def _halted(self, flags: Flags) -> torch.Tensor:
-        """Rows that stopped evolving: completed or aborted (DWC or
-        CFCSS)."""
+        """Rows that stopped evolving: completed, aborted (DWC or CFCSS) or
+        tripped by a kernel guard."""
         if "latch" in flags:
             return flags["latch"] != 0
         halted = flags["done"] | flags["dwc_fault"]
-        if "cfc_fault" in flags:
-            halted = halted | flags["cfc_fault"]
+        for name in _OPTIONAL_FAULTS:
+            if name in flags:
+                halted = halted | flags[name]
         return halted
+
+    def _guard_trips(self, region_state: State, laned: State, batch: int,
+                     halted: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """The kernel guards on every lane's stepped, pre-vote state (the
+        replicated kernel's own checks, which run before any vote repairs
+        what they see): ``(stack trip, assert trip)``, bool ``[B]``, a row
+        tripping when any of its lanes does and it has not halted."""
+        n = self.cfg.num_clones
+        laned_rows = n > 1 and self._any_replicated
+
+        def leaf(name, arr):
+            out = laned.get(name)
+            if out is None:
+                return self.row_view({name: arr}, batch)[name]
+            return out.reshape(batch * n, *out.shape[2:]) if laned_rows \
+                else out
+
+        view = _LazyView(region_state, leaf)
+        trips = []
+        for guard in (self.region.stack_guard, self.region.assert_guard):
+            if guard is None:
+                trips.append(torch.zeros_like(halted))
+                continue
+            hit = guard(view)
+            if laned_rows:
+                hit = hit.view(batch, n).any(dim=1)
+            trips.append(~halted & hit)
+        return trips[0], trips[1]
 
     def _vote_repair(self, lanes: List[torch.Tensor]
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
@@ -614,6 +672,18 @@ class ProtectedProgram:
             pstate = {**pstate, **updates}
 
         laned, call_mis = self._run_lanes(region_state, t, batch)
+        trip_now = None
+        if self._guarded:
+            trip_stack, trip_assert = self._guard_trips(region_state, laned,
+                                                        batch, halted)
+            if plan is not None:
+                flags["latch"] = fused_step.latch_or(fused_step.latch_or(
+                    flags["latch"], fused_step.LATCH_STACK, trip_stack),
+                    fused_step.LATCH_ASSERT, trip_assert)
+            else:
+                flags["stack_fault"] = flags["stack_fault"] | trip_stack
+                flags["assert_fault"] = flags["assert_fault"] | trip_assert
+            trip_now = trip_stack | trip_assert
         if call_mis and n > 1:
             # Call-boundary syncs of the function-scope wrappers: each
             # voted leaf is one sync and one miscompare row.
@@ -726,15 +796,19 @@ class ProtectedProgram:
         # corrupted lane cannot steer control flow.  The fused view votes
         # only the leaves done() reads and takes a fused commit's voted
         # value as it is (a vote of the repaired lanes gives those bits).
+        # A step whose guard tripped commits (the image the hook saw) but
+        # cannot complete.
         commit_halt = halted | fault_now
+        done_gate = ~commit_halt if trip_now is None else ~(commit_halt
+                                                             | trip_now)
         if plan is None:
             done_now = self.region.done(self.voted_view(new_state))
-            flags["done"] = flags["done"] | (~commit_halt & done_now)
+            flags["done"] = flags["done"] | (done_gate & done_now)
         else:
             done_now = self.region.done(self.voted_view(
                 new_state, only=plan.done_leaves, votes=commits))
             flags["latch"] = fused_step.latch_or(
-                flags["latch"], fused_step.LATCH_DONE, ~commit_halt & done_now)
+                flags["latch"], fused_step.LATCH_DONE, done_gate & done_now)
         flags["steps"] = flags["steps"] + (~commit_halt).to(torch.int32)
 
         # The CFCSS runtime leaves, as the entry hook left them.
@@ -906,8 +980,9 @@ class ProtectedProgram:
                 reached_call = flags["latch"] == fused_step.LATCH_DONE_ONLY
             else:
                 reached_call = flags["done"] & ~flags["dwc_fault"]
-                if "cfc_fault" in flags:
-                    reached_call = reached_call & ~flags["cfc_fault"]
+                for name in _OPTIONAL_FAULTS:
+                    if name in flags:
+                        reached_call = reached_call & ~flags[name]
             if n == 2:
                 bad = reached_call & (mis_cnt > 0)
                 if fused:
@@ -934,6 +1009,9 @@ class ProtectedProgram:
             "assert_fault": flags.get("assert_fault", no),
             "output": self.region.output(view),
         }
+        if self.region.train_probe is not None:
+            rec["train_probe"] = self.region.train_probe(view).to(
+                torch.int32)
         if trace:
             rec["trace_block"] = torch.stack(blocks, dim=1)
             rec["trace_live"] = torch.stack(lives, dim=1)

@@ -25,6 +25,7 @@ from coast_tpu_torch.inject.schedule import generate
 from coast_tpu_torch.models import REGISTRY
 from coast_tpu_torch.native import cfcss_assign
 from coast_tpu_torch.passes.cfcss import G_LEAF, PREV_LEAF, apply_cfcss
+from test_torch_cfcss_graphs import GRAPH_NAMES
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,7 @@ def _assert_tables_equal(got, want):
 
 
 @pytest.mark.parametrize("seed", [0, 7])
-@pytest.mark.parametrize("name", sorted(REGISTRY))
+@pytest.mark.parametrize("name", GRAPH_NAMES)
 def test_assignment_equals_reference(name, seed):
     from coast_tpu.native import cfcss_assign as jassign
     graph = REGISTRY[name]().graph

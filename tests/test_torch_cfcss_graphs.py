@@ -17,6 +17,10 @@ from coast_tpu_torch.ops.fused_step import _ReadRecorder
 
 torch.set_num_threads(1)
 
+# Every region with a block graph: the training regions have none, in the
+# reference too (tests/test_torch_train.py holds that).
+GRAPH_NAMES = sorted(set(REGISTRY) - {"train_mlp", "train_mlp_adam"})
+
 
 def _states(region):
     """The leaves ``block_of`` reads, on every state of the fault-free
@@ -47,7 +51,7 @@ def _flipped(state, bits=(0, 1, 5, 16, 30, 31)):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(REGISTRY))
+@pytest.mark.parametrize("name", GRAPH_NAMES)
 def test_graph_and_block_of_equal_reference(name):
     import jax
     import jax.numpy as jnp

@@ -80,7 +80,7 @@ def test_stack_leaves_are_the_frame_stack(ref):
         == STACK_LEAVES
     assert {n: s.stack for n, s in region.spec.items()} == {
         n: s.stack for n, s in ref.region(NAME).spec.items()}
-    # A field on any ported kind; KIND_STACK itself waits for item 15.
+    # A field on any kind, apart from the rtos kernel's KIND_STACK.
     assert ct.LeafSpec(ct.KIND_REG, stack=True).stack
     assert ct.ProtectionConfig(protect_stack=True).protect_stack
 

@@ -145,11 +145,11 @@ def test_registry_names_match_reference():
                              *JCHSTONE, "towersOfHanoi", "crazyCF",
                              "whetstone", "simd", "scalarize", "cache_test",
                              "schedule2", "trivial", "helloWorld",
-                             "simpleTMR", "nestedCalls", "rtos_app"}
-    assert len(REGISTRY) == 31
-    assert UNPORTED == {"train_mlp": "item 14", "train_mlp_adam": "item 14",
-                        "rtos_mm": "item 15", "rtos_kUser": "item 15",
-                        "stencil": "item 16"}
+                             "simpleTMR", "nestedCalls", "rtos_app",
+                             "rtos_mm", "rtos_kUser", "train_mlp",
+                             "train_mlp_adam"}
+    assert len(REGISTRY) == 35
+    assert UNPORTED == {"stencil": "item 16"}
     assert CHSTONE == JCHSTONE
     assert set(REGISTRY) | set(UNPORTED) == set(JREGISTRY)
     assert not set(REGISTRY) & set(UNPORTED)
@@ -212,8 +212,11 @@ def test_scope_lists_verified_like_reference():
 
 
 def test_unported_features_refuse_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ct.LeafSpec(kind="stack")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ct.LeafSpec(kind="link")
+    # Items 15 and 14 landed: the kernel stacks, the training kinds.
+    for kind in ("stack", "param", "opt_state"):
+        assert ct.LeafSpec(kind=kind).kind == kind
     assert ct.ProtectionConfig(fuse_step=True).fuse_step    # item 11 landed
     # -protectStack landed with towersOfHanoi's LeafSpec.stack frames.
     assert ct.ProtectionConfig(protect_stack=True).protect_stack
@@ -227,11 +230,11 @@ def test_unported_features_refuse_with_roadmap_item():
             is value
     region = mm.make_region()
     assert ct.TMR(region, device="cpu", segmented=True).cfg.segmented
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ct.Region(**{**{k: getattr(region, k) for k in (
-            "name", "init", "step", "done", "check", "output",
-            "nominal_steps", "max_steps", "spec")},
-            "train_probe": lambda s: s})
+    probed = ct.Region(**{**{k: getattr(region, k) for k in (
+        "name", "init", "step", "done", "check", "output",
+        "nominal_steps", "max_steps", "spec", "meta")},
+        "train_probe": lambda s: s["i"]})
+    assert "train_probe" in ct.TMR(probed, device="cpu").run()
     with pytest.raises(NotImplementedError, match="DWC"):
         ct.EDDI(region, device="cpu")
     # Item 10 landed: a flip group (vector fault entries) runs.

@@ -209,9 +209,7 @@ UNPORTED = [
     (["--slo", "sdc<0.1"], "item 19"),
     (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
-    (["-f", "rtos_mm"], "item 15"),
-    (["-f", "rtos_kUser"], "item 15"),
-    (["-f", "train_mlp"], "item 14"),
+    (["-f", "stencil"], "item 16"),
     (["-f", "prog.c"], "item 17"),
 ]
 
