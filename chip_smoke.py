@@ -148,6 +148,22 @@ Phases, in order; any failure exits non-zero:
      rows against the CPU); unprotected
      with train_self_heal and train_sdc rows and no raw sdc, selective
      with corrected rows and fewer train_sdc;
+ 25. the sharded backend on the stencil (run before phase 18): fault-free
+     rows clean under TMR and DWC in both voter placements, unfused and
+     fused; ``run_distributed`` over a one-device mesh and a two-shard
+     mesh on cuda:0 equal to ``golden_trajectory``; the reference's
+     recorded study (``artifacts/stencil_campaign.json``, read as data:
+     TMR, 128 rows, seed 7, both placements x single, cluster, link) with
+     equal counts, blast radii, two-shard ledgers and containment block;
+     65,536 injections at batch 4096, both placements, single and link
+     faults, on the single-device runner (unfused and fused, K1/K2
+     launches a trip from a CPU twin), a one-device mesh and the
+     two-shard mesh, dense and sparse, and ``run_histogram``: equal codes
+     and counts everywhere, 256 rows against the CPU; the supervisor CLI
+     with ``--mesh 1 -f stencil --placement link --fault-model link -s
+     interconnect`` against the runner (``--mesh 2`` exits 1 on a one-card
+     machine); a one-rank nccl worker (``python -m
+     coast_tpu_torch.parallel.multihost``) against ``run_histogram``;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -157,7 +173,8 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-24, K2 those of phases 7b, 9-12, 14-17 and 19-23 (each
+9-12, 14-17 and 19-25, K2 those of phases 7b, 9-12, 14-17, 19-23 and 25
+(each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
 coast_tpu package.
@@ -2241,6 +2258,252 @@ def train_regions(board: str, card: str, torch, DWC, TMR, unprotected,
     return tuple(launches)
 
 
+# Phase 25: the sharded stencil.  Both voter placements, the single-site
+# and the link fault models.
+STENCIL_MODELS = ("single", "link")
+# Runs the multi-process worker as ``python -m
+# coast_tpu_torch.parallel.multihost`` does, reporting its launches at exit.
+WORKER = SUPERVISOR.replace("coast_tpu_torch.inject.supervisor",
+                            "coast_tpu_torch.parallel.multihost")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
+                    CampaignRunner, hv, hc, fs, n: int = 65536,
+                    batch: int = 4096, cpu_rows: int = 256) -> tuple:
+    """Phase 25: the sharded backend on the stencil.  (a) fault-free rows
+    clean under TMR and DWC, both placements, unfused and fused;
+    ``run_distributed`` over a one-device mesh and a two-shard mesh on
+    cuda:0 equal to ``golden_trajectory``.  (b) the recorded study
+    (``artifacts/stencil_campaign.json``, read as data) on the card: its
+    counts, SDC sections, blast radii, two-shard ledgers and containment
+    block.  (c) ``n`` injections at ``batch``, both placements, single and
+    link models: the single-device runner unfused and fused, a one-device
+    mesh and a two-shard mesh on cuda:0, dense and sparse, and
+    ``run_histogram`` on both meshes, all with equal codes and counts; K1
+    and K2 launched their per-trip counts (a CPU twin); the first
+    ``cpu_rows`` rows equal the CPU's.  (d) the supervisor CLI with
+    ``--mesh 1 -f stencil --placement link --fault-model link -s
+    interconnect``: the runner's summary with its mesh block; ``--mesh 2``
+    exits 1 on a one-card machine.  (e) a one-rank nccl worker prints the
+    one-device mesh's ``run_histogram`` counts.  Returns the (K1, K2)
+    launches."""
+    from coast_tpu_torch.inject import classify as cls
+    from coast_tpu_torch.inject.schedule import FaultModel
+    from coast_tpu_torch.inject.supervisor import section_filter
+    from coast_tpu_torch.models import stencil
+    from coast_tpu_torch.parallel.mesh import Mesh, make_mesh
+    device = "cpu" if board == "cpu" else "cuda"
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    one = make_mesh(1, device=device)
+    two = Mesh([torch.device(device, 0) if device == "cuda"
+                else torch.device("cpu")] * 2)
+
+    # (a) Fault-free rows and the distributed executor.
+    for placement in stencil.PLACEMENTS:
+        for strat in (TMR, DWC):
+            for fused in (False, True):
+                prog = strat(stencil.make_region(placement), device=device,
+                             fuse_step=fused)
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                rec = prog.run_batch(batch=batch)
+                launches[0] += hv.LAUNCHES
+                launches[1] += hc.LAUNCHES
+                codes = cls.classify(rec, prog.output_words)
+                if not ((codes == cls.SUCCESS).all()
+                        and (rec["steps"] == prog.region.nominal_steps).all()
+                        and not rec["dwc_fault"].any()
+                        and not rec["corrected"].any()):
+                    fail(f"stencil[{placement}] {strat.__name__} "
+                         f"fused={fused}: a fault-free row is not clean")
+    golden = stencil.golden_trajectory()
+    for mesh in (one, two):
+        if not np.array_equal(stencil.run_distributed(mesh=mesh), golden):
+            fail(f"run_distributed over {mesh} differs from the golden")
+    log(f"phase 25: fault-free stencil rows clean (TMR, DWC, both "
+        f"placements, unfused and fused, {batch} rows each); "
+        f"run_distributed over {one} and {two} = golden_trajectory [{card}]")
+
+    # (b) The recorded containment study.
+    with open(ROOT / "artifacts" / "stencil_campaign.json") as fh:
+        art = json.load(fh)
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    doc = stencil.containment_study(device=device, mesh=two, n=art["n"],
+                                    seed=art["seed"])
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    if not doc["ok"] or doc["containment"] != art["containment"]:
+        fail(f"stencil study: {doc['failures']}, containment "
+             f"{doc['containment']} vs recorded {art['containment']}")
+    for placement, pl in art["placements"].items():
+        for spec, cell in pl["cells"].items():
+            got = doc["placements"][placement]["cells"][spec]
+            for key in ("counts", "sdc", "sdc_by_section", "blast_radius",
+                        "sharded_parity", "mesh"):
+                if got[key] != cell[key]:
+                    fail(f"stencil study {placement}/{spec}: {key} "
+                         f"{got[key]} vs recorded {cell[key]}")
+    log(f"phase 25: the recorded stencil study on the card: every cell's "
+        f"counts, blast radius and two-shard ledger, containment "
+        f"{doc['containment']} [{card}]")
+
+    # (c) 65,536 injections, every runner form.
+    rates = {}
+    for placement in stencil.PLACEMENTS:
+        region = stencil.make_region(placement)
+        for spec in STENCIL_MODELS:
+            model = FaultModel.parse(spec)
+            label = f"stencil[{placement}] TMR {spec}"
+            results = {}
+            for fused in (False, True):
+                prog = TMR(region, device=device, fuse_step=fused)
+                trip, boundary, ops = sync_launches(prog, hv, fs)
+                trips = count_trips(prog)
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                res = CampaignRunner(prog, strategy_name="TMR",
+                                     fault_model=model).run(
+                    n, seed=1, batch_size=batch)
+                got = (hv.LAUNCHES, hc.LAUNCHES)
+                want = (trip[0] * trips[0] + boundary * (n // batch),
+                        trip[1] * trips[0])
+                if got != want:
+                    fail(f"{label} fused={fused}: K1/K2 launches {got}, not "
+                         f"{want} ({trips[0]} trips of {trip}, boundary "
+                         f"{boundary})")
+                launches[0] += got[0]
+                launches[1] += got[1]
+                results[f"single fused={fused}"] = res
+                rates[f"{label}{' fused' if fused else ''}"] = (
+                    res.injections_per_sec, res.seconds)
+                log(f"{label}{' fused' if fused else ''}: {res.counts} "
+                    f"{res.injections_per_sec:.1f} inj/s ({res.seconds:.2f}"
+                    f" s), {trips[0]} trips of {ops} torch ops, K1 {got[0]} "
+                    f"({trip[0]} a trip + {boundary} boundary), K2 {got[1]} "
+                    f"({trip[1]} a trip) [{card}]")
+            base = results["single fused=False"]
+            why = records_differ(base, results["single fused=True"])
+            if why:
+                fail(f"{label}: fused and unfused records differ: {why}")
+            for mesh_name, mesh in (("one-device mesh", one),
+                                    ("two-shard mesh", two)):
+                for collect in ("dense", "sparse"):
+                    hv.LAUNCHES = hc.LAUNCHES = 0
+                    res = CampaignRunner(prog, mesh=mesh, strategy_name="TMR",
+                                         fault_model=model,
+                                         collect=collect).run(
+                        n, seed=1, batch_size=batch)
+                    launches[0] += hv.LAUNCHES
+                    launches[1] += hc.LAUNCHES
+                    why = records_differ(base, res)
+                    block = res.summary()["mesh"]
+                    if why or sum(block["per_shard_interesting"]) != int(
+                            np.sum(base.codes > cls.CORRECTED)):
+                        fail(f"{label} {mesh_name} {collect}: {why or block}")
+                    rates[f"{label} fused {mesh_name} {collect}"] = (
+                        res.injections_per_sec, res.seconds)
+                    log(f"{label} fused, {mesh_name} {collect} = single "
+                        f"device: {res.injections_per_sec:.1f} inj/s "
+                        f"({res.seconds:.2f} s), ledger "
+                        f"{block['per_shard_interesting']}, K1 {hv.LAUNCHES} "
+                        f"K2 {hc.LAUNCHES} [{card}]")
+                runner = CampaignRunner(prog, mesh=mesh, fault_model=model)
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                t0 = time.perf_counter()
+                hist = runner.run_histogram(n, seed=1, batch_size=batch)
+                wall = time.perf_counter() - t0
+                launches[0] += hv.LAUNCHES
+                launches[1] += hc.LAUNCHES
+                if hist != base.counts:
+                    fail(f"{label} {mesh_name} run_histogram {hist} vs "
+                         f"{base.counts}")
+                rates[f"{label} fused {mesh_name} run_histogram"] = (
+                    n / wall, wall)
+                log(f"{label} fused, {mesh_name} run_histogram = counts: "
+                    f"{n / wall:.1f} inj/s ({wall:.2f} s) [{card}]")
+            sub = base.schedule.slice(0, cpu_rows)
+            cpu = CampaignRunner(TMR(region, device="cpu")).run_schedule(
+                sub, batch_size=cpu_rows)
+            for col in COLUMNS:
+                if not np.array_equal(getattr(base, col)[:cpu_rows],
+                                      getattr(cpu, col)):
+                    fail(f"{label}: {col} differs between card and CPU")
+            log(f"{label}: the first {cpu_rows} rows equal the CPU's")
+
+    # (d) The supervisor CLI with --mesh and --placement.
+    argv = ["-f", "stencil", "--placement", "link", "--fault-model", "link",
+            "-s", "interconnect", "-t", str(n), "--batch-size", str(batch),
+            "-q"]
+    prog = TMR(stencil.make_region("link"), device=device)
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    want = CampaignRunner(prog, sections=section_filter(prog, "interconnect"),
+                          strategy_name="TMR", mesh=one,
+                          fault_model=FaultModel.link()).run(
+        n, seed=0, batch_size=batch).summary()
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    t0 = time.perf_counter()
+    cli = run_cli([*argv, "--mesh", "1"], board, "stencil --mesh 1 CLI")
+    wall = time.perf_counter() - t0
+    launches[0] += cli["k1"]
+    launches[1] += cli["k2"]
+    if steady(cli["summary"]) != steady(want) or "mesh" not in want:
+        fail(f"stencil --mesh 1 CLI: {steady(cli['summary'])} vs the "
+             f"runner's {steady(want)}")
+    log(f"stencil --placement link --fault-model link -s interconnect "
+        f"--mesh 1 through the supervisor CLI: the runner's summary "
+        f"(mesh {want['mesh']}), {cli['summary']['injections_per_sec']:.1f}"
+        f" inj/s in run, {wall:.2f} s process wall, K1 {cli['k1']} K2 "
+        f"{cli['k2']} [{card}]")
+    if board == "gpu" and torch.cuda.device_count() < 2:
+        cli = run_cli([*argv, "--mesh", "2"], board, "stencil --mesh 2 CLI",
+                      expect_ok=False)
+        if cli["rc"] != 1 or "wants more devices" not in cli["err"]:
+            fail(f"--mesh 2 on a one-card machine exited {cli['rc']}: "
+                 f"{cli['err'][-500:]}")
+        why = next(ln for ln in cli["err"].splitlines()
+                   if "wants more devices" in ln)
+        log(f"--mesh 2 on a one-card machine exits 1: {why}")
+
+    # (e) A one-rank nccl worker.
+    if board == "gpu":
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        want = CampaignRunner(TMR(stencil.make_region(), device=device),
+                              mesh=one).run_histogram(n, seed=21,
+                                                      batch_size=1024)
+        launches[0] += hv.LAUNCHES
+        launches[1] += hc.LAUNCHES
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", WORKER, "stencil", "--coordinator",
+             f"127.0.0.1:{free_port()}", "--num-processes", "1",
+             "--process-id", "0", "-e", str(n), "--seed", "21"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        worker = finish_cli(proc, "the one-rank nccl worker", timeout=300)
+        wall = time.perf_counter() - t0
+        launches[0] += worker["k1"]
+        launches[1] += worker["k2"]
+        line = next((ln for ln in worker["out"].splitlines()
+                     if "counts=" in ln), "")
+        if (not line.startswith("[proc 0/1] devices=1 ")
+                or line.split("counts=", 1)[1] != str(want)):
+            fail(f"the nccl worker printed {line!r}, want counts {want}")
+        log(f"one-rank nccl worker: {line}, = run_histogram; {wall:.2f} s "
+            f"process wall, K1 {worker['k1']} K2 {worker['k2']} [{card}]")
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log(json.dumps({"phase25_inj_per_s": {
+        k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
+        "card": card}))
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -2431,6 +2694,9 @@ def main() -> None:
     new_launches.append(train_regions(
         "gpu", card, torch, DWC, TMR, unprotected, REGISTRY, CampaignRunner,
         hv, hc, fs))
+    # 25. The sharded backend on the stencil.
+    new_launches.append(sharded_stencil(
+        work, "gpu", card, torch, TMR, DWC, CampaignRunner, hv, hc, fs))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)

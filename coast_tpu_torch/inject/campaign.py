@@ -78,7 +78,6 @@ SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 # Runner features of the reference that later slices port, with the ROADMAP
 # Queue A item that brings each.
 _LATER_RUNNER = {
-    "mesh": "item 16 (the sharded backend)",
     "equiv": "item 17 (equivalence reduction)",
     "metrics": "item 18 (live metrics)",
     "profile": "item 18 (the campaign profiler)",
@@ -124,6 +123,10 @@ class CampaignResult:
     interesting_rows: Optional[np.ndarray] = None
     # Host<->device bytes, {"up", "down"}.
     transfer: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # The sharded runner's accounting (parallel/mesh.py): the mesh geometry
+    # and the interesting rows each shard produced.  None on the
+    # single-device runner, whose summary then has no "mesh" key.
+    mesh: Optional[Dict[str, object]] = None
 
     @property
     def injections_per_sec(self) -> float:
@@ -176,6 +179,8 @@ class CampaignResult:
             out["fault_sites"] = self.fault_model.sites
         if self.convergence is not None:
             out["convergence"] = dict(self.convergence)
+        if self.mesh is not None:
+            out["mesh"] = dict(self.mesh)
         if self.chunks is not None:
             out["chunks"] = self.chunks
         if self.resilience:
@@ -324,9 +329,28 @@ def _rows_subset(sched: FaultSchedule, rows: np.ndarray) -> FaultSchedule:
         seed=sched.seed, model=sched.model)
 
 
+def run_classified(prog, fault) -> Dict[str, torch.Tensor]:
+    """``prog.run_batch(fault)`` with its rows classified on the program's
+    device: the four result columns, int32, still on the device."""
+    rec = prog.run_batch(fault)
+    out = {k: rec[k].to(torch.int32) for k in _COLUMNS[1:]}
+    out["code"] = cls.classify(rec, prog.output_words)
+    return out
+
+
 class CampaignRunner:
     """Runs seeded bit-flip campaigns against one protected program, on the
     program's device."""
+
+    def __new__(cls, prog, *args, **kw):
+        # ``mesh=`` promotes the runner to the sharded backend
+        # (coast_tpu_torch.parallel.mesh.ShardedCampaignRunner), as the
+        # reference's constructor does; Python then runs the subclass's
+        # __init__.
+        if cls is CampaignRunner and kw.get("mesh") is not None:
+            from coast_tpu_torch.parallel.mesh import ShardedCampaignRunner
+            return object.__new__(ShardedCampaignRunner)
+        return object.__new__(cls)
 
     def __init__(self, prog, sections: Optional[Sequence[str]] = None,
                  strategy_name: Optional[str] = None, device=None,
@@ -334,7 +358,7 @@ class CampaignRunner:
                  collect: str = "dense",
                  sparse_capacity: Optional[int] = None,
                  retry: Optional[resilience_mod.RetryPolicy] = None,
-                 **later):
+                 mesh=None, **later):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
@@ -348,8 +372,19 @@ class CampaignRunner:
         error included, is re-raised.  None keeps every failure fatal.
         The retry loop never moves a batch off the program's device.
 
-        The reference's ``mesh``, ``equiv``, ``metrics``, ``profile`` and
-        ``slo`` raise ``NotImplementedError`` naming their ROADMAP item."""
+        ``mesh`` (a :class:`coast_tpu_torch.parallel.mesh.Mesh`) selects
+        the sharded backend: ``CampaignRunner(prog, mesh=make_mesh(2))``
+        builds a ``ShardedCampaignRunner``.  A bare ``link`` fault model
+        takes the region's ``meta["link_window"]`` (its in-flight steps).
+
+        The reference's ``equiv``, ``metrics``, ``profile`` and ``slo``
+        raise ``NotImplementedError`` naming their ROADMAP item."""
+        if mesh is not None:
+            raise TypeError(
+                "mesh= reached the base CampaignRunner constructor; pass "
+                "it as a keyword to CampaignRunner(prog, mesh=...) or use "
+                "coast_tpu_torch.parallel.mesh.ShardedCampaignRunner "
+                "directly")
         for key, value in later.items():
             if key not in _LATER_RUNNER:
                 raise TypeError(
@@ -376,6 +411,18 @@ class CampaignRunner:
         self.strategy_name = strategy_name or f"N={prog.cfg.num_clones}"
         self.fault_model = (fault_model if fault_model is not None
                             else FaultModel())
+        meta = prog.region.meta or {}
+        # The voter placement of a sharded region: campaign identity,
+        # journaled absent-means-compute.
+        self.placement = str(meta.get("placement", "compute"))
+        if (self.fault_model.kind == "link" and self.fault_model.t_period == 0
+                and self.fault_model.t_offset == 0
+                and meta.get("link_window")):
+            # A bare "link" model on a region that declares its in-flight
+            # window flips only at the steps the halo words are on the wire.
+            off, per = meta["link_window"]
+            self.fault_model = FaultModel.link(offset=int(off),
+                                               period=int(per))
         self.collect = collect
         self._sparse_capacity = (int(sparse_capacity) if sparse_capacity
                                  else None)
@@ -394,13 +441,27 @@ class CampaignRunner:
                  for k, v in part.device_arrays().items()}
         return fault, n_part
 
+    # -- hooks of the sharded backend (parallel/mesh.py) ---------------------
+    def _round_batch(self, batch_size: int) -> int:
+        """The batch size a campaign runs at (at least one row)."""
+        return max(1, batch_size)
+
+    def _ledger_reset(self) -> None:
+        """Start a campaign's per-shard ledger (none here)."""
+
+    def _ledger_dense(self, out: Dict[str, np.ndarray],
+                      batch_size: int) -> None:
+        """Attribute a dense batch's interesting rows to shards (none
+        here)."""
+
+    def _mesh_block(self) -> Optional[Dict[str, object]]:
+        """The result's ``mesh`` block; None on the single-device runner."""
+        return None
+
     def _dispatch(self, fault) -> Dict[str, torch.Tensor]:
         """Run one batch and classify its rows on the device: the result
         columns, still on the device."""
-        rec = self.prog.run_batch(fault)
-        out = {k: rec[k].to(torch.int32) for k in _COLUMNS[1:]}
-        out["code"] = cls.classify(rec, self.prog.output_words)
-        return out
+        return run_classified(self.prog, fault)
 
     @staticmethod
     def _collect(pending: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -559,12 +620,12 @@ class CampaignRunner:
                 f"{self.collect!r}; rerun with the original --collect (or "
                 "a fresh journal)")
         header_place = header_placement(journal.header)
-        if header_place != "compute":
+        if header_place != self.placement:
             raise PlacementMismatchError(
                 f"journal {journal.path!r} records voter placement "
                 f"{header_place!r} but this runner's region is built "
-                "'compute'; rerun with the original --placement (or a "
-                "fresh journal)")
+                f"{self.placement!r}; rerun with the original --placement "
+                "(or a fresh journal)")
         header_fused = header_fuse(journal.header)
         runner_fused = bool(self.prog.cfg.fuse_step)
         if header_fused != runner_fused:
@@ -602,7 +663,8 @@ class CampaignRunner:
         at or below its threshold; the result then covers the rows that
         ran, and a journal gets the terminal ``early_stop`` record.
         ``self.retry`` governs failures (see ``__init__``)."""
-        batch_size = max(1, batch_size)
+        batch_size = self._round_batch(batch_size)
+        self._ledger_reset()
         if journal is not None:
             self._check_identity(journal, sched, stop_when)
         retry = self.retry
@@ -788,6 +850,7 @@ class CampaignRunner:
                                        _rows_subset(sched, out["rows"]), out)
             else:
                 out = {k: v[:n_part] for k, v in got.items()}
+                self._ledger_dense(out, batch_size)
                 counts = account(out, done)
                 done += n_part
                 if journal is not None:
@@ -821,6 +884,9 @@ class CampaignRunner:
                 new_bs = retry.degraded_batch(batch_size)
                 if new_bs is None:
                     raise cause
+                new_bs = self._round_batch(new_bs)
+                if new_bs >= batch_size:
+                    raise cause     # the shard count's floor is reached
                 resilience["oom_degrade"] += 1
                 batch_size = new_bs
                 if state is not None:
@@ -871,7 +937,8 @@ class CampaignRunner:
             corrected=merged["corrected"], steps=merged["steps"],
             schedule=sched, seed=sched.seed, stages=stages,
             resilience=resilience, collect=self.collect,
-            interesting_rows=interesting_rows, transfer=transfer)
+            interesting_rows=interesting_rows, transfer=transfer,
+            mesh=self._mesh_block())
         if tracker is not None:
             res.convergence = tracker.report(stopped, planned_n=planned_n,
                                              done_n=len(sched))
@@ -887,7 +954,7 @@ class CampaignRunner:
             fault_model=self.fault_model.spec(),
             stop_when=(stop_when.spec() if stop_when is not None
                        else None),
-            collect=self.collect)
+            collect=self.collect, placement=self.placement)
 
     def _journal_header(self, mode: str, **fields) -> Dict[str, object]:
         """The identity block every journal header shares, in the
@@ -900,6 +967,10 @@ class CampaignRunner:
             header["fault_model"] = self.fault_model.spec()
         if self.collect != "dense":
             header["collect"] = self.collect
+        if self.placement != "compute":
+            # Absent-means-compute: journals of the registry build carry no
+            # placement key.
+            header["placement"] = self.placement
         if self.prog.cfg.fuse_step:
             header["fuse"] = True
         header.update(fields)

@@ -16,10 +16,14 @@ error) unless ``-d cpu`` asks for the host.  A ``--journal`` campaign killed
 at any point resumes with ``--resume`` at its first missing batch and gives
 the uninterrupted run's codes, counts and log lines.
 
+``--mesh N`` splits the campaign batch over N shards
+(``parallel/mesh.py``: the first N cards, or N logical shards of the host
+with ``-d cpu``), and ``--placement link`` builds the exchange-then-vote
+stencil (``models/stencil.py``).
+
 Flags whose subsystem the port does not have yet are refused with exit code
 2 and the ROADMAP Queue A item that brings them: ``--equiv``,
-``--delta-from``, ``--static-budget`` (item 17); ``--mesh`` and a
-``--placement`` other than ``compute`` (item 16); ``--metrics-port``,
+``--delta-from``, ``--static-budget`` (item 17); ``--metrics-port``,
 ``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
 ``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll`` other than 1
 is refused too: it tunes the reference's compiled scan, which has no
@@ -68,10 +72,6 @@ _UNPORTED_FLAGS = (
      "(delta campaigns)"),
     ("--static-budget", lambda a: a.static_budget, "ROADMAP Queue A item "
      "17 (the static propagation map)"),
-    ("--mesh", lambda a: a.mesh, "ROADMAP Queue A item 16 (the sharded "
-     "backend)"),
-    ("--placement", lambda a: a.placement != "compute", "ROADMAP Queue A "
-     "items 12 and 16 (the sharded stencil)"),
     ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
      "Queue A item 18 (live metrics)"),
     ("--status-json", lambda a: a.status_json, "ROADMAP Queue A item 18 "
@@ -137,12 +137,25 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         metavar="SPEC",
                         help="what one injection IS: 'single' (default), "
                         "'multibit(k=K)', 'cluster(span=S,k=K)', "
-                        "'burst(window=W,rate=R)' or 'link' (colon form "
-                        "works too: multibit:k=3).  Recorded in the log "
-                        "summary and the journal header; resume under a "
-                        "different model is refused with a typed error")
+                        "'burst(window=W,rate=R)' or 'link' / "
+                        "'link(offset=O,period=P)' (one bit in the "
+                        "in-flight interconnect buffers of a sharded "
+                        "region; bare 'link' takes the region's own "
+                        "window).  Colon form works too (multibit:k=3).  "
+                        "Recorded in the log summary and the journal "
+                        "header; resume under a different model is "
+                        "refused with a typed error")
     parser.add_argument("--placement", type=str, default="compute",
-                        choices=["compute", "link"], help=argparse.SUPPRESS)
+                        choices=["compute", "link"],
+                        help="voter placement of a sharded halo-exchange "
+                        "benchmark (stencil): 'compute' votes before the "
+                        "exchange (a compute flip stays in its shard; a "
+                        "flip on the link is the blind spot), 'link' "
+                        "votes after it (the receiver's majority repairs "
+                        "a link flip; the pack is a single point of "
+                        "failure).  Campaign identity: it joins the "
+                        "journal header, and resume under the other "
+                        "placement is refused with a typed error")
     parser.add_argument("--equiv", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("--delta-from", type=str, default=None,
@@ -168,8 +181,11 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         help="serialize the log in a background thread as "
                         "each batch is collected (the one-shot writer's "
                         "bytes); ndjson/columnar/reference formats")
-    parser.add_argument("--mesh", type=int, default=None,
-                        help=argparse.SUPPRESS)
+    parser.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="split the campaign batch over N shards (the "
+                        "first N cards; N logical shards of the host with "
+                        "-d cpu): codes and counts equal the single-device "
+                        "run's at the same seed")
     parser.add_argument("--journal", type=str, default=None,
                         help="append-only campaign journal: every "
                         "collected batch (or chunk, with -e) is fsync'd "
@@ -335,18 +351,31 @@ def parse_command_line(argv: Optional[List[str]] = None):
     return args
 
 
-def build_program(bench: str, opt_passes: str, device: str):
+def build_program(bench: str, opt_passes: str, device: str,
+                  placement: str = "compute"):
     """Build the protected program from an opt-CLI flag string, with the
-    opt parser's own flag semantics.  A benchmark or flag the port does
-    not have yet exits 2 with its ROADMAP item."""
+    opt parser's own flag semantics.  ``placement`` other than
+    ``compute`` goes to the benchmark's factory, and a benchmark without
+    the knob is refused.  A benchmark or flag the port does not have yet
+    exits 2 with its ROADMAP item."""
     from coast_tpu_torch.interface.config import ConfigError
     from coast_tpu_torch.models import resolve_region
     from coast_tpu_torch.opt import UsageError, build_overrides, parse_argv
     from coast_tpu_torch.passes.strategies import DWC, TMR, unprotected
     try:
-        region = resolve_region(bench)
+        # Only the sharded halo-exchange benchmark takes the knob: passing
+        # the default to every factory would hide "no such knob".
+        if placement != "compute":
+            region = resolve_region(bench, placement=placement)
+        else:
+            region = resolve_region(bench)
     except KeyError:
         print(f"Error, file {bench} does not exist!", file=sys.stderr)
+        sys.exit(-1)
+    except TypeError:
+        print(f"Error, benchmark {bench} has no --placement knob (voter "
+              "placement applies to sharded halo-exchange regions, e.g. "
+              "stencil)", file=sys.stderr)
         sys.exit(-1)
     except NotImplementedError as e:
         print(f"Error, {e}", file=sys.stderr)
@@ -403,17 +432,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                   generate_cache_schedule)
 
     device = "cpu" if args.board == "cpu" else "cuda"
-    prog, strategy = build_program(args.filename, args.opt_passes, device)
+    prog, strategy = build_program(args.filename, args.opt_passes, device,
+                                   placement=args.placement)
     retry = None
     if args.max_retries > 0 or args.collect_timeout:
         from coast_tpu_torch.inject.resilience import RetryPolicy
         retry = RetryPolicy(max_attempts=max(1, args.max_retries) + 1,
                             collect_timeout=args.collect_timeout)
+    mesh = None
+    if args.mesh:
+        from coast_tpu_torch.parallel.mesh import make_mesh
+        if device == "cuda":
+            import torch
+            count = torch.cuda.device_count()
+            if args.mesh > count:
+                print(f"Error, --mesh {args.mesh} wants more devices than "
+                      f"the backend exposes ({count})", file=sys.stderr)
+                return 1
+        mesh = make_mesh(args.mesh, device=device)
     try:
         runner = CampaignRunner(prog,
                                 sections=section_filter(prog, args.section),
                                 strategy_name=strategy,
-                                retry=retry,
+                                retry=retry, mesh=mesh,
                                 fault_model=args.fault_model_parsed,
                                 collect=args.collect)
     except ValueError:

@@ -58,14 +58,14 @@ KIND_STACK = "stack"
 # semantics under their own sync classes.
 KIND_PARAM = "param"
 KIND_OPT_STATE = "opt_state"
+# Sharded regions (models/stencil.py): the in-flight halo buffer of a
+# cross-shard exchange, the words on the link between a send and its
+# receive.  Memory semantics for the engine (a shared leaf); its own kind
+# so the ``link`` fault model targets exactly the interconnect.
 KIND_LINK = "link"
 
 _PORTED_KINDS = (KIND_MEM, KIND_REG, KIND_CTRL, KIND_RO, KIND_STACK,
-                 KIND_PARAM, KIND_OPT_STATE)
-# Kinds of the reference that later slices bring over (ROADMAP Queue A).
-_LATER_KINDS = {
-    KIND_LINK: "Queue A item 16 (the sharded backend)",
-}
+                 KIND_PARAM, KIND_OPT_STATE, KIND_LINK)
 WORD_DTYPES = (torch.int32, torch.float32)
 
 
@@ -80,7 +80,11 @@ class LeafSpec:
     the per-kind sync flags say, and the supervisor's ``-s stack`` picks
     it.  ``canary_word`` (``KIND_STACK`` leaves only) is the flat word
     index, within a lane, of the canary word guarding the stack: metadata,
-    the region's ``stack_guard`` owns the check."""
+    the region's ``stack_guard`` owns the check.  ``unvoted_crossing``
+    (shared leaves only) declares that the engine's SoR-crossing vote is
+    left out on this leaf: the region carries per-replica copies through
+    it and votes them itself on the receive side, so the engine commits
+    lane 0's value raw.  On a replicated leaf it is a build error."""
 
     kind: str = KIND_MEM
     xmr: Optional[bool] = None
@@ -88,13 +92,10 @@ class LeafSpec:
     no_verify: bool = False
     unsigned: bool = False
     stack: bool = False
+    unvoted_crossing: bool = False
     canary_word: Optional[int] = None
 
     def __post_init__(self):
-        if self.kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"leaf kind {self.kind!r} is not ported yet; see ROADMAP "
-                f"{_LATER_KINDS[self.kind]}")
         if self.kind not in _PORTED_KINDS:
             raise ValueError(
                 f"bad leaf kind {self.kind!r}; one of {_PORTED_KINDS}")

@@ -12,9 +12,9 @@ from coast_tpu_torch.ir.region import Region
 
 def _lazy(modname: str, fn: str = "make_region",
           package: str = "coast_tpu_torch.models") -> Callable[[], Region]:
-    def make() -> Region:
+    def make(**kw) -> Region:
         mod = importlib.import_module(f"{package}.{modname}")
-        return getattr(mod, fn)()
+        return getattr(mod, fn)(**kw)
     make.module = f"{package}.{modname}"
     return make
 
@@ -57,6 +57,10 @@ REGISTRY: Dict[str, Callable[[], Region]] = {
     "train_mlp": _lazy("mlp", "make_region", "coast_tpu_torch.train"),
     "train_mlp_adam": _lazy("mlp", "make_region_adam",
                             "coast_tpu_torch.train"),
+    # The sharded halo-exchange stencil; the registry build is the
+    # vote-then-exchange placement, ``resolve_region("stencil",
+    # placement="link")`` the other.
+    "stencil": _lazy("stencil"),
 }
 
 # The CHStone sub-suite (BASELINE config 4: full TMR campaign), the
@@ -67,16 +71,16 @@ CHSTONE = ("chstone_mips", "chstone_sha", "chstone_adpcm",
            "chstone_motion", "chstone_jpeg", "aes")
 
 #: The reference registry's other names, not ported yet, with the ROADMAP
-#: Queue A item that brings each: the sharded stencil (item 16).
-UNPORTED = {"stencil": "item 16"}
+#: Queue A item that brings each: none left.
+UNPORTED: Dict[str, str] = {}
 
 
 def resolve_region(arg: str, **kw) -> Region:
     """The program argument of the CLIs: a registry name.  Raises KeyError
     for a name neither package knows, NotImplementedError (naming the
-    ROADMAP item) for a reference name or a restricted-C ``.c`` source the
-    port does not have yet, and TypeError for factory knobs, which no
-    ported region takes."""
+    ROADMAP item) for a restricted-C ``.c`` source, which the port does not
+    have yet.  ``**kw`` goes to the name's factory (the stencil's
+    ``placement``); a factory without the knob raises TypeError."""
     if arg.endswith(".c"):
         raise NotImplementedError(
             f"{arg}: C-source programs need the restricted-C lifter, "
@@ -87,10 +91,7 @@ def resolve_region(arg: str, **kw) -> Region:
             f"{UNPORTED[arg]}")
     if arg not in REGISTRY:
         raise KeyError(arg)
-    if kw:
-        raise TypeError(
-            f"factory arguments {sorted(kw)} do not apply to {arg!r}")
-    return REGISTRY[arg]()
+    return REGISTRY[arg](**kw)
 
 
 def model_source(name: str) -> str:

@@ -235,6 +235,14 @@ class ProtectedProgram:
         self.cfg = cfg
         self.replicated: Dict[str, bool] = {
             name: cfg.resolve_xmr(region, name) for name in region.spec}
+        for name, spec in region.spec.items():
+            if spec.unvoted_crossing and self.replicated[name]:
+                raise ValueError(
+                    f"leaf {name!r} declares unvoted_crossing but resolves "
+                    "to a replicated scope: the declaration is only "
+                    "meaningful on shared (non-xMR) leaves whose SoR-"
+                    "crossing vote the region replaces with its own "
+                    "receive-side voter")
         self._any_replicated = any(self.replicated.values())
         self._shapes = {k: tuple(v.shape) for k, v in image.items()}
         flow = analyze(region)
@@ -364,7 +372,8 @@ class ProtectedProgram:
     def sync_tags(self) -> FrozenSet[Tuple[str, str]]:
         """``(class, leaf)`` of every vote one step makes: the pre-step
         ``load_addr`` votes, the commit votes by :meth:`_sync_class_of`,
-        the ``sor_crossing`` votes of shared leaves, the CFCSS check and
+        the ``sor_crossing`` votes of shared leaves (none on an
+        ``unvoted_crossing`` leaf, which commits raw), the CFCSS check and
         the ``call_boundary`` votes (by function) and, on a guarded
         region, the ``guard`` reads of every leaf -- the reference's
         ``coast:sync:`` tags of its step."""
@@ -381,7 +390,7 @@ class ProtectedProgram:
             if self.replicated[name]:
                 if self.step_sync[name]:
                     tags.add((self._sync_class_of(name), name))
-            elif spec.kind != KIND_RO:
+            elif spec.kind != KIND_RO and not spec.unvoted_crossing:
                 tags.add(("sor_crossing", name))
         tags.update(("call_boundary", name)
                     for name, cls in self.fn_scope.items()
@@ -728,13 +737,21 @@ class ProtectedProgram:
                 # Unwritten shared leaf: all lanes see the same value, so
                 # its SoR-crossing vote (below) agrees by construction.
                 new_state[name] = region_state[name]
-                if (self.region.spec[name].kind != KIND_RO and n > 1
-                        and self._any_replicated):
+                spec = self.region.spec[name]
+                if (spec.kind != KIND_RO and not spec.unvoted_crossing
+                        and n > 1 and self._any_replicated):
                     syncs += 1
             elif n == 1 or not self._any_replicated:
                 new_state[name] = laned[name]
             elif self.region.spec[name].kind == KIND_RO:
                 new_state[name] = laned[name][:, 0]
+            elif self.region.spec[name].unvoted_crossing:
+                # A declared unvoted crossing: the region ships replica
+                # copies through this shared leaf and votes them on the
+                # receive side, so lane 0's value commits raw (the single
+                # point of failure that placement accepts).  A copy: an
+                # in-place flip must not reach into the lanes' storage.
+                new_state[name] = laned[name][:, 0].contiguous()
             else:
                 # A store crossing the sphere of replication: vote before
                 # the single store.  Its value becomes committed state, so

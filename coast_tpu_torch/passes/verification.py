@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, FrozenSet, List, Set
 
-from coast_tpu_torch.ir.region import KIND_CTRL, KIND_RO, Region
+from coast_tpu_torch.ir.region import KIND_CTRL, KIND_LINK, KIND_RO, Region
 
 _ERR = "ERROR (SoR verification): "
 
@@ -142,11 +142,14 @@ def verify_options(region: Region, cfg) -> FrozenSet[str]:
     if cfg.num_clones > 1:
         # NotProtected -> Protected: a replicated leaf reading a mutable
         # leaf excluded from the SoR by scope choice imports one corruptible
-        # copy into every replica.
+        # copy into every replica.  KIND_LINK leaves are sanctioned
+        # crossings, not holes: the engine votes their commit (vote-then-
+        # exchange), or the region declares unvoted_crossing and votes the
+        # in-flight copies on the receive side (exchange-then-vote).
         mutable_unprot = {
             n for n in region.spec
             if not replicated[n] and n in flow.written
-            and region.spec[n].kind != KIND_RO
+            and region.spec[n].kind not in (KIND_RO, KIND_LINK)
             and _scope_excluded(region, cfg, n)}
         for name in sorted(region.spec):
             if not replicated[name] or region.spec[name].no_verify:

@@ -17,9 +17,11 @@ from coast_tpu_torch.ops.fused_step import _ReadRecorder
 
 torch.set_num_threads(1)
 
-# Every region with a block graph: the training regions have none, in the
-# reference too (tests/test_torch_train.py holds that).
-GRAPH_NAMES = sorted(set(REGISTRY) - {"train_mlp", "train_mlp_adam"})
+# Every region with a block graph: the training regions and the stencil
+# have none, in the reference too (tests/test_torch_train.py and
+# tests/test_torch_stencil.py hold that).
+GRAPH_NAMES = sorted(set(REGISTRY) - {"train_mlp", "train_mlp_adam",
+                                      "stencil"})
 
 
 def _states(region):

@@ -147,14 +147,15 @@ def test_registry_names_match_reference():
                              "schedule2", "trivial", "helloWorld",
                              "simpleTMR", "nestedCalls", "rtos_app",
                              "rtos_mm", "rtos_kUser", "train_mlp",
-                             "train_mlp_adam"}
-    assert len(REGISTRY) == 35
-    assert UNPORTED == {"stencil": "item 16"}
+                             "train_mlp_adam", "stencil"}
+    assert len(REGISTRY) == 36
+    assert UNPORTED == {}
     assert CHSTONE == JCHSTONE
-    assert set(REGISTRY) | set(UNPORTED) == set(JREGISTRY)
-    assert not set(REGISTRY) & set(UNPORTED)
+    assert set(REGISTRY) == set(JREGISTRY)
     for name in REGISTRY:
-        assert REGISTRY[name]().name == JREGISTRY[name]().name == name
+        # The stencil's region name carries its placement.
+        want = "stencil[compute]" if name == "stencil" else name
+        assert REGISTRY[name]().name == JREGISTRY[name]().name == want
 
 
 @pytest.mark.parametrize("i", [-20, -9, -3, -1, 0, 4, 8, 9, 17, 2**31 - 1,
@@ -212,10 +213,10 @@ def test_scope_lists_verified_like_reference():
 
 
 def test_unported_features_refuse_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ct.LeafSpec(kind="link")
-    # Items 15 and 14 landed: the kernel stacks, the training kinds.
-    for kind in ("stack", "param", "opt_state"):
+    # Items 15, 14 and 16 landed: the kernel stacks, the training kinds,
+    # the link kind and its unvoted crossing.
+    assert ct.LeafSpec(kind="link", unvoted_crossing=True).unvoted_crossing
+    for kind in ("stack", "param", "opt_state", "link"):
         assert ct.LeafSpec(kind=kind).kind == kind
     assert ct.ProtectionConfig(fuse_step=True).fuse_step    # item 11 landed
     # -protectStack landed with towersOfHanoi's LeafSpec.stack frames.

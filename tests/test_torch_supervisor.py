@@ -40,11 +40,11 @@ def ref_main(argv):
     return jsup.main(argv)
 
 
-def summary_of(stdout):
+def summary_of(stdout, volatile=VOLATILE):
     """The summary dict a supervisor printed, without its volatile keys."""
     line = next(ln for ln in stdout.splitlines() if ln.startswith("{"))
     return {k: v for k, v in ast.literal_eval(line).items()
-            if k not in VOLATILE}
+            if k not in volatile}
 
 
 def drive(main, argv, log_dir, capsys):
@@ -54,7 +54,7 @@ def drive(main, argv, log_dir, capsys):
     return capsys.readouterr().out
 
 
-def assert_logs_equal(port_dir, ref_dir, fmt):
+def assert_logs_equal(port_dir, ref_dir, fmt, volatile=VOLATILE):
     names = sorted(os.listdir(ref_dir))
     assert sorted(os.listdir(port_dir)) == names and names
     for name in names:
@@ -73,8 +73,8 @@ def assert_logs_equal(port_dir, ref_dir, fmt):
             got_j, want_j = json.loads(got), json.loads(want)
             got_s, want_s = got_j.pop("summary"), want_j.pop("summary")
             assert json.dumps(got_j) == json.dumps(want_j)
-        assert ({k: v for k, v in got_s.items() if k not in VOLATILE}
-                == {k: v for k, v in want_s.items() if k not in VOLATILE})
+        assert ({k: v for k, v in got_s.items() if k not in volatile}
+                == {k: v for k, v in want_s.items() if k not in volatile})
 
 
 # name -> argv (without -d/-l); each runs 100-1000 rows on the CPU.
@@ -128,6 +128,42 @@ CAMPAIGNS = {
     "text_crc16_cfcss_fused": [
         "-f", "crc16", "-O", "-DWC -CFCSS -fuseStep", "-s", "text", "-t",
         "100", "--seed", "8", "--log-format", "columnar"],
+    # The sharded backend (--mesh: logical CPU shards here, the reference's
+    # virtual CPU devices there; summaries carry the mesh block) and the
+    # stencil under both voter placements.
+    "t_mm_tmr_mesh2": ["-f", "matrixMultiply", "-O", "-TMR", "-t", "240",
+                       "--batch-size", "80", "--seed", "3", "--mesh", "2"],
+    "t_crc16_dwc_mesh4_sparse": [
+        "-f", "crc16", "-O", "-DWC", "-t", "200", "--batch-size", "64",
+        "--mesh", "4", "--collect", "sparse", "--log-format", "ndjson"],
+    "t_mm_mesh8_ragged_columnar": [
+        "-f", "matrixMultiply", "-t", "100", "--batch-size", "60",
+        "--mesh", "8", "--seed", "5", "--log-format", "columnar"],
+    "e_mm_tmr_mesh2": ["-f", "matrixMultiply", "-O", "-TMR", "-e", "2",
+                       "--batch-size", "100", "--seed", "4", "--mesh", "2"],
+    "interconnect_stencil_link_placement_link_model": [
+        "-f", "stencil", "--placement", "link", "--fault-model", "link",
+        "-s", "interconnect", "-t", "128", "--batch-size", "64",
+        "--seed", "7"],
+    "interconnect_stencil_compute_link_model_mesh2": [
+        "-f", "stencil", "--fault-model", "link", "-s", "interconnect",
+        "-t", "128", "--batch-size", "64", "--seed", "7", "--mesh", "2",
+        "--log-format", "ndjson"],
+    "t_stencil_link_tmr_fused_mesh2_sparse": [
+        "-f", "stencil", "--placement", "link", "-O", "-TMR -fuseStep",
+        "-t", "160", "--batch-size", "64", "--mesh", "2", "--collect",
+        "sparse", "--log-format", "ndjson"],
+    "t_stencil_compute_dwc_cluster_columnar": [
+        "-f", "stencil", "-O", "-DWC", "--fault-model", "cluster(span=4,k=3)",
+        "-t", "128", "--batch-size", "64", "--seed", "7", "--log-format",
+        "columnar"],
+    "registers_stencil_link_stream_reference": [
+        "-f", "stencil", "--placement", "link", "-s", "registers", "-t",
+        "96", "--batch-size", "48", "--stream-logs", "--log-format",
+        "reference"],
+    "stratified_stencil_link_placement": [
+        "-f", "stencil", "--placement", "link", "-t", "120", "--stratified",
+        "--log-format", "ndjson"],
 }
 
 
@@ -173,7 +209,13 @@ def cut_journal(path, batches):
      "--log-format", "json"],
     ["-f", "chstone_motion", "-O", "-TMR -pallasVoters", "-t", "300",
      "--batch-size", "60", "--seed", "5", "--log-format", "json"],
-], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse", "motion_tmr_pallas_voters"])
+    ["-f", "stencil", "--placement", "link", "--fault-model", "link", "-t",
+     "300", "--batch-size", "60", "--seed", "7", "--mesh", "2",
+     "--log-format", "ndjson", "--stream-logs"],
+    ["-f", "stencil", "-O", "-DWC -fuseStep", "-t", "300", "--batch-size",
+     "60", "--collect", "sparse", "--mesh", "4", "--log-format", "json"],
+], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse", "motion_tmr_pallas_voters",
+        "stencil_link_mesh2_streamed", "stencil_dwc_fused_sparse_mesh4"])
 def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
     """A journal cut after two batches resumes under the other package to
     the uninterrupted run's summary and log."""
@@ -185,21 +227,31 @@ def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
     cut_journal(j, 2)
     resumed = drive(second, [*case, "--journal", j, "--resume"],
                     tmp_path / "resumed", capsys)
-    assert summary_of(resumed) == summary_of(full)
+    # The mesh block's ledger counts the interesting rows this process ran,
+    # not the replayed batches' (the reference's rule): its geometry and
+    # everything else equal the uninterrupted run's.
+    volatile = (*VOLATILE, "mesh")
+    assert summary_of(resumed, volatile) == summary_of(full, volatile)
+    if "--mesh" in case:
+        got = summary_of(resumed)["mesh"]
+        want = summary_of(full)["mesh"]
+        assert got["axes"] == want["axes"]
+        assert sum(got["per_shard_interesting"]) <= sum(
+            want["per_shard_interesting"])
     assert_logs_equal(tmp_path / "resumed", tmp_path / "full",
-                      log_format(case))
+                      log_format(case), volatile)
     with open(j) as f:
         records = [json.loads(ln) for ln in f]
     assert sum(r.get("kind") == "batch" for r in records) == 5 - (
         "crc16" in case)
+    if "--placement" in case:
+        assert records[0]["placement"] == "link"
 
 
 UNPORTED = [
     (["--equiv"], "item 17"),
     (["--delta-from", "base.ndjson"], "item 17"),
     (["--static-budget"], "item 17"),
-    (["--mesh", "2"], "item 16"),
-    (["--placement", "link"], "16"),
     (["--metrics-port", "0"], "item 18"),
     (["--status-json", "status.json"], "item 18"),
     (["--heartbeat", "1"], "item 18"),
@@ -209,7 +261,6 @@ UNPORTED = [
     (["--slo", "sdc<0.1"], "item 19"),
     (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
-    (["-f", "stencil"], "item 16"),
     (["-f", "prog.c"], "item 17"),
 ]
 
@@ -236,7 +287,8 @@ def refusal(main, argv, capsys):
     "resume_without_journal", "journal_exists", "journal_with_force_break",
     "stream_with_json", "sparse_with_e", "board_pynq", "unknown_benchmark",
     "missing_log_dir", "bad_fault_model", "bad_stop_when",
-    "pallas_voters_pair",
+    "pallas_voters_pair", "placement_without_knob", "stratified_link_model",
+    "stencil_unknown_placement",
 ])
 def test_shared_refusals_give_the_reference_messages(case, tmp_path, capsys):
     existing = tmp_path / "old.ndjson"
@@ -257,6 +309,14 @@ def test_shared_refusals_give_the_reference_messages(case, tmp_path, capsys):
         "bad_stop_when": [*base, "--stop-when", "sdc:2"],
         "pallas_voters_pair": [*base, "-O",
                                "-TMR -pallasVoters -noPallasVoters"],
+        # The stencil's --placement knob (ROADMAP item 16, landed): refused
+        # on a benchmark without it, and with the link model's strata.
+        "placement_without_knob": [*base, "--placement", "link"],
+        "stratified_link_model": ["-f", "stencil", "-t", "8", "-d", "cpu",
+                                  "-q", "--stratified", "--fault-model",
+                                  "link"],
+        "stencil_unknown_placement": ["-f", "stencil", "-d", "cpu", "-q",
+                                      "--placement", "wire"],
     }[case]
     assert refusal(supervisor.main, argv, capsys) == refusal(ref_main, argv,
                                                              capsys)
