@@ -95,8 +95,8 @@ Phases, in order; any failure exits non-zero:
      formatter and the native encoder on the host: each time, the same
      bytes;
  19. the BASELINE regions (run before phase 18): aes, sha256, quicksort
-     and the CHStone suite under TMR, and quicksort under DWC, 4096
-     injections at batch 4096, seed 1, unfused and fused: fused = unfused
+     and the CHStone suite under TMR, and quicksort under DWC, 2048
+     injections at batch 2048, seed 1, unfused and fused: fused = unfused
      on every row, K1 and K2 launched exactly their per-trip counts (a
      CPU twin counts one trip's and one boundary's calls) times the loop
      trips, and the first 64 rows rerun on the CPU equal on every
@@ -116,7 +116,7 @@ Phases, in order; any failure exits non-zero:
      seed 1, dense, every section (K1 at the flagship shape, launched its
      per-trip count a loop trip; 16 rows against the CPU outside the f32
      exemption); matrixMultiply, crc16, chstone_mips and crazyCF under
-     TMR+CFCSS as phase 19 (4096 injections, unfused and fused, K1/K2
+     TMR+CFCSS as phase 19 (4096 injections at 4096, unfused and fused, K1/K2
      launches a trip, 256 rows against the CPU); a ``sections=["cfcss"]``
      campaign on matrixMultiply: due_abort > 0, no SDC, 256 rows against
      the CPU;
@@ -131,7 +131,7 @@ Phases, in order; any failure exits non-zero:
  23. the preemptive RTOS kernel targets (run before phase 18): rtos_mm
      and rtos_kUser under their canonical config (``rtos/Makefile``'s
      lists plus ``rtos/kernel.config``), TMR and DWC: fault-free rows
-     clean unfused and fused; 65,536 injections at batch 4096, seed 42,
+     clean unfused and fused; 16,384 injections at batch 4096, seed 42,
      as phase 19 (fused = unfused, sparse = dense, K1/K2 launches a trip,
      256 rows against the CPU), each with DUE_STACK_OVERFLOW and
      DUE_ASSERT rows, its counts rolled up over ``rtos_sections``; the
@@ -142,8 +142,8 @@ Phases, in order; any failure exits non-zero:
  24. the protected training step (run before phase 18): train_mlp and
      train_mlp_adam, the card's golden against the host's (losses within
      1e-5, weights bit-equal), fault-free rows success at batch 1 and
-     4096 under unprotected, DWC, TMR and selective xMR; 65,536
-     injections at batch 4096, seed 11, unprotected and selective, 16,384
+     4096 under unprotected, DWC, TMR and selective xMR; 32,768
+     injections at batch 4096, seed 11, unprotected and selective, 8,192
      under DWC and TMR (unfused: float regions; K1 launches a trip; 256
      rows against the CPU); unprotected
      with train_self_heal and train_sdc rows and no raw sdc, selective
@@ -155,7 +155,7 @@ Phases, in order; any failure exits non-zero:
      recorded study (``artifacts/stencil_campaign.json``, read as data:
      TMR, 128 rows, seed 7, both placements x single, cluster, link) with
      equal counts, blast radii, two-shard ledgers and containment block;
-     65,536 injections at batch 4096, both placements, single and link
+     16,384 injections at batch 4096, both placements, single and link
      faults, on the single-device runner (unfused and fused, K1/K2
      launches a trip from a CPU twin), a one-device mesh and the
      two-shard mesh, dense and sparse, and ``run_histogram``: equal codes
@@ -164,6 +164,18 @@ Phases, in order; any failure exits non-zero:
      interconnect`` against the runner (``--mesh 2`` exits 1 on a one-card
      machine); a one-rank nccl worker (``python -m
      coast_tpu_torch.parallel.multihost``) against ``run_histogram``;
+ 26. the log parser and the replication-integrity linter (run before
+     phase 18): phase 9's 10^6-row dense campaign as a fresh ndjson log,
+     summarised by the native classifier (``csrc/ndjson.cpp``), counts
+     equal; a 65,536-row crc16 TMR campaign, dense and sparse, in
+     json/ndjson/columnar, plain and ``.gz``, through the Python path,
+     counts equal; ``lint_program`` with survival on the card (its trips
+     and lane probes through K1 and K2) for matrixMultiply TMR/DWC, crc16
+     fused, matrixMultiply1024 TMR, rtos_mm TMR and train_mlp TMR:
+     findings equal the CPU's and the recorded sweep's
+     (``artifacts/lint_sweep.json``); ``preflight="static"`` refuses a
+     lane-averaging mutant built on the card; a crc16 TMR campaign at
+     ``unroll=2`` equals one at ``unroll=1``, record for record;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -173,8 +185,8 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-25, K2 those of phases 7b, 9-12, 14-17, 19-23 and 25
-(each
+9-12, 14-17 and 19-26, K2 those of phases 7b, 9-12, 14-17, 19-23, 25 and
+26 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
 coast_tpu package.
@@ -1680,7 +1692,7 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
 
 def baseline_regions(work: Path, board: str, card: str, torch, TMR, DWC,
                      REGISTRY, CampaignRunner, hv, hc, fs,
-                     n: int = 4096, cpu_rows: int = 256) -> tuple:
+                     n: int = 2048, cpu_rows: int = 256) -> tuple:
     """Phase 19: each BASELINE region (and quicksort under DWC) through
     ``region_cases``.  Then chstone_jpeg TMR through the supervisor CLI,
     with and without ``-pallasVoters``: the runner's records and counts,
@@ -2047,7 +2059,7 @@ RTOS_TARGETS = ("rtos_mm", "rtos_kUser")
 
 def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
                         REGISTRY, CampaignRunner, hv, hc, fs,
-                        n: int = 65536, batch: int = 4096, seed: int = 42,
+                        n: int = 16384, batch: int = 4096, seed: int = 42,
                         cpu_rows: int = 256) -> tuple:
     """Phase 23: rtos_mm and rtos_kUser under the canonical config, TMR
     and DWC: fault-free rows clean, unfused and fused; then ``n``
@@ -2174,7 +2186,7 @@ TRAIN_RTOL = 1e-5
 
 
 def train_regions(board: str, card: str, torch, DWC, TMR, unprotected,
-                  REGISTRY, CampaignRunner, hv, hc, fs, n: int = 65536,
+                  REGISTRY, CampaignRunner, hv, hc, fs, n: int = 32768,
                   batch: int = 4096, seed: int = 11,
                   cpu_rows: int = 256) -> tuple:
     """Phase 24: train_mlp and train_mlp_adam.  The card's golden loss
@@ -2275,7 +2287,7 @@ def free_port() -> int:
 
 
 def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
-                    CampaignRunner, hv, hc, fs, n: int = 65536,
+                    CampaignRunner, hv, hc, fs, n: int = 16384,
                     batch: int = 4096, cpu_rows: int = 256) -> tuple:
     """Phase 25: the sharded backend on the stencil.  (a) fault-free rows
     clean under TMR and DWC, both placements, unfused and fused;
@@ -2354,7 +2366,7 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
         f"counts, blast radius and two-shard ledger, containment "
         f"{doc['containment']} [{card}]")
 
-    # (c) 65,536 injections, every runner form.
+    # (c) ``n`` injections, every runner form.
     rates = {}
     for placement in stencil.PLACEMENTS:
         region = stencil.make_region(placement)
@@ -2501,6 +2513,160 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
     log(json.dumps({"phase25_inj_per_s": {
         k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
         "card": card}))
+    return tuple(launches)
+
+
+# Phase 26: the programs lint_program holds on the card, with the
+# sweep artifact's strategy for each (None: compared with the CPU only).
+LINT_ON_CARD = (("matrixMultiply", "TMR", {}), ("matrixMultiply", "DWC", {}),
+                ("crc16", "TMR", {"fuse_step": True}),
+                ("matrixMultiply1024", "TMR", {}), ("rtos_mm", "TMR", {}),
+                ("train_mlp", "TMR", {}))
+
+
+def parse_and_lint(work: Path, card: str, TMR, DWC, REGISTRY,
+                   CampaignRunner, hv, hc, bare: dict,
+                   n: int = 65536) -> tuple:
+    """Phase 26: the log parser and the linter on the card.  (a) Phase 9's
+    10^6-row dense campaign (``bare``, run on the card) as a fresh ndjson
+    log, summarised by the native classifier, its counts equal the
+    campaign's; a ``n``-row crc16 TMR card campaign in every format,
+    dense and sparse, ``.gz`` included, summarised by the Python path,
+    counts equal.  (b) ``lint_program`` with survival on the card for
+    ``LINT_ON_CARD``: findings equal the same call's on the CPU and the
+    recorded sweep's; ``preflight="static"`` refuses a lane-averaging
+    mutant built on the card.  (c) a crc16 TMR campaign at ``unroll=2``
+    equals one at ``unroll=1``, record for record.  Returns the (K1, K2)
+    launches of the lint probes and the campaigns."""
+    from coast_tpu_torch import native
+    from coast_tpu_torch.analysis import json_parser as jp
+    from coast_tpu_torch.analysis import lint
+    from coast_tpu_torch.inject import logs
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+
+    # (a) The parser: native at 10^6 rows, Python at n rows.
+    res, mmap = bare["dense"], CampaignRunner(
+        TMR(REGISTRY["matrixMultiply"]())).mmap
+    path = work / "parse_1e6.ndjson.json"
+    t0 = time.perf_counter()
+    logs.write_ndjson(res, mmap, str(path))
+    wrote = time.perf_counter() - t0
+    before = native.CLASSIFIED_LINES
+    t0 = time.perf_counter()
+    summary = jp.summarize_path(str(path))
+    secs = time.perf_counter() - t0
+    if native.CLASSIFIED_LINES - before != res.n:
+        fail(f"phase 26: the 10^6-row log took the Python path "
+             f"({native.CLASSIFIED_LINES - before} native lines)")
+    counts = {k: v for k, v in res.counts.items() if k in summary.counts}
+    if summary.n != res.n or any(summary.counts[k] != v
+                                 for k, v in counts.items()):
+        fail(f"phase 26: the native summary {summary.n} {summary.counts} "
+             f"differs from the campaign's {res.counts}")
+    path.unlink()
+    log(f"parser: {res.n} dense ndjson rows written in {wrote:.2f} s, "
+        f"summarised by the native classifier in {secs:.2f} s "
+        f"({res.n / secs:.1f} rows/s), counts equal the campaign's [{card}]")
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    py_secs = {}
+    for collect in ("dense", "sparse"):
+        runner = CampaignRunner(TMR(REGISTRY["crc16"]()), strategy_name="TMR",
+                                collect=collect)
+        got = runner.run(n, seed=5, batch_size=n)
+        for writer in ("write_json", "write_ndjson", "write_columnar"):
+            for gz in ("", ".gz"):
+                out = work / f"parse_{collect}_{writer}.json{gz}"
+                getattr(logs, writer)(got, runner.mmap, str(out))
+                t0 = time.perf_counter()
+                s = jp.summarize_runs(out.name, (
+                    doc for _, doc in jp._iter_docs(str(out))))
+                py_secs[f"{collect} {writer}{gz}"] = round(
+                    time.perf_counter() - t0, 3)
+                if s.n != got.n or any(s.counts[k] != v
+                                       for k, v in got.counts.items()
+                                       if k in s.counts):
+                    fail(f"phase 26: Python summary of {out.name} "
+                         f"{s.n} {s.counts} differs from {got.counts}")
+                out.unlink()
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    log(f"parser: crc16 TMR {n} rows, dense and sparse, json/ndjson/"
+        f"columnar, plain and .gz: the Python path's counts equal the "
+        f"campaign's; seconds {py_secs} [{card}]")
+
+    # (b) The linter with survival on the card.
+    with open(ROOT / "artifacts" / "lint_sweep.json") as fh:
+        recorded = json.load(fh)["benchmarks"]
+    make = {"TMR": TMR, "DWC": DWC}
+    probe_launches = {}
+    for name, strat, kw in LINT_ON_CARD:
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        report = lint.lint_program(make[strat](REGISTRY[name](), **kw),
+                                   strategy=strat)
+        secs = time.perf_counter() - t0
+        probe = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += probe[0]
+        launches[1] += probe[1]
+        if probe[0] + probe[1] <= 0:
+            fail(f"phase 26: the {name} {strat} lint probe launched no "
+                 "kernel")
+        got = {(f.rule, f.severity, f.locus) for f in report.findings}
+        cpu = lint.lint_program(make[strat](REGISTRY[name](), device="cpu",
+                                            **kw), strategy=strat)
+        want = {(f.rule, f.severity, f.locus) for f in cpu.findings}
+        if got != want or not report.ok:
+            fail(f"phase 26: {name} {strat} {kw} lint on the card {got} "
+                 f"differs from the CPU's {want} (ok {report.ok})")
+        if not kw:
+            sweep = {(f["rule"], f["severity"], f["locus"])
+                     for f in recorded[name][strat]["findings"]}
+            if got != sweep:
+                fail(f"phase 26: {name} {strat} lint {got} differs from "
+                     f"the recorded sweep's {sweep}")
+        label = name + (" fused" if kw else "") + " " + strat
+        probe_launches[label] = probe
+        log(f"lint {label} on the card: {len(got)} finding(s), equal to the "
+            f"CPU's{'' if kw else ' and the sweep' + chr(39) + 's'}, "
+            f"{secs:.2f} s, probe K1 {probe[0]} K2 {probe[1]} launches "
+            f"[{card}]")
+    prog = TMR(REGISTRY["crc16"]())
+    orig = prog.step
+
+    def averaged(pstate, flags, t):
+        new_state, flags = orig(pstate, flags, t)
+        crc = new_state["crc"]
+        avg = (crc.sum(dim=1) // 3).to(crc.dtype)
+        return {**new_state, "crc": avg.unsqueeze(1).expand(
+            crc.shape).contiguous()}, flags
+
+    prog.step = averaged
+    try:
+        CampaignRunner(prog, preflight="static")
+    except lint.ReplicationLintError as e:
+        if "lane-collapse" not in str(e):
+            fail(f"phase 26: the lane-averaging mutant was refused for "
+                 f"another reason: {e}")
+    else:
+        fail("phase 26: preflight='static' let a lane-averaging mutant "
+             "through on the card")
+    log("lint: preflight='static' refuses the lane-averaging crc16 mutant "
+        "built on the card (lane-collapse)")
+
+    # (c) --unroll: the record does not change.
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    prog = TMR(REGISTRY["crc16"]())
+    one = CampaignRunner(prog, unroll=1).run(n, seed=7, batch_size=n)
+    two = CampaignRunner(prog, unroll=2).run(n, seed=7, batch_size=n)
+    why = records_differ(one, two)
+    if why:
+        fail(f"phase 26: crc16 TMR at unroll=2 differs from unroll=1: {why}")
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    log(f"crc16 TMR {n} rows at unroll=2 = unroll=1, record for record "
+        f"({one.counts}); phase 26 in {time.perf_counter() - t_phase:.1f} s"
+        f" [{card}]")
     return tuple(launches)
 
 
@@ -2697,6 +2863,10 @@ def main() -> None:
     # 25. The sharded backend on the stencil.
     new_launches.append(sharded_stencil(
         work, "gpu", card, torch, TMR, DWC, CampaignRunner, hv, hc, fs))
+    # 26. The log parser and the replication-integrity linter on the card,
+    # and the --unroll repair.
+    new_launches.append(parse_and_lint(
+        work, card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, bare))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)

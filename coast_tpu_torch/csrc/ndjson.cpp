@@ -1,4 +1,4 @@
-// ndjson: the port's host-side campaign-log encoder.
+// ndjson: the port's host-side campaign-log encoder and classifier.
 //
 // Formats campaign rows as InjectionLog-schema JSON lines, one a row,
 // byte for byte what inject/logs.py's Python formatter writes
@@ -19,6 +19,10 @@
 // fit out_cap (every write is bounds-checked; the caller retries fewer
 // rows), or -2 on malformed input.  Plain C interface, loaded with ctypes
 // (which releases the interpreter lock for the call).
+//
+// coast_ndjson_classify is the read side: the class counts of
+// analysis/json_parser.py's classify_run over a buffer of InjectionLog
+// lines, the counterpart of the reference's function of that name.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC (coast_tpu_torch/build.py).
 
@@ -204,6 +208,204 @@ int64_t encode_body(int64_t lo, int64_t hi, int64_t number_base,
 }  // namespace
 
 extern "C" {
+
+// Bulk ndjson campaign-log classifier (the analysis read path).
+//
+// Scans InjectionLog-schema ndjson lines and accumulates the class counts
+// of analysis/json_parser.py's classify_run: the discriminating key of each
+// line's "result" object, in its priority order invalid > stackOverflow >
+// assertion > trainSdc > selfHeal > timeout > message > core; a core result
+// is SDC when errors > 0, else CORRECTED when faults > 0, else SUCCESS, and
+// adds its runtime to the completed-run step mean.  Keys are read only at
+// depth 1 INSIDE the result object (the "name"/"symbol" fields can hold
+// any bytes).
+//
+// counts must hold NUM_CLASSES (10) zeroed int64, inject/classify.py's
+// order.  Returns the number of lines classified, or -1 if a non-empty
+// line lacks the "result" marker or its result is not an object (the
+// caller falls back to the Python parser).
+int64_t coast_ndjson_classify(const char* buf, int64_t len, int64_t* counts,
+                              int64_t* step_sum, int64_t* step_n) {
+  static const char kResult[] = "\"result\": ";
+  static const char kTail[] = ", \"cacheInfo\": null}";
+  auto find = [](const char* p, const char* end, const char* needle,
+                 size_t nlen) -> const char* {
+    if ((size_t)(end - p) < nlen) return nullptr;
+    const char* last = end - nlen;
+    for (; p <= last; ++p) {
+      if (p[0] == needle[0] && std::memcmp(p, needle, nlen) == 0) return p;
+    }
+    return nullptr;
+  };
+  // classify_run dispatches on the result DICT's top-level key membership
+  // (analysis/json_parser.py:49-72).  Mirror that exactly: scan the result
+  // object once, tracking string state and brace depth, and consider only
+  // keys at depth 1.  A discriminating word appearing as a string VALUE
+  // ({"status": "invalid"}) or inside a NESTED object ({"detail":
+  // {"timeout": 5}}) must not reroute classification -- a plain substring
+  // search silently diverges from the Python parser on such foreign lines.
+  struct ResultKeys {
+    bool object = false;   // result is a JSON object; anything else (list,
+                           // string, null) gets Python's quirky membership
+                           // semantics, so the caller must fall back.
+    bool invalid = false, timeout = false, message = false, core = false;
+    bool stack_overflow = false, assertion = false;
+    bool self_heal = false, train_sdc = false;
+    int64_t errors = 0, faults = 0, runtime = 0;
+  };
+  auto scan_result = [](const char* q, const char* end) -> ResultKeys {
+    ResultKeys r;
+    while (q < end && (*q == ' ' || *q == '\t')) ++q;
+    if (q >= end || *q != '{') return r;   // r.object stays false
+    r.object = true;
+    int depth = 0;
+    bool in_str = false, esc = false, have_key = false;
+    const char* str_start = nullptr;    // open depth-1 string, if any
+    const char* kb = nullptr;           // last completed depth-1 string
+    size_t klen = 0;
+    for (; q < end; ++q) {
+      const char c = *q;
+      if (in_str) {
+        if (esc) esc = false;
+        else if (c == '\\') esc = true;
+        else if (c == '"') {
+          in_str = false;
+          if (depth == 1 && str_start) {
+            kb = str_start;
+            klen = (size_t)(q - str_start);
+            have_key = true;
+            str_start = nullptr;
+          }
+        }
+        continue;
+      }
+      switch (c) {
+        case '"':
+          in_str = true;
+          if (depth == 1) str_start = q + 1;
+          break;
+        case '{': case '[': ++depth; break;
+        case '}': case ']':
+          if (--depth == 0) return r;
+          break;
+        case ',': have_key = false; break;
+        case ':':
+          if (depth == 1 && have_key) {
+            auto is = [&](const char* w, size_t n) {
+              return klen == n && std::memcmp(kb, w, n) == 0;
+            };
+            if (is("invalid", 7)) r.invalid = true;
+            else if (is("stackOverflow", 13)) r.stack_overflow = true;
+            else if (is("assertion", 9)) r.assertion = true;
+            else if (is("trainSdc", 8)) r.train_sdc = true;
+            else if (is("selfHeal", 8)) r.self_heal = true;
+            else if (is("timeout", 7)) r.timeout = true;
+            else if (is("message", 7)) r.message = true;
+            else if (is("core", 4)) r.core = true;
+            else if (is("errors", 6) || is("faults", 6)
+                     || is("runtime", 7)) {
+              const char* v = q + 1;
+              while (v < end && (*v == ' ' || *v == '\t')) ++v;
+              const bool neg = (v < end && *v == '-');
+              if (neg) ++v;
+              int64_t x = 0;
+              bool any = false;
+              while (v < end && *v >= '0' && *v <= '9') {
+                x = x * 10 + (*v - '0');
+                ++v;
+                any = true;
+              }
+              if (any) {
+                x = neg ? -x : x;
+                if (kb[0] == 'e') r.errors = x;
+                else if (kb[0] == 'f') r.faults = x;
+                else r.runtime = x;
+              }
+            }
+            have_key = false;
+          }
+          break;
+        default: break;
+      }
+    }
+    return r;
+  };
+  auto rfind = [](const char* p, const char* end, const char* needle,
+                  size_t nlen) -> const char* {
+    if ((size_t)(end - p) < nlen) return nullptr;
+    for (const char* q = end - nlen; q >= p; --q) {
+      if (q[0] == needle[0] && std::memcmp(q, needle, nlen) == 0) return q;
+    }
+    return nullptr;
+  };
+  int64_t lines = 0;
+  const char* p = buf;
+  const char* const bend = buf + len;
+  while (p < bend) {
+    const char* nl = (const char*)std::memchr(p, '\n', bend - p);
+    const char* lend = nl ? nl : bend;
+    if (lend == p) { p = lend + 1; continue; }  // empty line
+    // Anchor the result field from the line TAIL: a JSON-escaped leaf
+    // name can legitimately contain the bytes "result": (escaping keeps
+    // the inner quote characters), but the fixed result templates cannot,
+    // so the LAST marker before the ", "cacheInfo": null} suffix is the
+    // real field.  Lines without that exact suffix (foreign InjectionLog
+    // writers) fall back to the first marker.
+    const char* rend = lend;
+    const char* res = nullptr;
+    const size_t tail_len = sizeof kTail - 1;
+    if ((size_t)(lend - p) > tail_len
+        && std::memcmp(lend - tail_len, kTail, tail_len) == 0) {
+      rend = lend - tail_len;
+      res = rfind(p, rend, kResult, sizeof kResult - 1);
+    } else {
+      res = find(p, lend, kResult, sizeof kResult - 1);
+    }
+    if (!res) return -1;
+    res += sizeof kResult - 1;
+    const ResultKeys rk = scan_result(res, rend);
+    // Non-object results (a list, a bare string, null): classify_run's
+    // `"timeout" in res` membership does substring/element search there,
+    // which this scanner deliberately does not model -- punt the whole
+    // file to the Python parser rather than silently diverge.
+    if (!rk.object) return -1;
+    if (rk.invalid) {
+      counts[5]++;
+    } else if (rk.stack_overflow) {
+      counts[6]++;
+    } else if (rk.assertion) {
+      counts[7]++;
+    } else if (rk.train_sdc) {
+      // Training refinements of SDC: completed runs (they carry the
+      // ordinary core/runtime fields next to the discriminating key),
+      // so they feed the mean-runtime statistic like classify_run's
+      // "core" accounting does for them.
+      counts[9]++;
+      *step_sum += rk.runtime;
+      (*step_n)++;
+    } else if (rk.self_heal) {
+      counts[8]++;
+      *step_sum += rk.runtime;
+      (*step_n)++;
+    } else if (rk.timeout) {
+      counts[4]++;
+    } else if (rk.message) {
+      counts[3]++;
+    } else if (rk.core) {
+      if (rk.errors > 0) counts[2]++;
+      else if (rk.faults > 0) counts[1]++;
+      else counts[0]++;
+      *step_sum += rk.runtime;
+      (*step_n)++;
+    } else {
+      counts[5]++;  // classify_run's final fallback: invalid
+    }
+    ++lines;
+    p = lend + 1;
+  }
+  return lines;
+}
+
 
 // Rows [lo, hi) of whole-campaign columns: row i carries number i.
 int64_t coast_ndjson_encode(

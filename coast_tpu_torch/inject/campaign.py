@@ -78,7 +78,7 @@ SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 # Runner features of the reference that later slices port, with the ROADMAP
 # Queue A item that brings each.
 _LATER_RUNNER = {
-    "equiv": "item 17 (equivalence reduction)",
+    "equiv": "item 17b (equivalence reduction)",
     "metrics": "item 18 (live metrics)",
     "profile": "item 18 (the campaign profiler)",
     "slo": "item 19 (reliability SLOs)",
@@ -358,7 +358,8 @@ class CampaignRunner:
                  collect: str = "dense",
                  sparse_capacity: Optional[int] = None,
                  retry: Optional[resilience_mod.RetryPolicy] = None,
-                 mesh=None, **later):
+                 mesh=None, unroll: int = 1, preflight: "bool | str" = False,
+                 **later):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
@@ -376,6 +377,18 @@ class CampaignRunner:
         the sharded backend: ``CampaignRunner(prog, mesh=make_mesh(2))``
         builds a ``ShardedCampaignRunner``.  A bare ``link`` fault model
         takes the region's ``meta["link_window"]`` (its in-flight steps).
+
+        ``unroll`` is the reference's early-exit loop unroll, clamped to
+        ``max(1, int(unroll))``.  It changes no record: the port's step
+        loop stops on the same trip whatever its value.
+
+        ``preflight`` runs the replication-integrity linter
+        (``analysis/lint``) before anything else and raises
+        ``ReplicationLintError`` on an error finding: ``"static"`` runs
+        the provenance rules, another truthy value adds the survival
+        checks.  ``True``, ``"full"`` and ``"propagation"`` also ask for
+        the isolation prover, which is ROADMAP Queue A item 17c, and raise
+        ``NotImplementedError``.
 
         The reference's ``equiv``, ``metrics``, ``profile`` and ``slo``
         raise ``NotImplementedError`` naming their ROADMAP item."""
@@ -402,6 +415,17 @@ class CampaignRunner:
             raise ValueError(
                 f"unknown collect mode {collect!r}; one of 'dense', "
                 "'sparse'")
+        if preflight:
+            if preflight in (True, "full", "propagation"):
+                raise NotImplementedError(
+                    f"CampaignRunner(preflight={preflight!r}) runs the "
+                    "lane-isolation prover, which is not ported yet; see "
+                    "ROADMAP Queue A item 17c (preflight='static' runs the "
+                    "provenance rules, any other truthy value adds the "
+                    "survival checks)")
+            from coast_tpu_torch.analysis import lint as lint_mod
+            lint_mod.check(prog, survival=preflight != "static")
+        self.unroll = max(1, int(unroll))
         self.prog = prog
         # A training region's counts always carry the train classes; every
         # other region keeps the base key set.
@@ -1038,9 +1062,9 @@ class CampaignRunner:
 
     def run_delta(self, *args, **kwargs) -> CampaignResult:
         """The reference's delta campaign needs the equivalence partition
-        (ROADMAP Queue A item 17)."""
+        (ROADMAP Queue A item 17b)."""
         raise NotImplementedError(
-            "run_delta is not ported yet; see ROADMAP Queue A item 17 "
+            "run_delta is not ported yet; see ROADMAP Queue A item 17b "
             "(equivalence reduction and delta campaigns)")
 
     def journal_result(self, res: CampaignResult, path: str,

@@ -173,7 +173,7 @@ def _columns(res: CampaignResult, mmap: MemoryMap):
         "steps": res.steps.tolist(),
     }
     # (The reference's equivalence-reduced campaigns add a ``weight``
-    # column here; equivalence reduction is ROADMAP Queue A item 17.)
+    # column here; equivalence reduction is ROADMAP Queue A item 17b.)
     if res.collect != "dense":
         col["number"] = [int(r) for r in res.interesting_rows]
     return col, secs

@@ -11,7 +11,7 @@ A :class:`FaultModel` turns each row into a flip GROUP: the base row keeps
 the single-site layout (a ``single`` schedule is the historical stream)
 and the extra sites live in ``FaultSchedule.extra``, a struct-of-arrays
 with a group index, expanded from the seed by ``native.fault_expand``.
-Equivalence-reduced schedules are ROADMAP Queue A item 17.
+Equivalence-reduced schedules are ROADMAP Queue A item 17b.
 """
 
 from __future__ import annotations
@@ -286,7 +286,7 @@ def generate(mmap: MemoryMap, n: int, seed: int, nominal_steps: int,
     base sites are this same stream."""
     if equiv is not None:
         raise NotImplementedError(
-            "equivalence-reduced schedules are ROADMAP Queue A item 17")
+            "equivalence-reduced schedules are ROADMAP Queue A item 17b")
     raw = splitmix_fill(seed, 2 * n)
     if model is not None and model.kind == "link":
         return _generate_link(mmap, raw, n, seed, nominal_steps, model)

@@ -23,12 +23,12 @@ stencil (``models/stencil.py``).
 
 Flags whose subsystem the port does not have yet are refused with exit code
 2 and the ROADMAP Queue A item that brings them: ``--equiv``,
-``--delta-from``, ``--static-budget`` (item 17); ``--metrics-port``,
+``--delta-from`` (item 17b), ``--static-budget`` (item 17c); ``--metrics-port``,
 ``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
-``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll`` other than 1
-is refused too: it tunes the reference's compiled scan, which has no
-counterpart here.  ``--port-range`` is accepted and ignored, as the
-reference does.
+``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll N`` is
+accepted and clamped to at least 1, as the reference does: it changes no
+record.  ``--port-range`` is accepted and ignored, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -66,12 +66,12 @@ _KIND_SECTIONS = {
 #: Flags of the reference whose subsystem the port does not have yet:
 #: (flag, test on the parsed args, why).  Each is refused with exit code 2.
 _UNPORTED_FLAGS = (
-    ("--equiv", lambda a: a.equiv, "ROADMAP Queue A item 17 (equivalence "
+    ("--equiv", lambda a: a.equiv, "ROADMAP Queue A item 17b (equivalence "
      "reduction)"),
-    ("--delta-from", lambda a: a.delta_from, "ROADMAP Queue A item 17 "
+    ("--delta-from", lambda a: a.delta_from, "ROADMAP Queue A item 17b "
      "(delta campaigns)"),
     ("--static-budget", lambda a: a.static_budget, "ROADMAP Queue A item "
-     "17 (the static propagation map)"),
+     "17c (the static propagation map)"),
     ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
      "Queue A item 18 (live metrics)"),
     ("--status-json", lambda a: a.status_json, "ROADMAP Queue A item 18 "
@@ -86,8 +86,6 @@ _UNPORTED_FLAGS = (
      "campaign profiler)"),
     ("--slo", lambda a: a.slo, "ROADMAP Queue A item 19 (reliability "
      "SLOs)"),
-    ("--unroll", lambda a: a.unroll != 1, "it tunes the reference's "
-     "compiled scan, which has no counterpart in the port's step loop"),
 )
 
 
@@ -132,7 +130,9 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         help="resume the seeded campaign at injection #N")
     parser.add_argument("--batch-size", type=int, default=4096)
     parser.add_argument("--unroll", type=int, default=1,
-                        help=argparse.SUPPRESS)
+                        help="early-exit loop steps per iteration in the "
+                        "reference's batched runner; accepted and clamped "
+                        "to >= 1, classification-identical at any value")
     parser.add_argument("--fault-model", type=str, default="single",
                         metavar="SPEC",
                         help="what one injection IS: 'single' (default), "
@@ -455,6 +455,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 sections=section_filter(prog, args.section),
                                 strategy_name=strategy,
                                 retry=retry, mesh=mesh,
+                                unroll=args.unroll,
                                 fault_model=args.fault_model_parsed,
                                 collect=args.collect)
     except ValueError:

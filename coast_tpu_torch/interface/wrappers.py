@@ -52,7 +52,7 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-from coast_tpu_torch.ops import hopper_voters, site_table
+from coast_tpu_torch.ops import hopper_voters, site_table, voters
 from coast_tpu_torch.ops.voters import Site
 
 #: The lane axis of a replica set ``[R, n, ...]``.
@@ -187,16 +187,23 @@ def _arg_sets(args, num_clones: int, env) -> List[torch.Tensor]:
     return sets
 
 
-def _vote_in(args, num_clones: int, env) -> List[torch.Tensor]:
-    """The call-boundary vote of every argument (one launch), logged."""
-    voted, flags = _vote(_arg_sets(args, num_clones, env), num_clones)
+def _vote_in(args, num_clones: int, env, fn_name: str
+             ) -> List[torch.Tensor]:
+    """The call-boundary vote of every argument (one launch), logged;
+    each set tagged a ``call_boundary`` sync of ``fn_name``."""
+    voted, flags = _vote([voters.sync_tag(x, "call_boundary", fn_name)
+                          for x in _arg_sets(args, num_clones, env)],
+                         num_clones)
     env.miscompares.append(flags)
     return voted
 
 
-def _lane0(args, num_clones: int) -> list:
-    """Lane 0's arguments, ``[B, ...]``; Python numbers as they are."""
-    return [a.reshape(-1, num_clones, *a.shape[1:])[:, 0]
+def _lane0(args, num_clones: int, fn_name: str) -> list:
+    """Lane 0's arguments, ``[B, ...]``; Python numbers as they are.  The
+    read is tagged ``coast:spof:<fn>``: the linter's SPOF report matches
+    it against the skipLibCalls/cloneAfterCall allowlist."""
+    return [voters.tag(a.reshape(-1, num_clones, *a.shape[1:]),
+                       voters.TAG_SPOF + fn_name)[:, 0]
             if isinstance(a, torch.Tensor) else a for a in args]
 
 
@@ -214,7 +221,7 @@ def lane_ignored(fn: Callable, num_clones: int, env,
     fname = _name(fn, name)
 
     def wrapper(*args):
-        voted = _vote_in(args, num_clones, env)
+        voted = _vote_in(args, num_clones, env, fname)
         return _enter_lanes(fn(*voted), num_clones)
 
     wrapper.__name__ = f"{fname}_IGNORED"
@@ -227,7 +234,7 @@ def lane_skip_lib(fn: Callable, num_clones: int,
     fname = _name(fn, name)
 
     def wrapper(*args):
-        return _enter_lanes(fn(*_lane0(args, num_clones)), num_clones)
+        return _enter_lanes(fn(*_lane0(args, num_clones, fname)), num_clones)
 
     wrapper.__name__ = f"{fname}_SKIPLIB"
     return wrapper
@@ -241,10 +248,10 @@ def lane_protected_lib(fn: Callable, num_clones: int, env,
     fname = _name(fn, name)
 
     def wrapper(*args):
-        voted_in = _vote_in(args, num_clones, env)
+        voted_in = _vote_in(args, num_clones, env, fname)
         lane_args = [_rows(_fan_out(x, num_clones)) for x in voted_in]
         flat, rebuild = _flatten(fn(*lane_args))
-        voted_out = _vote_in(flat, num_clones, env)
+        voted_out = _vote_in(flat, num_clones, env, fname)
         return _enter_lanes(rebuild(voted_out), num_clones)
 
     wrapper.__name__ = f"{fname}_COAST_WRAPPER"
@@ -259,7 +266,7 @@ def lane_clone_after_call(fn: Callable, num_clones: int,
     fname = _name(fn, name)
 
     def wrapper(*args):
-        return _enter_lanes(fn(*_lane0(args, num_clones)), num_clones)
+        return _enter_lanes(fn(*_lane0(args, num_clones, fname)), num_clones)
 
     wrapper.__name__ = f"{fname}_CLONE_AFTER_CALL_1_2"
     return wrapper

@@ -84,7 +84,7 @@ def resolve_region(arg: str, **kw) -> Region:
     if arg.endswith(".c"):
         raise NotImplementedError(
             f"{arg}: C-source programs need the restricted-C lifter, "
-            "ROADMAP Queue A item 17")
+            "ROADMAP Queue A item 17d")
     if arg in UNPORTED:
         raise NotImplementedError(
             f"benchmark {arg!r} is not ported yet; see ROADMAP Queue A "

@@ -15,7 +15,10 @@ built with ``g++`` at first use by ``build.load_host``), byte for byte
 the Python formatter of ``inject/logs.py``.  A ``ctypes`` call releases
 the interpreter lock, so the streaming writer's thread encodes while the
 campaign's step loop dispatches.  A failed build raises; nothing falls
-back to the Python formatter.
+back to the Python formatter.  :func:`ndjson_classify_stream` is the read
+side, the class counts of a dense ndjson log in the same library
+(``coast_ndjson_classify``), which ``analysis/json_parser.py`` takes for
+a dense ndjson file.
 """
 
 from __future__ import annotations
@@ -197,6 +200,11 @@ def _ndjson_lib() -> ctypes.CDLL:
                            ctypes.c_int32, strs, strs, ctypes.c_char_p,
                            ctypes.c_char_p, ctypes.c_int64]
             fn.restype = ctypes.c_int64
+        i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.coast_ndjson_classify.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, i64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+        lib.coast_ndjson_classify.restype = ctypes.c_int64
         lib.coast_typed = True
     return lib
 
@@ -293,3 +301,48 @@ def _drain_encoded(encode, lo: int, hi: int, rows_per_chunk: int, buf,
         write(ctypes.string_at(buf, wrote))
         ENCODED_ROWS += j - i
         i = j
+
+
+#: Lines the native classifier has read in this process (a test reads it to
+#: see that a summary went through the library).
+CLASSIFIED_LINES = 0
+
+
+def ndjson_classify_stream(read_chunk, chunk_bytes: int = 32 << 20):
+    """Classify InjectionLog ndjson rows with ``coast_ndjson_classify``.
+
+    ``read_chunk(n)`` returns up to n bytes (an open binary file's
+    ``read``); a partial trailing line is carried into the next chunk.
+    Returns ``(counts[NUM_CLASSES], step_sum, step_n, n_lines)``; raises
+    ValueError if a line is not InjectionLog-shaped (the caller falls back
+    to the Python parser).  A failed build of the library raises."""
+    global CLASSIFIED_LINES
+    from coast_tpu_torch.inject.classify import NUM_CLASSES
+    lib = _ndjson_lib()
+    counts = np.zeros(NUM_CLASSES, np.int64)
+    step_sum = ctypes.c_int64(0)
+    step_n = ctypes.c_int64(0)
+    total = 0
+    carry = b""
+    while True:
+        chunk = read_chunk(chunk_bytes)
+        if not chunk:
+            buf, carry = carry, b""
+        else:
+            data = carry + chunk
+            cut = data.rfind(b"\n")
+            if cut < 0:
+                carry = data
+                continue
+            buf, carry = data[:cut + 1], data[cut + 1:]
+        if buf:
+            got = lib.coast_ndjson_classify(
+                buf, len(buf), counts, ctypes.byref(step_sum),
+                ctypes.byref(step_n))
+            if got < 0:
+                raise ValueError("not an InjectionLog ndjson stream")
+            total += got
+        if not chunk:
+            break
+    CLASSIFIED_LINES += total
+    return counts, int(step_sum.value), int(step_n.value), total

@@ -242,7 +242,9 @@ def commit_sites(sites: Sequence[hopper_commit.CommitSite], num_clones: int
     """Fused commit of every ``(lanes, masks)`` site of one sync point ->
     ``(repaired per site, voted per site, flags int32 [S, R])``, each as
     :func:`vote_flip_commit` gives it.  A CPU tensor takes the plain
-    version; a CUDA tensor makes one K2 launch or raises."""
+    version; a CUDA tensor makes one K2 launch or raises.  The caller tags
+    the lanes for a lint capture (``voters.tag_lanes``)."""
+    voters.note_sites("K2", [lanes for lanes, _ in sites])
     if sites[0][0].device.type == "cpu":
         return plain_commit_sites(sites, num_clones)
     return hopper_commit.commit_sites(sites, num_clones)

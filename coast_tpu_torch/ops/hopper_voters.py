@@ -10,7 +10,10 @@ CUDA tensor they launch the kernel or raise; there is no size floor and no
 fall back.  :func:`vote` and :func:`vote_window` are groups of one.
 
 ``LAUNCHES`` counts kernel launches (one per call on the card), so a run
-can show that its votes went through the kernel.
+can show that its votes went through the kernel.  Every call also counts
+its replica sets in ``voters.SITE_RECORDS`` (the card's site records, or
+the plain version's sites) and, while a lint capture records, tags each
+set with its sync class and ``coast:voter`` (``voters.tag_lanes``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ def vote_sites(sites: Sequence[Site], num_clones: int
     voted value is).  All sites share R and n; widths, types and windows
     may differ.  The written outputs are views of one fresh buffer."""
     global LAUNCHES
+    if voters.CAPTURE:
+        sites = [s._replace(lanes=voters.tag_lanes(s.lanes, s.tag))
+                 for s in sites]
+    voters.note_sites("K1", [s.lanes for s in sites])
     first = sites[0].lanes
     if first.device.type == "cpu":
         return voters.vote_sites(sites, num_clones)

@@ -25,7 +25,10 @@ The fill value is the reference's: ``INT32_MIN`` for an int32 array,
 ``0xFFFFFFFF`` for a uint32 one (int32 ``-1`` here).
 
 ``row_select`` / ``row_update`` are the counterparts of
-``coast_tpu/ops/indexing.py``.  Every function takes ``mat`` with a
+``coast_tpu/ops/indexing.py``.  As there, each function tags its index
+``coast:load_addr`` (a read) or ``coast:store_addr`` (a write) for the
+derived dataflow of ``passes/verification.py``: identities unless a lint
+capture records (``ops/voters.tag``).  Every function takes ``mat`` with a
 leading row axis ``R`` and indexes its axis 1; ``i`` holds one index a row
 (int32 ``[R]``) or, for the ``take`` forms, a vector of them ``[R, K]``.
 """
@@ -33,6 +36,10 @@ leading row axis ``R`` and indexes its axis 1; ``i`` holds one index a row
 from __future__ import annotations
 
 import torch
+
+from coast_tpu_torch.ops.voters import tag
+
+_LOAD, _STORE = "coast:load_addr", "coast:store_addr"
 
 
 def clamp_index(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -43,13 +50,13 @@ def clamp_index(i: torch.Tensor, n: int) -> torch.Tensor:
 
 def row_select(mat: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``mat[r, clamp(i[r])]`` for every row ``r`` (``i`` [R] or [R, K])."""
-    return _gather(mat, clamp_index(i, mat.shape[1]))
+    return _gather(mat, clamp_index(tag(i, _LOAD), mat.shape[1]))
 
 
 def row_update(mat: torch.Tensor, row: torch.Tensor,
                i: torch.Tensor) -> torch.Tensor:
     """A copy of ``mat`` with ``mat[r, clamp(i[r])] = row[r]``."""
-    ic = clamp_index(i, mat.shape[1])
+    ic = clamp_index(tag(i, _STORE), mat.shape[1])
     out = mat.clone()
     out[torch.arange(mat.shape[0], device=mat.device), ic] = row
     return out
@@ -60,7 +67,7 @@ def take_clip(mat: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     ``i`` is clamped into ``[0, n)``, a negative index reads element 0.
     ``i`` ``[R]`` gives ``[R, *mat.shape[2:]]``; ``[R, K]`` gives
     ``[R, K, *mat.shape[2:]]``."""
-    ic = torch.clamp(i.to(torch.int64), 0, mat.shape[1] - 1)
+    ic = torch.clamp(tag(i, _LOAD).to(torch.int64), 0, mat.shape[1] - 1)
     return _gather(mat, ic)
 
 
@@ -70,7 +77,7 @@ def take_fill(mat: torch.Tensor, i: torch.Tensor,
     negative wrap, then an index outside ``[0, n)`` reads the fill value
     (``INT32_MIN``, or ``0xFFFFFFFF`` for a uint32 array)."""
     n = mat.shape[1]
-    i = i.to(torch.int64)
+    i = tag(i, _LOAD).to(torch.int64)
     i = torch.where(i < 0, i + n, i)
     ok = (i >= 0) & (i < n)
     got = _gather(mat, torch.clamp(i, 0, n - 1))
@@ -88,7 +95,7 @@ def update_drop(mat: torch.Tensor, i: torch.Tensor,
     Each index wraps once when negative; a write with any index still
     outside its axis is dropped.  ``value`` is ``[R, *rest]`` for the
     element (row) written."""
-    i = i.to(torch.int64)
+    i = tag(i, _STORE).to(torch.int64)
     axes = 1 if i.dim() == 1 else i.shape[1]
     cols = i.view(i.shape[0], axes)
     ok = torch.ones(i.shape[0], dtype=torch.bool, device=mat.device)
@@ -111,7 +118,7 @@ def update_drop(mat: torch.Tensor, i: torch.Tensor,
 def lookup(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``table[i]`` for a constant (unbatched) table and a per-row index
     of any shape: ``a[i]``'s rule, one negative wrap, then a clamp."""
-    return table[clamp_index(i, table.shape[0])]
+    return table[clamp_index(tag(i, _LOAD), table.shape[0])]
 
 
 def _gather(mat: torch.Tensor, ic: torch.Tensor) -> torch.Tensor:

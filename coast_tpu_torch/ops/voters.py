@@ -16,6 +16,16 @@ This is the plain version of the Hopper kernel in ``ops/hopper_voters.py``;
 the engine always calls that wrapper, which comes here only for a tensor
 that lies on the CPU.  :func:`vote_sites` is the plain version of one
 grouped launch: every replica set of one sync point, one flag row each.
+
+The lint tags (the reference's ``checkpoint_name`` markers, the same tag
+strings): :func:`tag` is the identity unless a capture
+(``analysis/lint/capture.py``) is recording, and then it is the
+``coast_lint::tag`` operator, which the recorder sees.  Outside a
+capture a tag site costs one Python bool test and adds no torch operator
+to a trip.  The grouped voter wrappers tag every replica set they vote
+``coast:voter`` (and ``coast:sync:<class>:<leaf>`` when its
+:class:`Site` carries a class), so the linter reads sanctioned lane
+collapses and voter coverage from what a trip really dispatched.
 """
 
 from __future__ import annotations
@@ -25,6 +35,65 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 _EXPONENT = 0x7F800000
+
+# Tag namespace shared with analysis/lint (the reference's strings).
+TAG_VOTER = "coast:voter"
+TAG_SYNC = "coast:sync:"      # coast:sync:<class>:<leaf> -- classified vote
+TAG_SPOF = "coast:spof:"      # coast:spof:<fn> -- accepted single-lane call
+TAG_VIEW = "coast:view:"      # lane-0 views (DWC's voted view)
+
+#: True while a capture records a trip (analysis/lint/capture.py).
+CAPTURE = False
+#: Replica sets voted by the grouped voter wrappers (K1, K2 or their plain
+#: versions) since the last reset: the lint's voter-survival count.
+SITE_RECORDS = 0
+#: A list while ``opt -dumpModule=hlo`` records a trip's dispatch stream:
+#: each grouped voter call appends ``(kernel, [site shapes])``.
+STREAM: Optional[list] = None
+
+
+def tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity; while a capture records, the ``coast_lint::tag`` marker
+    (a CPU operator: a capture on a CUDA tensor raises)."""
+    if not CAPTURE:
+        return x
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            "a lint capture records CPU tensors only; this tag met a "
+            f"tensor on {x.device}")
+    return torch.ops.coast_lint.tag(x, name)
+
+
+def sync_tag(lanes: torch.Tensor, klass: str, leaf: str) -> torch.Tensor:
+    """Marks ``lanes`` as the input of a vote at sync class ``klass``
+    covering ``leaf`` (the linter's voter-coverage unit)."""
+    return tag(lanes, f"{TAG_SYNC}{klass}:{leaf}")
+
+
+def lane_view(lanes: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a replica set ``[R, n, ...]``, tagged as a sanctioned
+    view (DWC has no majority to vote: the compare latches divergence)."""
+    return tag(lanes, TAG_VIEW + "lane0")[:, 0]
+
+
+def note_sites(kernel: str, sets: Sequence[torch.Tensor]) -> None:
+    """Count one grouped voter call's replica sets (and record them in
+    :data:`STREAM` when it is a list)."""
+    global SITE_RECORDS
+    SITE_RECORDS += len(sets)
+    if STREAM is not None:
+        STREAM.append((kernel, [(tuple(x.shape), str(x.dtype))
+                                for x in sets]))
+
+
+def tag_lanes(lanes: torch.Tensor, klass: Optional[str]) -> torch.Tensor:
+    """A voted replica set's tags: its sync class (``"<class>:<leaf>"``,
+    when it has one), then ``coast:voter``.  Identity outside a capture."""
+    if not CAPTURE:
+        return lanes
+    if klass is not None:
+        lanes = tag(lanes, TAG_SYNC + klass)
+    return tag(lanes, TAG_VOTER)
 
 
 def _all_rows(x: torch.Tensor) -> torch.Tensor:
@@ -87,12 +156,16 @@ class Site(NamedTuple):
     of a ``[R, n, L]`` set (:func:`window`).  ``copy`` (DWC only) writes
     lane 0 out as a fresh tensor; without it a DWC vote is a flags-only
     check whose voted value is the lane-0 view of a whole leaf and None
-    for a window.  A TMR vote always writes its voted value."""
+    for a window.  A TMR vote always writes its voted value.  ``tag`` is
+    the vote's sync class and leaf, ``"<class>:<leaf>"`` (the reference's
+    ``coast:sync:`` tag), read by the linter; None for an unclassified
+    vote (a view's)."""
 
     lanes: torch.Tensor
     offsets: Optional[torch.Tensor] = None
     width: Optional[int] = None
     copy: bool = False
+    tag: Optional[str] = None
 
 
 def vote_sites(sites: Sequence[Site], num_clones: int

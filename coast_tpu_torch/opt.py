@@ -13,11 +13,19 @@ reference does.
 with one flip (``-inject=leaf:lane:word:bit:t``), and prints the guest's
 ``C: E: F: T:`` line with the reference's exit codes: 134 and a hook line
 on stderr for a stack-overflow or assert trip, a DWC or CFCSS abort; 124
-for a timeout; else the error count (at most 100).  What needs a walk of
-the step's graph (``-dumpModule``, ``-lintOut``, ``-propOut`` and the
-replication-integrity gate the reference runs before every TMR/DWC build)
-is ROADMAP Queue A item 17: the first three exit 2 naming it, and the
-gate is not run.
+for a timeout; else the error count (at most 100).
+
+Every TMR or DWC build runs the replication-integrity gate first (the
+provenance rules of ``analysis/lint`` over a CPU capture of the step, the
+reference's ``verifyCloningSuccess`` check): an error finding refuses the
+build with exit 1 unless ``-noCloneOpsCheck`` is given.
+``-lintOut=<path>`` writes the report for any build.  ``-dumpModule`` (or
+``-dumpModule=jaxpr``) prints the captured graph of the step's first trip;
+``-dumpModule=hlo`` prints the operation stream one trip dispatches on the
+device, the aten operations and the K1/K2 launches with their site
+records -- the closest the port has to the reference's compiled module.
+``-propOut`` (the static propagation map) is ROADMAP Queue A item 17c and
+exits 2.
 """
 
 from __future__ import annotations
@@ -149,8 +157,12 @@ def build_overrides(flags: Dict[str, object]) -> Dict[str, object]:
     return overrides
 
 
-# Flags whose reference behaviour walks the step's graph (ROADMAP item 17).
-_GRAPH_FLAGS = ("dumpModule", "lintOut", "propOut")
+#: The usage text's note on -dumpModule's two formats.
+_DUMP_HELP = ("-dumpModule[=jaxpr] prints the captured graph of the step; "
+              "-dumpModule=hlo prints the operation stream one trip "
+              "dispatches on the device (aten operations and K1/K2 "
+              "launches with their site records), the closest the port "
+              "has to a compiled module")
 
 
 def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
@@ -166,14 +178,19 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     if len(positional) != 1 or positional[0] not in {**REGISTRY,
                                                      **UNPORTED}:
         print("usage: python -m coast_tpu_torch.opt [-TMR|-DWC] [flags] "
-              f"<benchmark>\nbenchmarks: {', '.join(sorted(REGISTRY))}",
+              f"<benchmark>\n{_DUMP_HELP}\n"
+              f"benchmarks: {', '.join(sorted(REGISTRY))}",
               file=sys.stderr)
         return 2
-    for name in _GRAPH_FLAGS:
-        if name in flags:
-            print(f"ERROR: -{name} is not ported yet; see ROADMAP Queue A "
-                  "item 17 (graph walks of the step)", file=sys.stderr)
-            return 2
+    if "propOut" in flags:
+        print("ERROR: -propOut is not ported yet; see ROADMAP Queue A item "
+              "17c (the static propagation map)", file=sys.stderr)
+        return 2
+    dump = flags.get("dumpModule")
+    if dump not in (None, True, "jaxpr", "hlo"):
+        print(f"ERROR: -dumpModule={dump}: format must be jaxpr or hlo",
+              file=sys.stderr)
+        return 2
     strategies = [s for s in ("TMR", "DWC", "EDDI") if flags.get(s)]
     if len(strategies) > 1:
         print(f"ERROR: choose one of -TMR/-DWC/-EDDI, got {strategies}",
@@ -221,6 +238,36 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         for name in sorted(region.spec):
             print(f"# leaf {name}: kind={region.spec[name].kind} "
                   f"replicated={prog.replicated[name]}", file=sys.stderr)
+
+    # The replication-integrity gate (verifyCloningSuccess analogue): the
+    # provenance rules run on every protected build and refuse to run the
+    # program on an error; -noCloneOpsCheck disables it, -lintOut writes
+    # the report either way.  The survival pass stays with the lint CLI and
+    # the campaign pre-flight.
+    trips = None
+    gate = strategy in ("TMR", "DWC") and not flags.get("noCloneOpsCheck")
+    if "lintOut" in flags or gate:
+        from coast_tpu_torch.analysis import lint as lint_mod
+        trips = lint_mod.trace_step(prog)
+        report = lint_mod.lint_program(
+            prog, survival=False, strategy=strategy or "unprotected",
+            closed=trips)
+        if "lintOut" in flags:
+            report.write_json(flags["lintOut"])          # type: ignore
+        if gate and not report.ok:
+            print(report.format(include_notes=False), file=sys.stderr)
+            print("ERROR: replication-integrity check failed; rerun with "
+                  "-noCloneOpsCheck to bypass", file=sys.stderr)
+            return 1
+    if dump is not None:
+        from coast_tpu_torch.analysis.lint import capture
+        if dump == "hlo":
+            print(capture.dispatch_stream(prog))
+        else:
+            if trips is None:
+                trips = capture.capture_run(prog, max_trips=1)
+            print(capture.format_trip(trips[0]))
+
     fault = None
     if "inject" in flags:
         try:

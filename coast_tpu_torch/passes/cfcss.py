@@ -35,6 +35,7 @@ import torch
 
 from coast_tpu_torch.ir.graph import BlockGraph
 from coast_tpu_torch.native import cfcss_assign
+from coast_tpu_torch.ops import voters
 from coast_tpu_torch.ops.indexing import clamp_index
 
 # The CFCSS runtime leaves (the reference's BasicBlockSignatureTracker and
@@ -63,19 +64,27 @@ def apply_cfcss(prog):
     graph.validate()
 
     tables = cfcss_assign(graph.n, graph.edges, sig_bits=SIG_BITS)
-    dev = prog.device
-    sigs = _words(tables["sigs"], dev)
-    diffs = _words(tables["diffs"], dev)
-    dedge = _words(tables["dedge"], dev)
-    fanin = torch.from_numpy(tables["fanin"]).to(dev)
     n_blocks = graph.n
     n_lanes = prog.cfg.num_clones
+    # The tables on each device the program runs on (made once a device:
+    # a lint capture runs a card's program on the CPU).
+    on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def tabs():
+        dev = prog.device
+        if dev not in on_device:
+            on_device[dev] = (
+                _words(tables["sigs"], dev), _words(tables["diffs"], dev),
+                _words(tables["dedge"], dev),
+                torch.from_numpy(tables["fanin"]).to(dev))
+        return on_device[dev]
 
     def cfcss_init(batch: int) -> Dict[str, torch.Tensor]:
         # G starts at the entry signature, prev at the entry block.
+        sigs = tabs()[0]
         return {G_LEAF: sigs[0].expand(batch, n_lanes).clone(),
                 PREV_LEAF: torch.zeros(batch, n_lanes, dtype=torch.int32,
-                                       device=dev)}
+                                       device=prog.device)}
 
     def cfcss_step(region_state, tracker, cfc_fault: torch.Tensor,
                    halted: torch.Tensor
@@ -86,11 +95,13 @@ def apply_cfcss(prog):
         v = graph.block_of(prog.row_view(region_state, batch)).reshape(
             batch, -1).expand(batch, n_lanes)
         g, prev = tracker[G_LEAF], tracker[PREV_LEAF]
+        sigs, diffs, dedge, fanin = tabs()
         vi = clamp_index(v, n_blocks)
         adj = torch.where(fanin[vi], dedge[clamp_index(prev, n_blocks), vi],
                           0)
         g_new = g ^ diffs[vi] ^ adj
-        mismatch = (g_new != sigs[vi]).any(dim=1)
+        mismatch = voters.sync_tag(g_new != sigs[vi], "cfcss",
+                                   G_LEAF).any(dim=1)
         cfc_fault = cfc_fault | (~halted & mismatch)
         keep = halted[:, None]
         return ({G_LEAF: torch.where(keep, g, g_new),

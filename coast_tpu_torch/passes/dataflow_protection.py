@@ -61,7 +61,8 @@ from coast_tpu_torch.interop import fault_from_numpy
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_OPT_STATE,
                                        KIND_PARAM, KIND_RO, KIND_STACK,
                                        FnNamespace, Region, State, rows)
-from coast_tpu_torch.ops import bitflip, fused_step, hopper_voters, site_table
+from coast_tpu_torch.ops import (bitflip, fused_step, hopper_voters,
+                                 site_table, voters)
 from coast_tpu_torch.ops.voters import Site
 from coast_tpu_torch.passes.verification import analyze, verify_options
 
@@ -521,7 +522,7 @@ class ProtectedProgram:
                 return arr
             if self.region.spec[name].kind == KIND_CTRL and tmr:
                 return _vote_one(arr)
-            return arr[:, 0]
+            return voters.lane_view(arr)
 
         return _LazyView(region_state, leaf)
 
@@ -551,7 +552,7 @@ class ProtectedProgram:
         start0 = torch.clamp(torch.where(start0 < 0, start0 + shape[0],
                                          start0), 0, shape[0] - size0)
         site = Site(out.view(batch, n, -1), (start0 * rest).to(torch.int32),
-                    size0 * rest)
+                    size0 * rest, tag=f"{self._sync_class_of(name)}:{name}")
         return site, _Window(start0, size0, rest, active)
 
     def _slice_repair(self, name: str, out: torch.Tensor, fresh: bool,
@@ -595,9 +596,14 @@ class ProtectedProgram:
         laned_rows = n > 1 and self._any_replicated
 
         def leaf(name, arr):
+            # Every leaf a guard reads is tagged a guard sync (the
+            # reference's coast:sync:guard:<leaf>): its any() over the
+            # lanes is a sanctioned collapse.
             out = laned.get(name)
             if out is None:
-                return self.row_view({name: arr}, batch)[name]
+                return self.row_view(
+                    {name: voters.sync_tag(arr, "guard", name)}, batch)[name]
+            out = voters.sync_tag(out, "guard", name)
             return out.reshape(batch * n, *out.shape[2:]) if laned_rows \
                 else out
 
@@ -613,18 +619,22 @@ class ProtectedProgram:
             trips.append(~halted & hit)
         return trips[0], trips[1]
 
-    def _vote_repair(self, lanes: List[torch.Tensor]
+    def _vote_repair(self, lanes: List[torch.Tensor], tags: List[str]
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                                 torch.Tensor]:
         """TMR votes of one sync point and the repairs after them ->
-        ``(repaired lanes, voted, flags [S, R])``.  The fused engine makes
-        them one fused commit (one K2 launch on the card)."""
+        ``(repaired lanes, voted, flags [S, R])``; ``tags`` are the votes'
+        sync classes (:attr:`Site.tag`).  The fused engine makes them one
+        fused commit (one K2 launch on the card)."""
         if self._fuse_plan is None:
             voted, mis = _grouped(hopper_voters.vote_sites,
-                                  [Site(x) for x in lanes], 3)
+                                  [Site(x, tag=k)
+                                   for x, k in zip(lanes, tags)], 3)
             return ([_repair(v, x.shape) for v, x in zip(voted, lanes)],
                     voted, mis)
-        return _grouped(fused_step.commit_sites, [(x, None) for x in lanes], 3)
+        return _grouped(fused_step.commit_sites,
+                        [(voters.tag_lanes(x, k), None)
+                         for x, k in zip(lanes, tags)], 3)
 
     def step(self, pstate: State, flags: Flags, t: int) -> Tuple[State, Flags]:
         cfg = self.cfg
@@ -648,12 +658,14 @@ class ProtectedProgram:
         # vote for every such leaf.
         if self._pre_names:
             lanes = [region_state[name] for name in self._pre_names]
+            tags = [f"load_addr:{name}" for name in self._pre_names]
             if n == 3:
-                repaired, _, mis = self._vote_repair(lanes)
+                repaired, _, mis = self._vote_repair(lanes, tags)
                 region_state.update(zip(self._pre_names, repaired))
             else:
                 _, mis = _grouped(hopper_voters.vote_sites,
-                                  [Site(x) for x in lanes], n)
+                                  [Site(x, tag=k)
+                                   for x, k in zip(lanes, tags)], n)
             miscompares.append(mis)
             syncs += len(self._pre_names)
 
@@ -730,7 +742,8 @@ class ProtectedProgram:
                     else:
                         # TMR: the repair follows the grouped vote; DWC: a
                         # flags-only check.
-                        sites.append(Site(out))
+                        sites.append(Site(
+                            out, tag=f"{self._sync_class_of(name)}:{name}"))
                         roles.append((name, None))
                         syncs += 1
             elif not written:
@@ -757,12 +770,14 @@ class ProtectedProgram:
                 # the single store.  Its value becomes committed state, so
                 # DWC writes lane 0 out: an in-place flip must not reach
                 # into the lanes' storage.
-                sites.append(Site(laned[name], copy=True))
+                sites.append(Site(laned[name], copy=True,
+                                  tag=f"sor_crossing:{name}"))
                 roles.append((name, None))
                 syncs += 1
         if repair:
             repaired, voted, mis = self._vote_repair(
-                [new_state[name] for name in repair])
+                [new_state[name] for name in repair],
+                [f"{self._sync_class_of(name)}:{name}" for name in repair])
             for name, lanes, value in zip(repair, repaired, voted):
                 new_state[name] = lanes
                 commits[name] = value
@@ -861,7 +876,7 @@ class ProtectedProgram:
                 if votes and name in votes:
                     return votes[name]
                 return _vote_one(arr)
-            return arr[:, 0]
+            return voters.lane_view(arr)
 
         return _LazyView(pstate, leaf)
 
@@ -877,7 +892,8 @@ class ProtectedProgram:
             return {k: v[:, 0] if self.replicated[k] else v
                     for k, v in pstate.items()}, None
         voted, mis = _grouped(hopper_voters.vote_sites,
-                              [Site(pstate[name]) for name in names],
+                              [Site(pstate[name], tag=f"boundary:{name}")
+                               for name in names],
                               self.cfg.num_clones)
         view = dict(pstate)
         view.update(zip(names, voted))
@@ -1045,12 +1061,16 @@ class ProtectedProgram:
             {name: pstate[name] for name in self.region.spec}))
 
     def run(self, fault: Optional[Mapping[str, object]] = None,
-            trace: bool = False, return_state: bool = False
-            ) -> Dict[str, torch.Tensor]:
+            trace: bool = False, return_state: bool = False,
+            unroll: int = 1) -> Dict[str, torch.Tensor]:
         """Run one injection to completion; a batch of one.  ``fault`` keys:
         leaf_id, lane, word, bit, t: ints or 0-d arrays for one site,
         vectors of shape [sites] for a flip group.  ``trace`` and
-        ``return_state`` as in :meth:`run_batch`."""
+        ``return_state`` as in :meth:`run_batch`.  ``unroll`` is the
+        reference's early-exit loop unroll, clamped to ``max(1, int(
+        unroll))``; the loop stops on the same trip whatever its value, so
+        it changes no record."""
+        max(1, int(unroll))         # validated as the reference clamps it
         cols = None
         if fault is not None:
             cols = {}

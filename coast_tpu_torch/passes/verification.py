@@ -2,18 +2,32 @@
 region's dataflow facts the sync tables are built from.
 
 The counterpart of ``coast_tpu/passes/verification.py``.  The reference
-derives :class:`RegionDataflow` by walking the step's jaxpr; this slice has
-no graph walker (ROADMAP Queue A item 17), so each ported region declares
-its dataflow in ``meta["dataflow"]`` and the tests hold the declaration
-equal to the reference's ``analyze()`` of the JAX twin.
+derives :class:`RegionDataflow` by walking the step's jaxpr; the port
+derives it from a capture of the bare step (``analysis/lint/capture.py``):
+the aten operations of a few calls on a two-row CPU image, one a ``t`` in
+``0 .. DERIVE_TRIPS - 1`` (so a step's Python phase gates on ``t`` show
+both ways), their union standing for the jaxpr's branches.  A leaf is
+*written* when a call returns a value other than its input; its ``deps``
+are the leaves that reach that value; ``load_addr`` / ``store_addr`` are
+the leaves reaching the index operand of a read (``index``, ``gather``,
+``index_select``) or a write (``index_put``, ``scatter``), or an index
+``ops/indexing.py`` tags ``coast:load_addr`` / ``coast:store_addr``.  An
+operator whose value is its shape alone (``zeros_like``) carries no
+provenance, and ``copy_`` carries its source's.
+
+Each ported region also declares its dataflow in ``meta["dataflow"]``
+(held equal to the reference's ``analyze()`` of the JAX twin by the
+tests).  The declaration is a check: :func:`analyze` raises
+:class:`SoRViolation` naming the region and the leaf where the derived
+facts leave it (see there for why the check is one-sided).  The
+derivation runs once a region object.
 
 ``verify_options`` ports the rule checks that concern the scope lists
 (``ignore_globals`` / ``xmr_globals``, the function-scope lists,
 ``-isrFunctions`` and ``-runtimeInitGlobals``) and the read-only / control
 rules they interact with; violations raise :class:`SoRViolation` with the
-reference's messages.  A region with named sub-functions declares the
-dataflow of its step with the raw functions bound, as the reference's
-analysis sees it.
+reference's messages.  A region with named sub-functions is analysed with
+the raw functions bound, as the reference's analysis sees it.
 """
 
 from __future__ import annotations
@@ -51,14 +65,174 @@ class RegionDataflow:
     store_addr: FrozenSet[str] = frozenset()
 
 
+#: Calls of the bare step the derivation captures (t = 0, 1, ...).
+DERIVE_TRIPS = 2
+# (name, step code, declared facts) of every declaration checked so far.
+_CHECKED: Set[tuple] = set()
+
+# aten operators that read at an index / write at one, and which of their
+# arguments holds the index.
+_LOAD_INDEX = {"index": 1, "gather": 2, "index_select": 2, "take": 1,
+               "embedding": 1}
+_STORE_INDEX = {"index_put": 1, "index_put_": 1, "_index_put_impl_": 1,
+                "scatter": 2, "scatter_": 2, "scatter_add": 2,
+                "scatter_add_": 2, "scatter_reduce": 2, "scatter_reduce_": 2,
+                "index_copy": 2, "index_copy_": 2, "index_add": 2,
+                "index_add_": 2}
+
+
+def _refs(arg) -> List[int]:
+    from coast_tpu_torch.analysis.lint.capture import Ref
+    if isinstance(arg, Ref):
+        return [int(arg)]
+    if isinstance(arg, (list, tuple)):
+        return [int(a) for a in arg if isinstance(a, Ref)]
+    return []
+
+
+def _trip_flow(trip):
+    """Leaf provenance through one captured call -> ``(written, deps,
+    load, store)``."""
+    from coast_tpu_torch.analysis.lint.capture import SHAPE_ONLY
+    src: Dict[int, FrozenSet[str]] = {
+        vid: frozenset({name}) for name, vid in trip.state_in.items()}
+    load: Set[str] = set()
+    store: Set[str] = set()
+    # Values made from an ops/indexing index: its tag already gave their
+    # role (update_drop's internal read at the store index is not a load).
+    tagged: Set[int] = set()
+
+    def deps_of(vids) -> Set[str]:
+        out: Set[str] = set()
+        for v in vids:
+            out |= src.get(v, frozenset())
+        return out
+
+    for node in trip.nodes:
+        op = node.packet
+        for table, role in ((_LOAD_INDEX, load), (_STORE_INDEX, store)):
+            if op in table and len(node.args) > table[op]:
+                role |= deps_of([v for v in _refs(node.args[table[op]])
+                                 if v not in tagged])
+        tag = node.tag
+        if tag == "coast:load_addr":
+            load |= deps_of(node.ins[:1])
+        elif tag == "coast:store_addr":
+            store |= deps_of(node.ins[:1])
+        if tag in ("coast:load_addr", "coast:store_addr") or any(
+                v in tagged for v in node.ins):
+            tagged.update(node.outs)
+        if op in SHAPE_ONLY:
+            out = frozenset()
+        elif op in ("copy_", "copy"):
+            out = frozenset(deps_of(node.ins[-1:]))
+        else:
+            out = frozenset(deps_of(node.ins))
+        for vid in node.outs:
+            src[vid] = out
+    written = set()
+    deps: Dict[str, FrozenSet[str]] = {}
+    for name, vid in trip.state_out.items():
+        if vid != trip.state_in.get(name):
+            written.add(name)
+            deps[name] = src.get(vid, frozenset())
+    return written, deps, load, store
+
+
+def derive(region: Region) -> RegionDataflow:
+    """The region's dataflow, from captures of its bare step."""
+    import torch
+
+    from coast_tpu_torch.analysis.lint.capture import capture_fn
+    image = region.init(torch.device("cpu"))
+    state = {k: v.expand(2, *v.shape).clone() for k, v in image.items()}
+    step = region.bound_step()
+    written: Set[str] = set()
+    deps: Dict[str, Set[str]] = {}
+    load: Set[str] = set()
+    store: Set[str] = set()
+    for t in range(DERIVE_TRIPS):
+        trip = capture_fn(step, state, t)
+        w, d, ld, st = _trip_flow(trip)
+        written |= w
+        for name, got in d.items():
+            deps.setdefault(name, set()).update(got)
+        load |= ld
+        store |= st
+        with torch.no_grad():
+            state = {**state, **step(dict(state), t)}
+    return RegionDataflow(
+        written=frozenset(written),
+        deps={name: (frozenset(deps.get(name, ())) if name in written
+                     else frozenset({name})) for name in region.spec},
+        load_addr=frozenset(load), store_addr=frozenset(store))
+
+
 def analyze(region: Region) -> RegionDataflow:
-    """The region's declared dataflow (``meta["dataflow"]``)."""
-    flow = region.meta.get("dataflow")
-    if flow is None:
-        raise NotImplementedError(
-            f"region {region.name} declares no meta['dataflow']; deriving it "
-            "from the step is ROADMAP Queue A item 17")
-    return flow
+    """The region's dataflow facts: derived from its step (:func:`derive`)
+    and, where the region declares ``meta["dataflow"]``, held against the
+    declaration, which is then what the sync tables read.
+
+    The declaration is the reference's ``analyze()`` of the JAX twin, and
+    the reference's walk over-approximates: JAX caches one sub-jaxpr for
+    each ``jnp.where``/``jnp.clip``-style helper, and its walk seeds that
+    sub-jaxpr's inputs with the union of every call site's provenance (in
+    crc16, ``i = where(i < n, i + 1, i)`` reads as depending on ``crc`` and
+    ``msg`` because ``crc``'s update goes through the same ``_where``).  So
+    the check is one-sided: the derived ``written`` set must equal the
+    declared one, and every derived dependency and address role must be
+    declared; a declared fact the step does not show is the reference's
+    over-approximation and is kept, since the port's sync tables must
+    equal the reference's.  A derived fact the declaration lacks raises
+    :class:`SoRViolation` naming the region and the leaf."""
+    flow = getattr(region, "_checked_dataflow", None)
+    if flow is not None:
+        return flow
+    declared = region.meta.get("dataflow")
+    # A declaration checked once holds for every region object of the same
+    # name, step code and declared facts (a registry factory's instances).
+    key = declared and (region.name, getattr(region.step, "__code__", None),
+                        declared.written, declared.load_addr,
+                        declared.store_addr,
+                        tuple(sorted(declared.deps.items())))
+    if declared is None or key not in _CHECKED:
+        derived = derive(region)
+        if declared is None:
+            region._checked_dataflow = derived
+            return derived
+        errors = _mismatches(region, declared, derived)
+        if errors:
+            raise SoRViolation(errors)
+        _CHECKED.add(key)
+    region._checked_dataflow = declared
+    return declared
+
+
+def _mismatches(region: Region, declared: RegionDataflow,
+                derived: RegionDataflow) -> List[str]:
+    """Where the derived facts leave the declaration."""
+    errors = []
+    for name in sorted(region.spec):
+        if (name in declared.written) != (name in derived.written):
+            errors.append(
+                f"region '{region.name}' declares leaf '{name}' "
+                f"{'written' if name in declared.written else 'unwritten'}"
+                ", but its step "
+                f"{'passes it through' if name in declared.written else 'writes it'}")
+        for fact in ("load_addr", "store_addr"):
+            if (name in getattr(derived, fact)
+                    and name not in getattr(declared, fact)):
+                errors.append(
+                    f"region '{region.name}' does not declare leaf "
+                    f"'{name}' in {fact}, but its step indexes with it")
+        extra = (derived.deps.get(name, frozenset({name}))
+                 - declared.deps.get(name, frozenset({name})))
+        if extra:
+            errors.append(
+                f"region '{region.name}' declares leaf '{name}' to depend "
+                f"on {sorted(declared.deps.get(name, frozenset({name})))}"
+                f", but its step also reads {sorted(extra)}")
+    return errors
 
 
 def _scope_excluded(region: Region, cfg, name: str) -> bool:

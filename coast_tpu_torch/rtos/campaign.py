@@ -14,9 +14,11 @@ It exits 1 when the campaign recorded no stack-overflow or no assert DUE.
         [--device cuda] [--out record.json]
 
 ``--out`` writes the record there and a columnar campaign log beside it
-(``<out>_log.json``).  The reference's per-symbol table comes from its
-log parser (``analysis/json_parser``), which the port does not have yet
-(ROADMAP Queue A item 21).
+(``<out>_log.json``), and prints the log's summary and per-symbol table,
+which the record keeps as ``per_symbol``: the port's log parser
+(``coast_tpu_torch/analysis/json_parser.py``), as the reference's script
+reads its log with its own.  The campaign starts behind the lint's static
+pre-flight (``preflight="static"``).
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from coast_tpu_torch.inject.campaign import CampaignRunner
     prog = canonical_prog(args.benchmark,
                           3 if args.strategy == "TMR" else 2, args.device)
-    runner = CampaignRunner(prog, strategy_name=args.strategy)
+    runner = CampaignRunner(prog, strategy_name=args.strategy,
+                            preflight="static")
     res = runner.run(args.n, seed=args.seed, batch_size=args.batch)
     record = {
         "metric": "rtos_campaign",
@@ -132,6 +135,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         log_path = os.path.splitext(args.out)[0] + "_log.json"
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         write_columnar(res, runner.mmap, log_path)
+        from coast_tpu_torch.analysis import json_parser as jp
+        print(jp.summarize_path(log_path).format())
+        table = jp.section_stats([jp.read_json_file(log_path)])
+        print(jp.format_section_stats(table))
+        record["per_symbol"] = table
         record["log"] = os.path.basename(log_path)
         with open(args.out, "w") as fh:
             json.dump(record, fh, indent=1, sort_keys=True)

@@ -208,6 +208,11 @@ def test_reference_parser_reads_port_logs(name, fmt, campaigns, tmp_path):
     got, want = json_parser.summarize_path(a), json_parser.summarize_path(b)
     assert got.n == want.n == res.n
     assert got.counts == want.counts
+    # The port's own parser reads both packages' logs the same way.
+    from coast_tpu_torch.analysis import json_parser as port_parser
+    for path in (a, b):
+        mine = port_parser.summarize_path(path)
+        assert (mine.n, mine.counts) == (want.n, want.counts)
 
 
 def test_atomic_writers_never_truncate(campaigns, tmp_path, monkeypatch):

@@ -15,6 +15,7 @@ both supervisors; the opt CLI exits as the reference's does.
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -350,7 +351,15 @@ def test_campaign_cli(tmp_path, capsys):
                              "cpu", "--out", str(out)])
     assert rc == 0
     assert out.exists() and (tmp_path / "rtos_log.json").exists()
-    assert '"due_sub_buckets"' in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert '"due_sub_buckets"' in printed
+    # The per-symbol table is the port's parser's, over the written log.
+    from coast_tpu_torch.analysis import json_parser as jp
+    table = jp.section_stats([jp.read_json_file(
+        str(tmp_path / "rtos_log.json"))])
+    assert json.loads(out.read_text())["per_symbol"] == json.loads(
+        json.dumps(table))
+    assert jp.format_section_stats(table) in printed
 
 
 # -- the supervisor's -s stack and the opt CLI ------------------------------
@@ -419,7 +428,7 @@ def test_opt_cli_stack_overflow_exit(capsys):
         == got.err.splitlines()[-1]
 
 
-def test_opt_cli_prints_like_reference(capsys):
+def test_opt_cli_prints_like_reference(capsys, tmp_path):
     from coast_tpu.opt import main as jopt_main
     from coast_tpu_torch.opt import main as opt_main
     argv = ["-TMR", "-countSyncs", "-ExitMarker", "-SmallProfile",
@@ -428,9 +437,15 @@ def test_opt_cli_prints_like_reference(capsys):
     got = capsys.readouterr().out
     assert jopt_main(argv) == 0
     assert got == capsys.readouterr().out
-    assert opt_main(["-TMR", "-lintOut=x.json", "rtos_mm"],
+    # -lintOut writes the gate's report; -propOut waits for item 17c.
+    out = tmp_path / "x.json"
+    assert opt_main(["-TMR", f"-lintOut={out}", "rtos_mm"],
+                    device="cpu") == 0
+    assert json.loads(out.read_text())["ok"] is True
+    capsys.readouterr()
+    assert opt_main(["-TMR", f"-propOut={tmp_path / 'p.json'}", "rtos_mm"],
                     device="cpu") == 2
-    assert "item 17" in capsys.readouterr().err
+    assert "item 17c" in capsys.readouterr().err
 
 
 OTHER_CONFIGS = {

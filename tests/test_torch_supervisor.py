@@ -161,6 +161,14 @@ CAMPAIGNS = {
         "-f", "stencil", "--placement", "link", "-s", "registers", "-t",
         "96", "--batch-size", "48", "--stream-logs", "--log-format",
         "reference"],
+    # --unroll N: the reference's early-exit loop unroll, clamped to >= 1
+    # and classification-identical at any value.
+    "t_mm_tmr_unroll2": ["-f", "matrixMultiply", "-O", "-TMR", "-t", "160",
+                         "--batch-size", "80", "--seed", "3", "--unroll",
+                         "2"],
+    "t_crc16_dwc_unroll4_ndjson": ["-f", "crc16", "-O", "-DWC", "-t", "128",
+                                   "--batch-size", "64", "--unroll", "4",
+                                   "--log-format", "ndjson"],
     "stratified_stencil_link_placement": [
         "-f", "stencil", "--placement", "link", "-t", "120", "--stratified",
         "--log-format", "ndjson"],
@@ -214,8 +222,11 @@ def cut_journal(path, batches):
      "--log-format", "ndjson", "--stream-logs"],
     ["-f", "stencil", "-O", "-DWC -fuseStep", "-t", "300", "--batch-size",
      "60", "--collect", "sparse", "--mesh", "4", "--log-format", "json"],
+    ["-f", "crc16", "-O", "-TMR", "-t", "240", "--batch-size", "60",
+     "--seed", "2", "--unroll", "2", "--log-format", "ndjson"],
 ], ids=["mm_tmr_dense", "crc16_dwc_fused_sparse", "motion_tmr_pallas_voters",
-        "stencil_link_mesh2_streamed", "stencil_dwc_fused_sparse_mesh4"])
+        "stencil_link_mesh2_streamed", "stencil_dwc_fused_sparse_mesh4",
+        "crc16_tmr_unroll2"])
 def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
     """A journal cut after two batches resumes under the other package to
     the uninterrupted run's summary and log."""
@@ -259,7 +270,6 @@ UNPORTED = [
     (["--trace-out", "trace.json"], "item 18"),
     (["--profile"], "item 18"),
     (["--slo", "sdc<0.1"], "item 19"),
-    (["--unroll", "2"], "scan"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
     (["-f", "prog.c"], "item 17"),
 ]

@@ -400,16 +400,19 @@ def campaign(regions):
 
 def test_logs_read_back_through_reference_parser(campaign, tmp_path):
     from coast_tpu.analysis import json_parser as jp
+    from coast_tpu_torch.analysis import json_parser as port_jp
     res, runner = campaign
     logs.write_json(res, runner.mmap, str(tmp_path / "a.json"))
     logs.write_ndjson(res, runner.mmap, str(tmp_path / "b.ndjson.json"))
     logs.write_columnar(res, runner.mmap, str(tmp_path / "c.json"))
     for fname in ("a.json", "b.ndjson.json", "c.json"):
-        s = jp.summarize_path(str(tmp_path / fname))
-        assert s.n == res.n, fname
-        for c in jp._CLASSES:
-            assert s.counts[c] == res.counts.get(c, 0), (fname, c)
-        assert s.error_rate == res.counts["train_sdc"] / res.n
+        # The reference's parser and the port's own read the same counts.
+        for parser in (jp, port_jp):
+            s = parser.summarize_path(str(tmp_path / fname))
+            assert s.n == res.n, fname
+            for c in jp._CLASSES:
+                assert s.counts[c] == res.counts.get(c, 0), (fname, c)
+            assert s.error_rate == res.counts["train_sdc"] / res.n
     doc = jp.read_json_file(str(tmp_path / "a.json"))
     seen = set()
     for i, run in enumerate(doc["runs"]):
