@@ -176,6 +176,22 @@ Phases, in order; any failure exits non-zero:
      (``artifacts/lint_sweep.json``); ``preflight="static"`` refuses a
      lane-averaging mutant built on the card; a crc16 TMR campaign at
      ``unroll=2`` equals one at ``unroll=1``, record for record;
+ 27. equivalence-reduced and delta campaigns (run before phase 18; the
+     partition is derived on the host from the captured step, the
+     campaigns run on the card): the reference's recorded parity study
+     (``artifacts/equiv_study.json``, read as data: matrixMultiply and
+     crc16, TMR and DWC, 16,384 at seed 2026) exhaustive and reduced,
+     counts, physical rows and section modes equal to the record;
+     matrixMultiply1024 TMR and DWC, 512 rows at 128, every class one
+     outcome but those a zero float word splits at the compare's flush to
+     zero (counted and shown); crc16 TMR fused reduced = unfused reduced
+     (K2 launched), matrixMultiply TMR reduced sparse = reduced dense with
+     the log's weights; delta campaigns from a 4096-row journal (a
+     rebuilt crc16 re-injects no row, a matrixMultiply whose check xors
+     golden with 0 re-injects golden's rows only), card fingerprints =
+     host fingerprints; the CLI's ``--equiv`` on the card = on the host,
+     ``--delta-from`` re-injecting no row, ``--static-budget`` exiting 2;
+     a two-shard mesh on cuda:0 with equiv = the single device;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -185,8 +201,8 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-26, K2 those of phases 7b, 9-12, 14-17, 19-23, 25 and
-26 (each
+9-12, 14-17 and 19-27, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+25-27 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
 coast_tpu package.
@@ -1179,7 +1195,9 @@ def finish_cli(proc: subprocess.Popen, what: str, expect_ok: bool = True,
              f"{err.strip()[-3000:]}")
     dicts = [ln for ln in out.splitlines() if ln.startswith("{")]
     return {**report, "rc": proc.returncode, "out": out, "err": err,
-            "summary": ast.literal_eval(dicts[-1]) if dicts else None}
+            "summary": (ast.literal_eval(re.sub(r"(?<=: )inf\b", "1e999",
+                                                dicts[-1]))
+                        if dicts else None)}
 
 
 def run_cli(argv, board: str, what: str, **kw) -> dict:
@@ -2670,6 +2688,293 @@ def parse_and_lint(work: Path, card: str, TMR, DWC, REGISTRY,
     return tuple(launches)
 
 
+# The reference's recorded parity study (artifacts/equiv_study.json, read as
+# data): 16,384 injections at seed 2026 a cell.
+EQUIV_CELLS = (("matrixMultiply", "TMR"), ("matrixMultiply", "DWC"),
+               ("crc16", "TMR"), ("crc16", "DWC"))
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def ftz_split_classes(runner, ex, red) -> int:
+    """The classes of an exhaustive campaign ``ex`` whose rows classify
+    differently, each explained or a failure.  A reduced row must equal
+    the exhaustive row it represents.  A class may mix outcomes only where
+    the merge argument meets the compare's flush to zero: an unwritten
+    float32 leaf (``free``/``lt``) whose word is zero, where a mantissa or
+    sign flip reads as zero in every vote while an exponent flip does not.
+    Returns the number of rows in such classes."""
+    import torch
+    part, prog = runner.equiv_partition, runner.prog
+    keys = part.class_keys(ex.schedule)
+    _, first, inv = np.unique(keys, axis=0, return_index=True,
+                              return_inverse=True)
+    inv = inv.reshape(-1)
+    order = np.argsort(first, kind="stable")
+    if not np.array_equal(red.codes, ex.codes[first[order]]):
+        fail("phase 27: a reduced row's outcome differs from the exhaustive "
+             "row it represents")
+    image = prog.region.init(torch.device("cpu"))
+    sched, split = ex.schedule, 0
+    for c in np.unique(inv):
+        rows = np.flatnonzero(inv == c)
+        if len(set(ex.codes[rows].tolist())) == 1:
+            continue
+        leaf = prog.leaf_order[int(sched.leaf_id[rows[0]])]
+        sig = part.signatures[leaf]
+        arr = image.get(leaf)
+        if (sig.written or sig.mode_name not in ("free", "lt") or arr is None
+                or arr.dtype != torch.float32):
+            fail(f"phase 27: class of {leaf} ({sig.mode_name}) mixes "
+                 f"outcomes {sorted(set(ex.codes[rows].tolist()))}")
+        words = arr.reshape(-1)[torch.as_tensor(sched.word[rows],
+                                                dtype=torch.int64)]
+        bits = np.asarray(sched.bit[rows])
+        hidden = (words.numpy() == 0) & ((bits < 23) | (bits == 31))
+        for group in (hidden, ~hidden):
+            if len(set(ex.codes[rows[group]].tolist())) > 1:
+                fail(f"phase 27: class of {leaf} mixes outcomes beyond the "
+                     "flush to zero")
+        split += len(rows)
+    return split
+
+
+def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
+                    CampaignRunner, hv, hc) -> tuple:
+    """Phase 27: equivalence-reduced and delta campaigns on the card (the
+    partition is derived on the host from the captured step; every
+    campaign runs on the card).  (a) The recorded study's four cells,
+    16,384 rows at seed 2026, batch 2048, exhaustive and reduced: the
+    reduced weighted counts equal the exhaustive ones and the record's,
+    with the record's physical rows and section modes.  (b) The flagship,
+    matrixMultiply1024 TMR and DWC, 512 rows at batch 128: reduced equals
+    exhaustive.  (c) crc16 TMR fused reduced equals unfused reduced, K2
+    launched; matrixMultiply TMR reduced sparse equals reduced dense:
+    counts, interesting rows and log weights.  (d) Delta: a crc16 TMR
+    equivalence journal of 4096 rows; a rebuilt program re-injects no
+    row, codes equal; the matrixMultiply program whose check xors golden
+    with 0 re-injects golden's rows only; card fingerprints equal the
+    CPU's.  (e) The CLI: ``--equiv -t 16384`` on the card and on the host
+    print equal summaries, ``--delta-from`` its journal re-injects no row,
+    ``--static-budget`` exits 2 naming item 17c.  (f) A two-shard mesh on
+    cuda:0 with equiv equals the single device.  Returns the (K1, K2)
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from coast_tpu_torch.analysis.equiv import section_fingerprints
+    from coast_tpu_torch.inject import logs
+    from coast_tpu_torch.parallel.mesh import Mesh
+    device = "cuda" if board == "gpu" else "cpu"
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+
+    def count(label: str) -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    with open(ROOT / "artifacts" / "equiv_study.json") as fh:
+        study = json.load(fh)
+    strats = {"TMR": TMR, "DWC": DWC}
+
+    # (a) The recorded study.
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    reduced = {}
+    for name, strat in EQUIV_CELLS:
+        cell = study["targets"][name][strat]
+        prog = strats[strat](REGISTRY[name]())
+        t0 = time.perf_counter()
+        runner = CampaignRunner(prog, strategy_name=strat, equiv=True)
+        t_an = time.perf_counter() - t0
+        red = runner.run(study["n"], seed=study["seed"], batch_size=2048)
+        ex = CampaignRunner(prog, strategy_name=strat).run(
+            study["n"], seed=study["seed"], batch_size=2048)
+        modes = {k: s.mode_name
+                 for k, s in runner.equiv_partition.signatures.items()}
+        if not (red.counts == ex.counts
+                and nonzero(ex.counts) == cell["counts"]):
+            fail(f"phase 27a {name} {strat}: reduced {red.counts}, "
+                 f"exhaustive {ex.counts}, recorded {cell['counts']}")
+        if red.physical_n != cell["physical_injections"] \
+                or modes != cell["section_modes"]:
+            fail(f"phase 27a {name} {strat}: {red.physical_n} physical rows"
+                 f" and modes {modes}, recorded "
+                 f"{cell['physical_injections']} and "
+                 f"{cell['section_modes']}")
+        k1, _ = count(f"27a {name} {strat}")
+        log(f"  27a {name} {strat}: {nonzero(red.counts)}, "
+            f"{red.physical_n} of {red.n} rows ran "
+            f"({red.n / red.physical_n:.2f}x); analysis {t_an:.3f} s "
+            f"(host), exhaustive {ex.seconds:.3f} s, reduced "
+            f"{red.seconds:.3f} s; K1 launches {k1} [{card}]")
+        reduced[(name, strat)] = (runner, red)
+
+    # (b) The flagship at full width.
+    for strat in ("TMR", "DWC"):
+        prog = strats[strat](REGISTRY["matrixMultiply1024"]())
+        t0 = time.perf_counter()
+        runner = CampaignRunner(prog, strategy_name=strat, equiv=True)
+        t_an = time.perf_counter() - t0
+        red = runner.run(512, seed=3, batch_size=128)
+        ex = CampaignRunner(prog, strategy_name=strat).run(
+            512, seed=3, batch_size=128)
+        # Every class is one outcome but where a zero float word meets the
+        # compare's flush to zero (a limit of the partition's merge
+        # argument that the reference's partition shares): those are
+        # counted and shown.
+        split = ftz_split_classes(runner, ex, red)
+        if red.counts != ex.counts and not split:
+            fail(f"phase 27b matrixMultiply1024 {strat}: reduced "
+                 f"{red.counts} != exhaustive {ex.counts}")
+        k1, _ = count(f"27b {strat}")
+        if k1 <= 0 and board == "gpu":
+            fail(f"phase 27b matrixMultiply1024 {strat}: no K1 launch")
+        modes = {k: s.mode_name
+                 for k, s in runner.equiv_partition.signatures.items()}
+        log(f"  27b matrixMultiply1024 {strat}: modes {modes}, "
+            f"{red.physical_n} of 512 rows ran; reduced "
+            f"{nonzero(red.counts)}, exhaustive {nonzero(ex.counts)}, "
+            f"{split} rows in classes split by the flush to zero; "
+            f"analysis {t_an:.3f} s (host), exhaustive {ex.seconds:.3f} s, "
+            f"reduced {red.seconds:.3f} s; K1 launches {k1} [{card}]")
+
+    # (c) Fused and sparse.
+    plain = reduced[("crc16", "TMR")][1]
+    fused_runner = CampaignRunner(TMR(REGISTRY["crc16"](), fuse_step=True),
+                                  strategy_name="TMR", equiv=True)
+    fused = fused_runner.run(study["n"], seed=study["seed"], batch_size=2048)
+    if fused.counts != plain.counts \
+            or not np.array_equal(fused.codes, plain.codes):
+        fail(f"phase 27c crc16 TMR fused reduced {fused.counts} differs from"
+             f" unfused {plain.counts}")
+    k1, k2 = count("27c fused")
+    if k2 <= 0 and board == "gpu":
+        fail("phase 27c: the fused reduced campaign launched K2 no time")
+    mm_runner, mm_dense = reduced[("matrixMultiply", "TMR")]
+    sparse_runner = CampaignRunner(mm_runner.prog, strategy_name="TMR",
+                                   equiv=mm_runner.equiv_partition,
+                                   collect="sparse")
+    sparse = sparse_runner.run(study["n"], seed=study["seed"],
+                               batch_size=2048)
+    rows = np.flatnonzero(mm_dense.codes > 1)
+    if sparse.counts != mm_dense.counts \
+            or not np.array_equal(sparse.interesting_rows, rows) \
+            or not np.array_equal(sparse.codes, mm_dense.codes[rows]):
+        fail("phase 27c: matrixMultiply TMR reduced sparse differs from "
+             "reduced dense")
+    path = work / "equiv_sparse.ndjson"
+    logs.write_ndjson(sparse, sparse_runner.mmap, str(path))
+    with open(path) as fh:
+        weights = [json.loads(ln)["weight"]
+                   for ln in fh.read().splitlines()[1:]]
+    if weights != mm_dense.schedule.class_weight[rows].tolist():
+        fail("phase 27c: the sparse log's weights differ from the dense "
+             "schedule's")
+    path.unlink()
+    k1s, _ = count("27c sparse")
+    log(f"  27c crc16 TMR fused reduced = unfused ({fused.physical_n} rows, "
+        f"K1 {k1}, K2 {k2} launches); matrixMultiply TMR reduced sparse = "
+        f"dense ({len(rows)} interesting rows, K1 {k1s} launches) [{card}]")
+
+    # (d) Delta campaigns.
+    crc_runner = reduced[("crc16", "TMR")][0]
+    jpath = str(work / "crc16_equiv.journal")
+    base = crc_runner.run(4096, seed=5, batch_size=1024, journal=jpath)
+    rebuilt = CampaignRunner(TMR(REGISTRY["crc16"]()), strategy_name="TMR",
+                             equiv=True)
+    noop = rebuilt.run_delta(4096, jpath, seed=5, batch_size=1024)
+    if noop.delta["reinjected_rows"] != 0 \
+            or not np.array_equal(noop.codes, base.codes):
+        fail(f"phase 27d: a rebuilt crc16 re-injected "
+             f"{noop.delta['reinjected_rows']} rows")
+    mm_path = str(work / "mm_equiv.journal")
+    mm_base = mm_runner.run(4096, seed=5, batch_size=1024, journal=mm_path)
+    region = REGISTRY["matrixMultiply"]()
+    old_check = region.check
+
+    def new_check(state):
+        state = dict(state)
+        state["golden"] = state["golden"] ^ 0
+        return old_check(state)
+
+    edited = CampaignRunner(TMR(dataclasses.replace(region, check=new_check)),
+                            strategy_name="TMR", equiv=True)
+    delta = edited.run_delta(4096, mm_path, seed=5, batch_size=1024)
+    golden = edited.equiv_partition.signatures["golden"].leaf_id
+    want_rows = int((np.asarray(delta.schedule.leaf_id) == golden).sum())
+    if delta.delta["changed_sections"] != ["golden"] \
+            or delta.delta["reinjected_rows"] != want_rows \
+            or delta.counts != mm_base.counts:
+        fail(f"phase 27d: the edited check's delta {delta.delta} "
+             f"{delta.counts}, base {mm_base.counts}")
+    for name in ("crc16", "matrixMultiply"):
+        card_fp = section_fingerprints(TMR(REGISTRY[name]()))
+        host_fp = section_fingerprints(TMR(REGISTRY[name](), device="cpu"))
+        if card_fp != host_fp:
+            fail(f"phase 27d: {name}'s card fingerprints differ from the "
+                 "host's")
+    k1, _ = count("27d")
+    log(f"  27d delta: rebuilt crc16 re-injects 0 of {base.physical_n} rows;"
+        f" matrixMultiply with golden ^ 0 re-injects {want_rows} (golden's) "
+        f"in {delta.seconds:.3f} s; card fingerprints = host's; K1 "
+        f"launches {k1} [{card}]")
+
+    # (e) The CLI.
+    argv = ["-f", "matrixMultiply", "-O", "-TMR", "--equiv", "-t", "16384",
+            "--seed", "2026", "--batch-size", "2048", "-q"]
+    cli_j = str(work / "cli_equiv.journal")
+    on_card = run_cli([*argv, "--journal", cli_j], board, "phase 27e card")
+    on_host = run_cli(argv, "cpu", "phase 27e host")
+    if steady(on_card["summary"]) != steady(on_host["summary"]):
+        fail(f"phase 27e: --equiv on the card {steady(on_card['summary'])} "
+             f"differs from the host's {steady(on_host['summary'])}")
+    cli_delta = run_cli(["-f", "matrixMultiply", "-O", "-TMR", "-t", "16384",
+                         "--seed", "2026", "--batch-size", "2048", "-q",
+                         "--delta-from", cli_j], board, "phase 27e delta")
+    if cli_delta["summary"]["delta"]["reinjected_rows"] != 0:
+        fail(f"phase 27e: --delta-from re-injected "
+             f"{cli_delta['summary']['delta']['reinjected_rows']} rows")
+    budget = run_cli(["-f", "matrixMultiply", "-t", "8", "--delta-from",
+                      cli_j, "--stop-when", "sdc:0.1", "--static-budget"],
+                     board, "phase 27e static budget", expect_ok=False)
+    if budget["rc"] != 2 or "item 17c" not in budget["err"]:
+        fail(f"phase 27e: --static-budget exited {budget['rc']}: "
+             f"{budget['err'].strip()[-300:]}")
+    for run in (on_card, cli_delta):
+        launches[0] += run["k1"]
+        launches[1] += run["k2"]
+    log(f"  27e CLI --equiv card = host "
+        f"({on_card['summary']['physical_injections']} physical rows), "
+        f"--delta-from re-injects 0, --static-budget exits 2; K1 launches "
+        f"{on_card['k1']} + {cli_delta['k1']} [{card}]")
+
+    # (f) The mesh.
+    two = Mesh([torch.device(device, 0), torch.device(device, 0)]
+               if device == "cuda" else [torch.device("cpu")] * 2)
+    single_runner, single = reduced[("matrixMultiply", "DWC")]
+    meshed = CampaignRunner(single_runner.prog, strategy_name="DWC",
+                            equiv=single_runner.equiv_partition, mesh=two
+                            ).run(study["n"], seed=study["seed"],
+                                  batch_size=2048)
+    if meshed.counts != single.counts or meshed.physical_n != \
+            single.physical_n or not np.array_equal(meshed.codes,
+                                                    single.codes):
+        fail("phase 27f: the two-shard mesh with equiv differs from the "
+             "single device")
+    k1, _ = count("27f")
+    log(f"  27f two-shard mesh on cuda:0 = single device "
+        f"({meshed.physical_n} rows, K1 launches {k1}) [{card}]")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -2867,6 +3172,9 @@ def main() -> None:
     # and the --unroll repair.
     new_launches.append(parse_and_lint(
         work, card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, bare))
+    # 27. Equivalence-reduced and delta campaigns.
+    new_launches.append(equiv_campaigns(
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc))
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)

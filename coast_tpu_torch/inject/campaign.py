@@ -31,6 +31,14 @@ campaign killed at any point resumes at its first missing batch with the
 uninterrupted run's records, and a :class:`~coast_tpu_torch.inject.logs.
 StreamLogWriter` serializes each batch as it lands.
 
+``CampaignRunner(prog, equiv=True)`` reduces every seeded schedule to one
+representative a propagation class (``analysis/equiv``): the reduced rows
+run on the device like any others and each counts ``class_weight`` times,
+so ``counts`` and ``n`` are over effective injections and ``physical_n``
+is the rows that ran.  ``run_delta`` re-injects only the sections whose
+propagation fingerprint changed since a journaled equivalence run and
+splices the recorded outcomes of the rest.
+
 ``CampaignResult.transfer`` counts the host<->device bytes of every
 campaign as the reference counts them, plus the one copy the port's engine
 makes a batch and the reference's compiled loop does not: a bool a step,
@@ -78,7 +86,6 @@ SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 # Runner features of the reference that later slices port, with the ROADMAP
 # Queue A item that brings each.
 _LATER_RUNNER = {
-    "equiv": "item 17b (equivalence reduction)",
     "metrics": "item 18 (live metrics)",
     "profile": "item 18 (the campaign profiler)",
     "slo": "item 19 (reliability SLOs)",
@@ -127,10 +134,20 @@ class CampaignResult:
     # and the interesting rows each shard produced.  None on the
     # single-device runner, whose summary then has no "mesh" key.
     mesh: Optional[Dict[str, object]] = None
+    # Equivalence-reduced campaigns: ``n`` and ``counts`` are over
+    # effective injections (each representative times its class weight);
+    # ``physical_n`` is the representatives that ran.  None when
+    # exhaustive.
+    physical_n: Optional[int] = None
+    # A delta campaign's accounting (run_delta): the changed sections and
+    # the reused and re-injected rows.  None otherwise.
+    delta: Optional[Dict[str, object]] = None
 
     @property
     def injections_per_sec(self) -> float:
-        return self.n / self.seconds if self.seconds > 0 else float("inf")
+        """Rows the device ran a second."""
+        phys = self.physical_n if self.physical_n is not None else self.n
+        return phys / self.seconds if self.seconds > 0 else float("inf")
 
     def record_stage(self, name: str, seconds: float) -> None:
         """Add ``seconds`` to one stage (log writers bill 'serialize' here
@@ -177,6 +194,12 @@ class CampaignResult:
         if self.fault_model.kind != "single":
             out["fault_model"] = self.fault_model.spec()
             out["fault_sites"] = self.fault_model.sites
+        if self.physical_n is not None:
+            out["physical_injections"] = int(self.physical_n)
+            out["equiv_reduction"] = round(
+                self.n / self.physical_n, 2) if self.physical_n else 0.0
+        if self.delta is not None:
+            out["delta"] = dict(self.delta)
         if self.convergence is not None:
             out["convergence"] = dict(self.convergence)
         if self.mesh is not None:
@@ -320,13 +343,17 @@ def _unpack_rows(packed: np.ndarray, exact: np.ndarray, pack: tuple):
 
 
 def _rows_subset(sched: FaultSchedule, rows: np.ndarray) -> FaultSchedule:
-    """The base sites of ``sched`` at arbitrary ``rows`` (the model kept,
-    the extra flip-group sites dropped): what a per-row record names."""
+    """The base sites of ``sched`` at arbitrary ``rows`` (the model and
+    class weights kept, the extra flip-group sites dropped): what a per-row
+    record names, and the delta paths' working shape."""
     idx = np.asarray(rows, np.int64)
     return FaultSchedule(
         *(np.ascontiguousarray(np.asarray(getattr(sched, f))[idx])
           for f in ("leaf_id", "lane", "word", "bit", "t", "section_idx")),
-        seed=sched.seed, model=sched.model)
+        seed=sched.seed, model=sched.model,
+        class_weight=(sched.class_weight[idx]
+                      if sched.class_weight is not None else None),
+        equiv_sha=sched.equiv_sha)
 
 
 def run_classified(prog, fault) -> Dict[str, torch.Tensor]:
@@ -359,7 +386,7 @@ class CampaignRunner:
                  sparse_capacity: Optional[int] = None,
                  retry: Optional[resilience_mod.RetryPolicy] = None,
                  mesh=None, unroll: int = 1, preflight: "bool | str" = False,
-                 **later):
+                 equiv: "bool | object" = False, **later):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
@@ -382,6 +409,14 @@ class CampaignRunner:
         ``max(1, int(unroll))``.  It changes no record: the port's step
         loop stops on the same trip whatever its value.
 
+        ``equiv`` turns on fault-site equivalence reduction
+        (``analysis/equiv``): ``True`` derives the partition of ``prog``
+        (on the host, from the captured step), an ``EquivPartition`` is
+        taken as it is.  Every seeded schedule is then reduced to one
+        representative a class, the counts weighted back to the drawn
+        ``n``, and journals record the partition and the per-section
+        fingerprints ``run_delta`` reads.  Single-bit fault model only.
+
         ``preflight`` runs the replication-integrity linter
         (``analysis/lint``) before anything else and raises
         ``ReplicationLintError`` on an error finding: ``"static"`` runs
@@ -390,8 +425,8 @@ class CampaignRunner:
         the isolation prover, which is ROADMAP Queue A item 17c, and raise
         ``NotImplementedError``.
 
-        The reference's ``equiv``, ``metrics``, ``profile`` and ``slo``
-        raise ``NotImplementedError`` naming their ROADMAP item."""
+        The reference's ``metrics``, ``profile`` and ``slo`` raise
+        ``NotImplementedError`` naming their ROADMAP item."""
         if mesh is not None:
             raise TypeError(
                 "mesh= reached the base CampaignRunner constructor; pass "
@@ -447,6 +482,17 @@ class CampaignRunner:
             off, per = meta["link_window"]
             self.fault_model = FaultModel.link(offset=int(off),
                                                period=int(per))
+        if equiv and self.fault_model.kind != "single":
+            raise ValueError(
+                "equiv=True needs the single-bit fault model: a flip "
+                f"group ({self.fault_model.spec()}) has no per-site "
+                "propagation class to reduce over")
+        self.equiv_partition = None
+        if equiv:
+            from coast_tpu_torch.analysis.equiv import (EquivPartition,
+                                                        analyze_equivalence)
+            self.equiv_partition = (equiv if isinstance(equiv, EquivPartition)
+                                    else analyze_equivalence(prog))
         self.collect = collect
         self._sparse_capacity = (int(sparse_capacity) if sparse_capacity
                                  else None)
@@ -533,7 +579,23 @@ class CampaignRunner:
                        mode="edge")
             arrays[k] = torch.as_tensor(v, device=self.prog.device)
             transfer["up"] += int(v.nbytes)
-        w = np.pad(np.where(np.asarray(sched.t) < 0, 0, 1).astype(np.int32),
+        n = len(sched)
+        if sched.class_weight is not None:
+            w = sched.class_weight.astype(np.int64)
+            # The device histogram of a batch goes back as int32: bound the
+            # summed weights of the batch_size largest (an out-of-memory
+            # degrade may start a batch at any row).
+            top = (np.partition(w, n - batch_size)[n - batch_size:]
+                   if n > batch_size else w)
+            if n and int(top.sum()) >= 2 ** 31:
+                raise ValueError(
+                    "sparse collect: a batch's summed class weights "
+                    f"(worst case {int(top.sum())}) could exceed the "
+                    "device histogram's int32 range; run this campaign "
+                    "dense (or with a smaller batch_size)")
+        else:
+            w = np.ones(n, np.int64)
+        w = np.pad(np.where(np.asarray(sched.t) < 0, 0, w).astype(np.int32),
                    (0, batch_size))
         transfer["up"] += int(w.nbytes)
         state.update(mode="resident", arrays=arrays,
@@ -621,12 +683,15 @@ class CampaignRunner:
                 f"{header_spec!r} but the schedule being run carries "
                 f"{sched.model.spec()!r}; open the journal with the "
                 "schedule's model (CampaignRunner(fault_model=...))")
+        # Batch records are a row a representative: replayed under another
+        # (or no) partition they would be weighted wrongly.
         header_part = (journal.header.get("equiv") or {}).get("partition")
-        if header_part is not None:
+        if header_part != sched.equiv_sha:
             raise JournalMismatchError(
                 f"journal {journal.path!r} records equivalence partition "
-                f"{header_part!r} but the schedule being run carries None; "
-                "refusing to mix reduced and exhaustive row records")
+                f"{header_part!r} but the schedule being run carries "
+                f"{sched.equiv_sha!r}; refusing to mix reduced and "
+                "exhaustive row records")
         header_stop = journal.header.get("stop_when")
         current_stop = stop_when.spec() if stop_when is not None else None
         if header_stop != current_stop:
@@ -696,7 +761,7 @@ class CampaignRunner:
         if stop_when is not None:
             from coast_tpu_torch.obs.convergence import ConvergenceTracker
             tracker = ConvergenceTracker(stop_when)
-        planned_n = len(sched)
+        planned_n = sched.effective_n
         stages: Dict[str, float] = dict(_stages or {})
         t0 = time.perf_counter()
         outs: List[Dict[str, np.ndarray]] = []
@@ -707,6 +772,7 @@ class CampaignRunner:
             {"retry_transient": 0, "retry_wedged": 0, "oom_degrade": 0}
             if retry is not None else {})
         sched_t = np.asarray(sched.t)
+        sched_w = sched.class_weight
         transfer: Dict[str, int] = {"up": 0, "down": 0}
         state: Optional[Dict[str, object]] = None
         if self.collect == "sparse":
@@ -718,14 +784,23 @@ class CampaignRunner:
             counts["cache_invalid"] = live_invalid
             return counts
 
+        def batch_invalid(lo: int, n: int) -> int:
+            """Never-fired (t < 0) draws of rows [lo, lo + n), weighted."""
+            inv = sched_t[lo:lo + n] < 0
+            if sched_w is None:
+                return int(inv.sum())
+            return int(sched_w[lo:lo + n][inv].sum())
+
         def account(out: Dict[str, np.ndarray], lo: int) -> Dict[str, int]:
             """Add a dense batch to the live histogram (rows with t < 0
-            never fired: they count as cache_invalid)."""
+            never fired: they count as cache_invalid); a reduced
+            schedule's rows count their class weight."""
             nonlocal live_invalid
-            fired = sched_t[lo:lo + len(out["code"])] >= 0
-            live_counts[:] += np.bincount(out["code"][fired],
-                                          minlength=cls.NUM_CLASSES)
-            live_invalid += int(len(fired) - fired.sum())
+            n_out = len(out["code"])
+            fired = sched_t[lo:lo + n_out] >= 0
+            w = None if sched_w is None else sched_w[lo:lo + n_out][fired]
+            live_counts[:] += cls.weighted_histogram(out["code"][fired], w)
+            live_invalid += batch_invalid(lo, n_out)
             return counts_now()
 
         def account_sparse(out: Dict[str, object]) -> Dict[str, int]:
@@ -860,7 +935,7 @@ class CampaignRunner:
             lo, n_part = int(flight["lo"]), int(flight["n"])
             if state is not None:
                 out = got
-                out["invalid"] = int((sched_t[lo:lo + n_part] < 0).sum())
+                out["invalid"] = batch_invalid(lo, n_part)
                 out["rows"] = out["rows"] + lo
                 counts = account_sparse(out)
                 done += n_part
@@ -931,6 +1006,7 @@ class CampaignRunner:
         if stopped and done < len(sched):
             sched = sched.slice(0, done)
             sched_t = np.asarray(sched.t)
+            sched_w = sched.class_weight
         interesting_rows = None
         with _stage(stages, "classify"):
             if outs:
@@ -948,15 +1024,18 @@ class CampaignRunner:
                 # Draws with t < 0 never fire a flip: they get their own
                 # bucket instead of inflating success.
                 invalid_draw = sched_t < 0
-                binc = np.bincount(merged["code"][~invalid_draw],
-                                   minlength=cls.NUM_CLASSES)
-                invalid_total = int(invalid_draw.sum())
+                binc = cls.weighted_histogram(
+                    merged["code"][~invalid_draw],
+                    None if sched_w is None else sched_w[~invalid_draw])
+                invalid_total = batch_invalid(0, len(sched))
             counts = cls.counts_dict(binc, self._train)
             counts["cache_invalid"] = invalid_total
         seconds = time.perf_counter() - t0
         res = CampaignResult(
             benchmark=self.prog.region.name, strategy=self.strategy_name,
-            n=len(sched), counts=counts, seconds=seconds,
+            n=sched.effective_n,
+            physical_n=len(sched) if sched_w is not None else None,
+            counts=counts, seconds=seconds,
             codes=merged["code"], errors=merged["errors"],
             corrected=merged["corrected"], steps=merged["steps"],
             schedule=sched, seed=sched.seed, stages=stages,
@@ -965,7 +1044,7 @@ class CampaignRunner:
             mesh=self._mesh_block())
         if tracker is not None:
             res.convergence = tracker.report(stopped, planned_n=planned_n,
-                                             done_n=len(sched))
+                                             done_n=sched.effective_n)
         return res
 
     def _campaign_spec(self, n: int, seed: int = 0, batch_size: int = 4096,
@@ -976,6 +1055,7 @@ class CampaignRunner:
             benchmark=self.prog.region.name, n=int(n), seed=int(seed),
             batch_size=int(batch_size), start_num=int(start_num),
             fault_model=self.fault_model.spec(),
+            equiv=self.equiv_partition is not None,
             stop_when=(stop_when.spec() if stop_when is not None
                        else None),
             collect=self.collect, placement=self.placement)
@@ -997,6 +1077,17 @@ class CampaignRunner:
             header["placement"] = self.placement
         if self.prog.cfg.fuse_step:
             header["fuse"] = True
+        if self.equiv_partition is not None:
+            # The partition is campaign identity (reduced rows mean nothing
+            # under another); the per-section fingerprints are the delta
+            # vocabulary, volatile on resume.
+            header["equiv"] = {
+                "partition": self.equiv_partition.fingerprint,
+                "clean_steps": self.equiv_partition.clean_steps}
+            header["section_fingerprints"] = {
+                name: sig.fingerprint
+                for name, sig in sorted(
+                    self.equiv_partition.signatures.items())}
         header.update(fields)
         return header
 
@@ -1016,11 +1107,19 @@ class CampaignRunner:
 
     def _seeded_part(self, n: int, seed: int, start_num: int,
                      stages: Dict[str, float]) -> FaultSchedule:
+        """generate, the start_num slice, then the equivalence reduction:
+        the one schedule ``run`` and ``run_delta`` share, so the reduced
+        rows a delta splices against are the rows a run journals.  The
+        reduction comes after the slice: its representatives and weights
+        describe exactly the rows this campaign covers."""
         with _stage(stages, "schedule"):
             sched = generate(self.mmap, start_num + n, seed,
                              self.prog.region.nominal_steps,
                              model=self.fault_model)
-            return sched.slice(start_num, start_num + n)
+            part = sched.slice(start_num, start_num + n)
+            if self.equiv_partition is not None:
+                part = self.equiv_partition.reduce(part)
+            return part
 
     def run(self, n: int, seed: int = 0, batch_size: int = 4096,
             start_num: int = 0,
@@ -1050,6 +1149,11 @@ class CampaignRunner:
             if spec.stop_when:
                 header["stop_when"] = spec.stop_when
             j, owned = self._open_journal(journal, header)
+            if self.equiv_partition is not None and not j.resumed:
+                # The representatives: run_delta splices by site identity,
+                # which the seed alone cannot regenerate once the partition
+                # moves.
+                _journal_equiv_schedule(j, part)
         try:
             res = self.run_schedule(part, batch_size, progress=progress,
                                     journal=j, stream=stream,
@@ -1060,19 +1164,217 @@ class CampaignRunner:
         res.start_num = start_num
         return res
 
-    def run_delta(self, *args, **kwargs) -> CampaignResult:
-        """The reference's delta campaign needs the equivalence partition
-        (ROADMAP Queue A item 17b)."""
-        raise NotImplementedError(
-            "run_delta is not ported yet; see ROADMAP Queue A item 17b "
-            "(equivalence reduction and delta campaigns)")
+    def run_delta(self, n: int, delta_from: str, seed: int = 0,
+                  batch_size: int = 4096, start_num: int = 0,
+                  progress: Optional[
+                      Callable[[int, Dict[str, int]], None]] = None,
+                  stop_when: "Optional[object]" = None,
+                  static_budget: "bool | object" = False
+                  ) -> CampaignResult:
+        """Delta campaign: rerun the seeded campaign recorded in the journal
+        at ``delta_from``, but re-inject on the device only the sections
+        whose propagation fingerprint changed since that journal was
+        written; every other row's outcome is spliced from the journal.  A
+        no-op rebuild re-injects no row; a one-section edit re-injects
+        exactly that section.
+
+        ``stop_when`` (:class:`~coast_tpu_torch.obs.convergence.StopWhen`)
+        arms early stop per re-injected section: each changed section's
+        rows run as their own convergence-tracked campaign, in section name
+        order, and the spliced rows never enter a tracker.  Rows a
+        section's early stop dropped are left out of the result;
+        ``convergence`` holds one report a section and
+        ``delta["dropped_rows"]`` the rows cut.
+
+        ``static_budget`` (the vulnerability map's budget allocator) is
+        ROADMAP Queue A item 17c and raises ``NotImplementedError``.
+
+        Needs ``equiv=True`` (the partition supplies the fingerprints) and a
+        base journal written by an equivalence run; an incompatible base
+        raises :class:`~coast_tpu_torch.analysis.equiv.DeltaMismatchError`.
+        """
+        from coast_tpu_torch.analysis.equiv import load_delta_base, plan_delta
+        if static_budget:
+            raise NotImplementedError(
+                "run_delta(static_budget=...) spends the convergence budget "
+                "by the static vulnerability map, which is not ported yet; "
+                "see ROADMAP Queue A item 17c")
+        if self.equiv_partition is None:
+            raise ValueError(
+                "run_delta needs CampaignRunner(equiv=True): the "
+                "equivalence partition supplies the per-section "
+                "fingerprints a delta diffs")
+        if self.collect != "dense":
+            raise ValueError(
+                "run_delta is dense by construction: the spliced rows "
+                "are exact per-row journal records; build the runner "
+                "with collect='dense'")
+        base_header, base_sites, base_out, base_rows = load_delta_base(
+            delta_from)
+        stages: Dict[str, float] = {}
+        part = self._seeded_part(n, seed, start_num, stages)
+        current_header = self._journal_header(
+            "run", **self._campaign_spec(
+                n, seed=seed, batch_size=batch_size,
+                start_num=start_num).run_header_fields())
+        signatures = self.equiv_partition.signatures
+        section_names = {sig.leaf_id: name
+                         for name, sig in signatures.items()}
+        plan = plan_delta(
+            base_header, base_sites, base_out, base_rows, current_header,
+            {name: sig.fingerprint for name, sig in signatures.items()},
+            part, section_names, base_path=delta_from)
+
+        # Base-side section attribution, before any filtering: the recorded
+        # sites, else the positional rows the schedule sha proved equal.
+        base_leaf = (np.asarray(base_sites["leaf_id"])
+                     if base_sites is not None
+                     else np.asarray(part.leaf_id).copy())
+        base_w_col = (np.asarray(base_sites["class_weight"], np.int64)
+                      if base_sites is not None
+                      else np.asarray(part.class_weight, np.int64).copy())
+        base_codes_col = base_out["codes"]
+
+        run_idx = np.flatnonzero(plan.run_mask)
+        part0_leaf = np.asarray(part.leaf_id).copy()
+        cols = {k: v.copy() for k, v in plan.spliced.items()}
+        seconds = 0.0
+        resilience: Dict[str, int] = {}
+        # Progress covers the whole campaign: the splice lands as one
+        # opening beat, the re-injected rows count up from it.
+        splice_idx = np.flatnonzero(~plan.run_mask)
+        splice_counts: Dict[str, int] = {}
+        if progress is not None and len(splice_idx):
+            splice_counts = cls.counts_dict(cls.weighted_histogram(
+                cols["codes"][splice_idx], part.class_weight[splice_idx]),
+                self._train)
+            splice_counts["cache_invalid"] = 0
+            progress(int(len(splice_idx)), dict(splice_counts))
+
+        def take(sub_res: CampaignResult, sel: np.ndarray) -> None:
+            nonlocal seconds
+            for k in cols:
+                cols[k][sel] = getattr(sub_res, k)
+            seconds += sub_res.seconds
+            for k, v in sub_res.stages.items():
+                stages[k] = stages.get(k, 0.0) + v
+            for k, v in sub_res.resilience.items():
+                resilience[k] = resilience.get(k, 0) + v
+
+        def with_base(base_done: int, base_counts: Dict[str, int]):
+            if progress is None:
+                return None
+
+            def chunk_progress(done, counts):
+                merged = dict(base_counts)
+                for k, v in counts.items():
+                    merged[k] = merged.get(k, 0) + v
+                progress(base_done + done, merged)
+            return chunk_progress
+
+        keep = None
+        convergence: Optional[Dict[str, object]] = None
+        if len(run_idx) and stop_when is None:
+            sub = _rows_subset(part, run_idx)
+            take(self.run_schedule(
+                sub, batch_size=min(batch_size, len(sub)),
+                progress=with_base(int(len(splice_idx)), splice_counts)),
+                run_idx)
+        elif len(run_idx):
+            # One sub-campaign (and one tracker) a re-injected section, in
+            # name order so the row layout is deterministic.
+            keep = ~plan.run_mask
+            groups: Dict[str, List[int]] = {}
+            for i in run_idx:
+                groups.setdefault(section_names.get(int(part0_leaf[i]), "?"),
+                                  []).append(int(i))
+            per_section: Dict[str, object] = {}
+            agg_counts = dict(splice_counts)
+            agg_done = int(len(splice_idx))
+            for name in sorted(groups):
+                idx = np.asarray(groups[name], np.int64)
+                sub = _rows_subset(part, idx)
+                sub_res = self.run_schedule(
+                    sub, batch_size=min(batch_size, len(sub)),
+                    progress=with_base(agg_done, dict(agg_counts)),
+                    stop_when=stop_when)
+                ran = len(sub_res.codes)
+                sel = idx[:ran]
+                take(sub_res, sel)
+                keep[sel] = True
+                per_section[name] = sub_res.convergence
+                agg_done += ran
+                for k, v in sub_res.counts.items():
+                    agg_counts[k] = agg_counts.get(k, 0) + v
+            convergence = {
+                "stopped": any(bool((c or {}).get("stopped"))
+                               for c in per_section.values()),
+                "stop_when": stop_when.spec(),
+                "per_section": per_section,
+            }
+        dropped = 0
+        if keep is not None and not keep.all():
+            # Early stop cut some sections short: the result describes
+            # exactly the spliced and collected rows.
+            keep_idx = np.flatnonzero(keep)
+            dropped = int(len(part) - len(keep_idx))
+            part = _rows_subset(part, keep_idx)
+            cols = {k: v[keep_idx] for k, v in cols.items()}
+        # As in run(): a t < 0 row never fired and counts cache_invalid.
+        fired = np.asarray(part.t) >= 0
+        w_col = np.asarray(part.class_weight, np.int64)
+        counts = cls.counts_dict(cls.weighted_histogram(
+            cols["codes"][fired], w_col[fired]), self._train)
+        counts["cache_invalid"] = int(w_col[~fired].sum())
+        delta_summary: Dict[str, object] = {**plan.summary(),
+                                            "base": delta_from}
+        if stop_when is not None:
+            delta_summary["dropped_rows"] = dropped
+        if len(run_idx):
+            # Base-against-candidate distributions of every section that
+            # re-injected anything (the spliced rows are equal by
+            # construction, so a drift can only start here).
+            def names_of(leaf_col):
+                return np.array([section_names.get(int(l), "?")
+                                 for l in np.asarray(leaf_col)])
+            run_names = names_of(part0_leaf[run_idx])
+            final_names = names_of(part.leaf_id)
+            base_names = names_of(base_leaf)
+            sections: Dict[str, object] = {}
+            for name in sorted(set(run_names)):
+                bsel = base_names == name
+                csel = final_names == name
+                sections[name] = {
+                    "base_n": int(base_w_col[bsel].sum()),
+                    "base_counts": cls.counts_dict(
+                        cls.weighted_histogram(base_codes_col[bsel],
+                                               base_w_col[bsel]),
+                        self._train),
+                    "n": int(w_col[csel].sum()),
+                    "counts": cls.counts_dict(
+                        cls.weighted_histogram(cols["codes"][csel],
+                                               w_col[csel]),
+                        self._train),
+                }
+            delta_summary["sections"] = sections
+        res = CampaignResult(
+            benchmark=self.prog.region.name, strategy=self.strategy_name,
+            n=part.effective_n, physical_n=len(part), counts=counts,
+            seconds=seconds, codes=cols["codes"], errors=cols["errors"],
+            corrected=cols["corrected"], steps=cols["steps"],
+            schedule=part, seed=part.seed, stages=stages,
+            resilience=resilience, delta=delta_summary)
+        res.convergence = convergence
+        res.start_num = start_num
+        return res
 
     def journal_result(self, res: CampaignResult, path: str,
                        n: Optional[int] = None,
                        batch_size: int = 4096) -> None:
         """Write a completed single-seed dense result as a ``mode: "run"``
-        journal at ``path``: the header and one batch record per
-        ``batch_size`` rows with cumulative counts.  Refuses an existing
+        journal at ``path``: the header, the representatives of a reduced
+        schedule, and one batch record per ``batch_size`` rows with
+        cumulative counts (what ``load_delta_base`` reads).  Refuses an existing
         non-empty ``path`` (JournalExistsError) and raises JournalError if
         the re-derived counts do not reproduce ``res.counts``."""
         if res.collect != "dense":
@@ -1088,9 +1390,12 @@ class CampaignRunner:
             schedule_sha=schedule_fingerprint(part))
         j = CampaignJournal.open(path, header, resume=False)
         try:
+            if part.class_weight is not None:
+                _journal_equiv_schedule(j, part)
             live = np.zeros(cls.NUM_CLASSES, np.int64)
             live_invalid = 0
             t_col = np.asarray(part.t)
+            w = part.class_weight
             counts: Dict[str, int] = {}
             for lo in range(0, len(part), batch_size):
                 hi = min(lo + batch_size, len(part))
@@ -1098,9 +1403,11 @@ class CampaignRunner:
                        "corrected": res.corrected[lo:hi],
                        "steps": res.steps[lo:hi]}
                 fired = t_col[lo:hi] >= 0
-                live += np.bincount(out["code"][fired],
-                                    minlength=cls.NUM_CLASSES)
-                live_invalid += int((~fired).sum())
+                ww = None if w is None else w[lo:hi]
+                live += cls.weighted_histogram(
+                    out["code"][fired], None if ww is None else ww[fired])
+                live_invalid += int((~fired).sum() if ww is None
+                                    else ww[~fired].sum())
                 counts = cls.counts_dict(live, self._train)
                 counts["cache_invalid"] = live_invalid
                 j.append_batch(lo, out, counts, {})
@@ -1123,9 +1430,14 @@ class CampaignRunner:
                          self.prog.region.nominal_steps,
                          model=self.fault_model
                          ).slice(start_num, start_num + n)
+        if self.equiv_partition is not None:
+            sched = self.equiv_partition.reduce(sched)
         return CampaignResult(
             benchmark=self.prog.region.name, strategy=self.strategy_name,
-            n=len(sched), counts={k: int(v) for k, v in rec["counts"].items()},
+            n=sched.effective_n,
+            physical_n=(len(sched) if sched.class_weight is not None
+                        else None),
+            counts={k: int(v) for k, v in rec["counts"].items()},
             seconds=float(rec.get("seconds", 0.0)),
             codes=np.asarray(rec["codes"], np.int32),
             errors=np.asarray(rec["errors"], np.int32),
@@ -1271,6 +1583,18 @@ class CampaignRunner:
         return _merge_results(results, int(chunks[0]["seed"]))
 
 
+def _journal_equiv_schedule(journal: CampaignJournal,
+                            part: FaultSchedule) -> None:
+    """Append a reduced schedule's representatives and class weights: the
+    ``equiv_schedule`` record ``load_delta_base`` splices by."""
+    journal.append({
+        "kind": "equiv_schedule",
+        "class_weight": part.class_weight.tolist(),
+        **{k: np.asarray(getattr(part, k)).tolist()
+           for k in ("leaf_id", "lane", "word", "bit", "t")},
+    })
+
+
 def _merge_results(parts: List[CampaignResult], seed: int) -> CampaignResult:
     """Concatenate chunk results into one campaign (rows in chunk order)."""
     if not parts:
@@ -1309,13 +1633,21 @@ def _merge_results(parts: List[CampaignResult], seed: int) -> CampaignResult:
         extra["group"] = np.concatenate(
             [p.schedule.extra["group"] + np.int32(off)
              for p, off in zip(parts, offsets)]).astype(np.int32)
+    weights = None
+    if first.schedule.class_weight is not None:
+        weights = np.concatenate([p.schedule.class_weight for p in parts])
     sched = FaultSchedule(
         *(np.concatenate([getattr(p.schedule, f) for p in parts])
           for f in ("leaf_id", "lane", "word", "bit", "t", "section_idx")),
-        seed=seed, extra=extra, model=first.schedule.model)
+        seed=seed, extra=extra, model=first.schedule.model,
+        class_weight=weights, equiv_sha=first.schedule.equiv_sha)
+    physical = None
+    if any(p.physical_n is not None for p in parts):
+        physical = sum(p.physical_n if p.physical_n is not None else p.n
+                       for p in parts)
     return CampaignResult(
         benchmark=first.benchmark, strategy=first.strategy,
-        n=sum(p.n for p in parts), counts=counts,
+        n=sum(p.n for p in parts), physical_n=physical, counts=counts,
         seconds=sum(p.seconds for p in parts),
         codes=np.concatenate([p.codes for p in parts]),
         errors=np.concatenate([p.errors for p in parts]),

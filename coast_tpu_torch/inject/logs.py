@@ -172,8 +172,11 @@ def _columns(res: CampaignResult, mmap: MemoryMap):
         "corrected": res.corrected.tolist(),
         "steps": res.steps.tolist(),
     }
-    # (The reference's equivalence-reduced campaigns add a ``weight``
-    # column here; equivalence reduction is ROADMAP Queue A item 17b.)
+    # Equivalence-reduced campaigns: each row is a class representative,
+    # and the weight column multiplies it back out to effective
+    # injections.  Exhaustive logs carry no such key.
+    if sched.class_weight is not None:
+        col["weight"] = sched.class_weight.tolist()
     if res.collect != "dense":
         col["number"] = [int(r) for r in res.interesting_rows]
     return col, secs
@@ -190,9 +193,12 @@ def _batch_arrays(part, out: Dict[str, "np.ndarray"]):
 
 
 def _batch_columns(part, out: Dict[str, "np.ndarray"]):
-    """:func:`_batch_arrays` as plain Python lists.  The streaming
-    writer's unit of work."""
-    return {k: v.tolist() for k, v in _batch_arrays(part, out).items()}
+    """:func:`_batch_arrays` as plain Python lists, with the ``weight``
+    column of a reduced schedule.  The streaming writer's unit of work."""
+    col = {k: v.tolist() for k, v in _batch_arrays(part, out).items()}
+    if part.class_weight is not None:
+        col["weight"] = part.class_weight.tolist()
+    return col
 
 
 def _injection_log_rows(col, sec_kind: Dict[int, str],
@@ -203,6 +209,7 @@ def _injection_log_rows(col, sec_kind: Dict[int, str],
     ``to_injection_logs`` AND the streaming reference writer, so the two
     cannot drift."""
     logs = []
+    weights = col.get("weight")
     numbers = col.get("number")
     for i in range(len(col["code"])):
         lid = col["leaf_id"][i]
@@ -233,6 +240,10 @@ def _injection_log_rows(col, sec_kind: Dict[int, str],
                                    col["corrected"][i], col["steps"][i], ts),
             "cacheInfo": None,
         }
+        if weights is not None:
+            # A class representative of a reduced campaign: it stands for
+            # this many drawn sites.
+            row["weight"] = weights[i]
         logs.append(row)
     return logs
 
@@ -309,7 +320,9 @@ def write_ndjson(res: CampaignResult, mmap: MemoryMap, path: str) -> None:
     describes earlier writers, not itself."""
     ts = _timestamp()
     with _serialize_stage(res):
-        if res.collect == "dense":
+        # A reduced campaign's rows carry a weight key the native encoder
+        # does not know: the Python formatter writes them.
+        if res.collect == "dense" and res.schedule.class_weight is None:
             _write_ndjson_native(res, mmap, ts, path)
         else:
             _write_ndjson_py(res, mmap, ts, path)
@@ -391,6 +404,7 @@ def _ndjson_rows_py(col, sec_kind: Dict[int, str], sec_name: Dict[int, str],
     by the one-shot writer (num0=0, full columns) and the streaming
     writer (per-batch columns), byte-identical by construction."""
     res_tpl, line_tpl = _ndjson_templates(ts)
+    weights = col.get("weight")
     numbers = col.get("number")
     for i in range(len(col["code"])):
         lid = col["leaf_id"][i]
@@ -414,6 +428,10 @@ def _ndjson_rows_py(col, sec_kind: Dict[int, str], sec_name: Dict[int, str],
             "name": json.dumps(name)[1:-1],
             "symbol": json.dumps(symbol)[1:-1],
             "result": result}
+        if weights is not None:
+            # A reduced campaign's representative: the weight goes before
+            # the closing brace (exhaustive lines are unchanged).
+            line = f'{line[:-1]}, "weight": {weights[i]}}}'
         write(line + "\n")
 
 
@@ -600,7 +618,7 @@ class StreamLogWriter:
             # Sparse streams carry exactly the interesting rows.
             rows = len(res.codes)
         else:
-            rows = res.n
+            rows = res.physical_n if res.physical_n is not None else res.n
         if rows != self._expected:
             self._cleanup()
             raise ValueError(
@@ -680,13 +698,20 @@ class StreamLogWriter:
                                 self._ts, 0,
                                 lambda s: self._rows_f.write(s.encode()))
                 return
+            if part.class_weight is not None:
+                # Weighted rows: the Python formatter, as the one-shot
+                # writer does.
+                _ndjson_rows_py(_batch_columns(part, out), self._sec_kind,
+                                self._sec_name, self._ts, num0,
+                                lambda s: self._rows_f.write(s.encode()))
+                return
             native.ndjson_stream_batch(num0, _batch_arrays(part, out),
                                        *self._tables, self._ts,
                                        self._rows_f.write)
         elif self.fmt == "columnar":
             col = _batch_columns(part, out)
-            for k in col:           # _COLUMN_KEYS
-                self._frags[k].append(
+            for k in col:           # _COLUMN_KEYS (+ weight when reduced)
+                self._frags.setdefault(k, []).append(
                     ", ".join(map(str, col[k])))
         else:                                   # reference
             col = _batch_columns(part, out)
@@ -743,6 +768,8 @@ class StreamLogWriter:
                          "kind": s.kind, "lanes": s.lanes,
                          "words": s.words} for s in self._secs.values()]
             keys = list(_COLUMN_KEYS)
+            if "weight" in self._frags:
+                keys.append("weight")   # _columns' insertion order
             with _atomic_write(self.path) as f:
                 f.write('{"summary": ')
                 json.dump({**res.summary(), "format": "columnar"}, f)

@@ -11,7 +11,9 @@ A :class:`FaultModel` turns each row into a flip GROUP: the base row keeps
 the single-site layout (a ``single`` schedule is the historical stream)
 and the extra sites live in ``FaultSchedule.extra``, a struct-of-arrays
 with a group index, expanded from the seed by ``native.fault_expand``.
-Equivalence-reduced schedules are ROADMAP Queue A item 17b.
+``generate(equiv=partition)`` reduces a single-bit schedule to one
+representative a propagation class (``analysis/equiv``), each row carrying
+its ``class_weight``.
 """
 
 from __future__ import annotations
@@ -181,7 +183,13 @@ class FaultSchedule:
     offset in it (``gen_lo``) and the step modulus of its t column
     (``gen_steps``): the device generator (``inject/device_gen.py``)
     regenerates every row from those and the seed.  None for schedules the
-    stream cannot reproduce row by row (stratified strata)."""
+    stream cannot reproduce row by row (stratified strata,
+    equivalence-reduced subsets).
+
+    An equivalence-reduced schedule's rows are propagation-class
+    representatives, row i standing for ``class_weight[i]`` drawn sites
+    (int64); ``equiv_sha`` is the partition's fingerprint, part of the
+    campaign's identity.  Both are None for an exhaustive schedule."""
 
     leaf_id: np.ndarray   # int32 [n]
     lane: np.ndarray      # int32 [n]
@@ -192,12 +200,22 @@ class FaultSchedule:
     seed: int
     extra: Optional[Dict[str, np.ndarray]] = None
     model: FaultModel = FaultModel()
+    class_weight: Optional[np.ndarray] = None   # int64 [n]
+    equiv_sha: Optional[str] = None
     gen_stream_n: Optional[int] = None
     gen_lo: int = 0
     gen_steps: Optional[int] = None
 
     def __len__(self) -> int:
         return len(self.leaf_id)
+
+    @property
+    def effective_n(self) -> int:
+        """Injections this schedule represents: the row count, or the
+        summed class weights of a reduced schedule."""
+        if self.class_weight is None:
+            return len(self)
+        return int(self.class_weight.sum())
 
     @property
     def sites(self) -> int:
@@ -224,6 +242,9 @@ class FaultSchedule:
             self.leaf_id[lo:hi], self.lane[lo:hi], self.word[lo:hi],
             self.bit[lo:hi], self.t[lo:hi], self.section_idx[lo:hi],
             self.seed, extra=extra, model=self.model,
+            class_weight=(None if self.class_weight is None
+                          else self.class_weight[lo:hi]),
+            equiv_sha=self.equiv_sha,
             gen_stream_n=self.gen_stream_n, gen_lo=self.gen_lo + lo,
             gen_steps=self.gen_steps)
 
@@ -283,12 +304,22 @@ def generate(mmap: MemoryMap, n: int, seed: int, nominal_steps: int,
              equiv=None) -> FaultSchedule:
     """n seeded draws: uniform over the injectable bits x uniform over the
     nominal runtime window.  ``model`` makes each draw a flip group whose
-    base sites are this same stream."""
-    if equiv is not None:
-        raise NotImplementedError(
-            "equivalence-reduced schedules are ROADMAP Queue A item 17b")
+    base sites are this same stream.
+
+    ``equiv`` (an :class:`~coast_tpu_torch.analysis.equiv.EquivPartition`)
+    reduces the draws to one representative a realized propagation class:
+    the first draw of each class, in stream order, with ``class_weight``
+    so the counts multiply back out to n.  Defined for the single-bit
+    model only."""
     raw = splitmix_fill(seed, 2 * n)
     if model is not None and model.kind == "link":
+        if equiv is not None:
+            raise ValueError(
+                "equiv= reduction is defined for the single-bit "
+                f"fault model, not {model.spec()!r}: link draws are "
+                "restricted to the interconnect sections and their "
+                "receive window, which the site-equivalence partition "
+                "does not reason about")
         return _generate_link(mmap, raw, n, seed, nominal_steps, model)
     flat_bits = _nonlink_sites(mmap, raw[:n])
     t = (raw[n:] % np.uint64(max(nominal_steps, 1))).astype(np.int32)
@@ -297,7 +328,15 @@ def generate(mmap: MemoryMap, n: int, seed: int, nominal_steps: int,
                           sec_idx.astype(np.int32), seed, gen_stream_n=n,
                           gen_steps=max(nominal_steps, 1))
     if model is not None and model.kind != "single":
+        if equiv is not None:
+            raise ValueError(
+                "equiv= reduction is defined for the single-bit "
+                f"fault model, not {model.spec()!r}: a flip GROUP's "
+                "outcome is not a function of one site's "
+                "propagation class")
         return _expand(mmap, sched, model, seed, nominal_steps)
+    if equiv is not None:
+        return equiv.reduce(sched)
     return sched
 
 

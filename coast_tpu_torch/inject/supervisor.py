@@ -16,14 +16,20 @@ error) unless ``-d cpu`` asks for the host.  A ``--journal`` campaign killed
 at any point resumes with ``--resume`` at its first missing batch and gives
 the uninterrupted run's codes, counts and log lines.
 
+``--equiv`` reduces a seeded ``-t`` campaign to one representative a
+propagation class (``analysis/equiv``), the counts weighted back to ``-t``;
+``--delta-from JOURNAL`` re-injects only the sections whose propagation
+fingerprint changed since that ``--equiv --journal`` run and splices the
+rest (it implies ``--equiv``).
+
 ``--mesh N`` splits the campaign batch over N shards
 (``parallel/mesh.py``: the first N cards, or N logical shards of the host
 with ``-d cpu``), and ``--placement link`` builds the exchange-then-vote
 stencil (``models/stencil.py``).
 
 Flags whose subsystem the port does not have yet are refused with exit code
-2 and the ROADMAP Queue A item that brings them: ``--equiv``,
-``--delta-from`` (item 17b), ``--static-budget`` (item 17c); ``--metrics-port``,
+2 and the ROADMAP Queue A item that brings them: ``--static-budget``
+(item 17c); ``--metrics-port``,
 ``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
 ``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll N`` is
 accepted and clamped to at least 1, as the reference does: it changes no
@@ -66,10 +72,6 @@ _KIND_SECTIONS = {
 #: Flags of the reference whose subsystem the port does not have yet:
 #: (flag, test on the parsed args, why).  Each is refused with exit code 2.
 _UNPORTED_FLAGS = (
-    ("--equiv", lambda a: a.equiv, "ROADMAP Queue A item 17b (equivalence "
-     "reduction)"),
-    ("--delta-from", lambda a: a.delta_from, "ROADMAP Queue A item 17b "
-     "(delta campaigns)"),
     ("--static-budget", lambda a: a.static_budget, "ROADMAP Queue A item "
      "17c (the static propagation map)"),
     ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
@@ -157,9 +159,21 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         "journal header, and resume under the other "
                         "placement is refused with a typed error")
     parser.add_argument("--equiv", action="store_true",
-                        help=argparse.SUPPRESS)
+                        help="fault-site equivalence reduction: partition "
+                        "the site space into propagation classes, inject "
+                        "one representative a class and weight the "
+                        "counts by the class sizes (the distribution over "
+                        "effective injections equals the exhaustive "
+                        "campaign's).  Seeded -t campaigns, single-bit "
+                        "fault model only")
     parser.add_argument("--delta-from", type=str, default=None,
-                        help=argparse.SUPPRESS)
+                        metavar="JOURNAL",
+                        help="delta campaign: re-inject only the sections "
+                        "whose propagation fingerprint changed since "
+                        "JOURNAL (a completed --equiv --journal run of the "
+                        "same campaign) and splice the recorded outcomes "
+                        "of the rest.  Implies --equiv; with --stop-when "
+                        "each re-injected section converges on its own")
     parser.add_argument("--static-budget", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("--stratified", action="store_true",
@@ -310,8 +324,27 @@ def parse_command_line(argv: Optional[List[str]] = None):
               "--errorCount, --forceBreak, -q/--no-logging, or the "
               "default json format)", file=sys.stderr)
         sys.exit(-1)
+    if args.delta_from:
+        args.equiv = True      # the fingerprints come from the partition
+    if args.equiv and (args.forceBreak or args.stratified or args.errorCount
+                       or args.section in CACHE_SECTIONS):
+        # The partition reasons over the seeded generate() stream.
+        print("Error, --equiv/--delta-from apply to the seeded -t "
+              "campaign path, not -e/--errorCount, --stratified, "
+              "--forceBreak, or cache sections", file=sys.stderr)
+        sys.exit(-1)
+    if args.equiv and args.fault_model != "single":
+        print("Error, --equiv needs the single-bit fault model (a flip "
+              "group has no per-site propagation class)", file=sys.stderr)
+        sys.exit(-1)
+    if args.delta_from and (args.journal or args.resume
+                            or args.stream_logs):
+        print("Error, --delta-from reads its journal as the splice base; "
+              "it cannot be combined with --journal/--resume/"
+              "--stream-logs", file=sys.stderr)
+        sys.exit(-1)
     if args.collect == "sparse":
-        if args.errorCount or args.forceBreak:
+        if args.errorCount or args.forceBreak or args.delta_from:
             print("Error, --collect sparse applies to the seeded -t/"
                   "--stratified/cache campaign paths, not -e/"
                   "--errorCount, --forceBreak, or --delta-from",
@@ -457,8 +490,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 retry=retry, mesh=mesh,
                                 unroll=args.unroll,
                                 fault_model=args.fault_model_parsed,
+                                equiv=args.equiv,
                                 collect=args.collect)
-    except ValueError:
+    except ValueError as e:
+        if args.equiv:
+            print(f"Error, {e}", file=sys.stderr)
+            return 1
         print(f"Error, {prog.region.name} has no injectable leaves in "
               f"section '{args.section}'!", file=sys.stderr)
         return 1
@@ -515,6 +552,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             res = runner.run_schedule(
                 sched, batch_size=min(args.batch_size, len(sched)),
                 stream=stream, stop_when=args.stop_when_parsed)
+        elif args.delta_from:
+            from coast_tpu_torch.analysis.equiv import DeltaMismatchError
+            try:
+                res = runner.run_delta(args.t, args.delta_from,
+                                       seed=args.seed,
+                                       batch_size=args.batch_size,
+                                       start_num=args.start_num,
+                                       stop_when=args.stop_when_parsed)
+            except DeltaMismatchError as e:
+                print(f"Error, {e}", file=sys.stderr)
+                return 1
         else:
             res = runner.run(args.t, seed=args.seed,
                              batch_size=args.batch_size,

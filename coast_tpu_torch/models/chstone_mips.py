@@ -199,7 +199,18 @@ def make_region() -> Region:
         wr_en = torch.where(is_r, r_reg_write,
                             is_jal | (~is_j & i_reg_write))
         wr_idx = torch.where(is_r, rd, torch.where(is_jal, 31, rt))
-        wr_val = torch.where(is_r, r_val, torch.where(is_jal, pc1, i_val))
+        # The scalar results (the write-back word, hi, lo and the next pc)
+        # are selected as one vector.  (The reference's scalar selects share
+        # one traced helper, which its propagation walk reads as one value;
+        # this keeps the equivalence partition's modes equal to the
+        # reference's.)
+        mult = is_r & is_mult
+        wr_val, new_hi, new_lo, new_pc = torch.where(
+            torch.stack([is_r, mult, mult, is_r]),
+            torch.stack([r_val, hi_new, lo_new, r_pc]),
+            torch.stack([torch.where(is_jal, pc1, i_val), state["hi"],
+                         state["lo"],
+                         torch.where(is_j | is_jal, tgt, i_pc)])).unbind(0)
         regs_w = update_drop(regs, wr_idx, wr_val)
         new_regs = torch.where((running & wr_en)[:, None], regs_w, regs)
         new_regs = torch.cat([torch.zeros_like(new_regs[:, :1]),
@@ -209,11 +220,6 @@ def make_region() -> Region:
         new_dmem = torch.where((running & ~is_r & is_sw)[:, None], dmem_w,
                                dmem)
 
-        mult = is_r & is_mult
-        new_hi = torch.where(mult, hi_new, state["hi"])
-        new_lo = torch.where(mult, lo_new, state["lo"])
-        new_pc = torch.where(is_r, r_pc, torch.where(is_j | is_jal, tgt,
-                                                     i_pc))
         return {
             "regs": new_regs,
             "dmem": new_dmem,

@@ -74,9 +74,14 @@ def make_region() -> Region:
         sp = state["sp"]
         running = sp > 0
         top = torch.clamp(sp - 1, 0, DEPTH - 1)
-        num, f, to, aux, stage = (
-            take_clip(state[name], top)
-            for name in ("st_num", "st_f", "st_t", "st_a", "st_stage"))
+        # The frame is read as one record: one clamped take of the stacked
+        # fields.  (The reference's five takes share one traced helper,
+        # which its propagation walk reads as one value; this keeps the
+        # equivalence partition's modes equal to the reference's.)
+        num, f, to, aux, stage = take_clip(
+            torch.stack([state[name] for name in
+                         ("st_num", "st_f", "st_t", "st_a", "st_stage")],
+                        dim=2), top).unbind(1)
 
         leaf = num <= 1
         s0 = stage == 0

@@ -13,7 +13,9 @@ multihost.py``) the histogram is ``all_reduce``'d.
 ``CampaignRunner(prog, mesh=make_mesh(2))`` builds a
 :class:`ShardedCampaignRunner`; every campaign surface -- ``run``,
 ``run_schedule`` dense and sparse, journals and resume, retry, streamed
-logs, ``run_until_errors`` -- runs on the sharded dispatch with the
+logs, ``run_until_errors``, equivalence-reduced campaigns (each shard's
+rows of the resident schedule carry their class weights as the sparse
+histogram's count weights) -- runs on the sharded dispatch with the
 single-device runner's codes and counts at the same schedule, and the
 result's ``summary()["mesh"]`` names the geometry and the interesting rows
 each shard produced.

@@ -254,9 +254,19 @@ def test_link_partition_on_a_map_with_link_sections(spec):
 
 
 def test_equiv_still_refuses():
-    _, tmap, tr = maps("mm")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sched.generate(tmap, 4, 0, tr.nominal_steps, equiv=object())
+    # Item 17b landed: equiv= reduces single-bit schedules; a flip group or
+    # a link model is refused with the reference's message.
+    jmap, tmap, tr = maps("mm")
+    for model in ("multibit(k=2)", "link"):
+        with pytest.raises(ValueError) as want:
+            jsched.generate(jmap, 4, 0, tr.nominal_steps,
+                            model=jsched.FaultModel.parse(model),
+                            equiv=object())
+        with pytest.raises(ValueError) as got:
+            sched.generate(tmap, 4, 0, tr.nominal_steps,
+                           model=sched.FaultModel.parse(model),
+                           equiv=object())
+        assert str(got.value) == str(want.value)
 
 
 def test_counts_histogram_equals_reference():

@@ -589,7 +589,7 @@ def test_retry_policy_knobs_match_the_reference():
                                                         field)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"equiv": True},
+@pytest.mark.parametrize("kw", [{"mesh": object()},
                                 {"metrics": object()}, {"profile": True},
                                 {"slo": "sdc_rate<=0.1"}])
 def test_unported_runner_features_name_their_item(kw):
@@ -604,8 +604,10 @@ def test_unported_runner_features_name_their_item(kw):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue A item"):
             CampaignRunner(prog, **kw)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        CampaignRunner(prog).run_delta(100, "base.ndjson")
+    # Item 17b landed: run_delta runs; its static budget is item 17c.
+    with pytest.raises(NotImplementedError, match="item 17c"):
+        CampaignRunner(prog).run_delta(100, "base.ndjson",
+                                       static_budget=True)
 
 
 def test_spec_matches_the_reference():

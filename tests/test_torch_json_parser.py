@@ -201,8 +201,9 @@ def _reader(data: bytes):
 
 
 def test_equivalence_weighted_logs_read_like_the_reference(tmp_path):
-    """The ``physical_injections`` / ``weight`` column path (the port
-    writes no such log yet; the parser reads the reference's)."""
+    """The ``physical_injections`` / ``weight`` column path (the logs of
+    reduced campaigns: tests/test_torch_equiv.py writes them with the
+    port)."""
     doc = {"summary": {"physical_injections": 3, "injections": 7},
            "columns": {"code": [0, 2, 4], "steps": [5, 6, 7],
                        "weight": [4, 2, 1], "leaf_id": [0, 0, 0],

@@ -3,10 +3,11 @@
 For each registry name and strategy the provenance and survival findings,
 as a set of ``(rule, severity, locus)``, equal the reference's recorded
 sweep (``artifacts/lint_sweep.json``, ``benchmarks[name][strategy]
-["findings"]``; its ``propagation`` and ``equiv`` blocks are the
-isolation prover's and the equivalence partition's, which the port does
-not have yet).  The registry is split over two files so ``--dist
-loadfile`` spreads the sweep.
+["findings"]``; its ``equiv`` block is the equivalence partition's,
+held by ``test_torch_equiv_sweep_a.py`` / ``_b.py``, and its
+``propagation`` block the isolation prover's, ROADMAP Queue A item
+17c).  The registry is split over two files so ``--dist loadfile``
+spreads the sweep.
 """
 
 import json

@@ -243,6 +243,14 @@ def test_unported_features_refuse_with_roadmap_item():
                                             "lane": [0, 0], "word": [0, 0],
                                             "bit": [0, 0], "t": [1, 2]})
     assert rec["steps"].dim() == 0 and bool(rec["done"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        generate(MemoryMap(ct.TMR(region, device="cpu")), 4, 0, 18,
-                 equiv=object())
+    # Item 17b landed: generate(equiv=) reduces a single-bit schedule and
+    # refuses a flip-group model with the reference's message.
+    from coast_tpu_torch.analysis.equiv import analyze_equivalence
+    from coast_tpu_torch.inject.schedule import FaultModel
+    prog = ct.TMR(region, device="cpu")
+    part = analyze_equivalence(prog)
+    reduced = generate(MemoryMap(prog), 64, 0, 18, equiv=part)
+    assert reduced.effective_n == 64 and len(reduced) <= 64
+    with pytest.raises(ValueError, match="flip GROUP"):
+        generate(MemoryMap(prog), 4, 0, 18, model=FaultModel.multibit(2),
+                 equiv=part)

@@ -260,9 +260,7 @@ def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
 
 
 UNPORTED = [
-    (["--equiv"], "item 17"),
-    (["--delta-from", "base.ndjson"], "item 17"),
-    (["--static-budget"], "item 17"),
+    (["--static-budget"], "item 17c"),
     (["--metrics-port", "0"], "item 18"),
     (["--status-json", "status.json"], "item 18"),
     (["--heartbeat", "1"], "item 18"),
