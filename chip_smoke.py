@@ -190,8 +190,27 @@ Phases, in order; any failure exits non-zero:
      rebuilt crc16 re-injects no row, a matrixMultiply whose check xors
      golden with 0 re-injects golden's rows only), card fingerprints =
      host fingerprints; the CLI's ``--equiv`` on the card = on the host,
-     ``--delta-from`` re-injecting no row, ``--static-budget`` exiting 2;
-     a two-shard mesh on cuda:0 with equiv = the single device;
+     ``--delta-from`` re-injecting no row, ``--static-budget`` without
+     ``--stop-when`` refused; a two-shard mesh on cuda:0 with equiv = the
+     single device;
+ 28. the static vulnerability map, the lane-isolation prover, the static
+     budget and the advisor (run before phase 18; the analyses capture on
+     the host, every campaign runs on the card): the maps of
+     matrixMultiply TMR/DWC, crc16 TMR and matrixMultiply1024 TMR/DWC
+     equal the recorded sweep's (``artifacts/lint_sweep.json``); live
+     soundness (no SDC outside sdc-possible sections) on matrixMultiply
+     TMR (1500 rows) and matrixMultiply1024 TMR/DWC (512 rows at 128);
+     clean isolation proofs with the recorded voted commits, the seeded
+     voter bypass refuted (crc16 unfused and fused, matrixMultiply1024)
+     and launching no kernel, a fresh matrixMultiply1024 TMR campaign
+     equal to phase 4's after it; static-budget delta campaigns (crc16
+     TMR fused, matrixMultiply TMR, no-op and one-section edits) spending
+     no more rows than plain ones; the advisor on the card = on the host
+     (matrixMultiply), on matrixMultiply1024 at 512 rows with validation,
+     with the static seed; the stencil's cross-shard reach and live
+     soundness for both placements; ``opt -propOut``, the lint's
+     ``--propagation``, the supervisor's ``--static-budget`` and the
+     advisor's CLI as processes, each equal to the in-process result;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -201,11 +220,11 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-27, K2 those of phases 7b, 9-12, 14-17, 19-23 and
-25-27 (each
+9-12, 14-17 and 19-28, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+25-28 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
-coast_tpu package.
+coast_tpu package.  ``launches_phase_28`` is phase 28's share.
 """
 
 from __future__ import annotations
@@ -2758,7 +2777,8 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     with 0 re-injects golden's rows only; card fingerprints equal the
     CPU's.  (e) The CLI: ``--equiv -t 16384`` on the card and on the host
     print equal summaries, ``--delta-from`` its journal re-injects no row,
-    ``--static-budget`` exits 2 naming item 17c.  (f) A two-shard mesh on
+    ``--static-budget`` without ``--stop-when`` is refused as the
+    reference refuses it (phase 28 runs it).  (f) A two-shard mesh on
     cuda:0 with equiv equals the single device.  Returns the (K1, K2)
     launches."""
     import dataclasses
@@ -2941,17 +2961,19 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
         fail(f"phase 27e: --delta-from re-injected "
              f"{cli_delta['summary']['delta']['reinjected_rows']} rows")
     budget = run_cli(["-f", "matrixMultiply", "-t", "8", "--delta-from",
-                      cli_j, "--stop-when", "sdc:0.1", "--static-budget"],
+                      cli_j, "--static-budget"],
                      board, "phase 27e static budget", expect_ok=False)
-    if budget["rc"] != 2 or "item 17c" not in budget["err"]:
-        fail(f"phase 27e: --static-budget exited {budget['rc']}: "
-             f"{budget['err'].strip()[-300:]}")
+    if budget["rc"] != 255 or "needs --delta-from AND --stop-when" \
+            not in budget["err"]:
+        fail(f"phase 27e: --static-budget without --stop-when exited "
+             f"{budget['rc']}: {budget['err'].strip()[-300:]}")
     for run in (on_card, cli_delta):
         launches[0] += run["k1"]
         launches[1] += run["k2"]
     log(f"  27e CLI --equiv card = host "
         f"({on_card['summary']['physical_injections']} physical rows), "
-        f"--delta-from re-injects 0, --static-budget exits 2; K1 launches "
+        f"--delta-from re-injects 0, --static-budget without --stop-when "
+        f"is refused; K1 launches "
         f"{on_card['k1']} + {cli_delta['k1']} [{card}]")
 
     # (f) The mesh.
@@ -2972,6 +2994,358 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
         f"({meshed.physical_n} rows, K1 launches {k1}) [{card}]")
     log(f"phase 27: {time.perf_counter() - t_phase:.1f} s, K1 "
         f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    return tuple(launches)
+
+
+# -- phase 28: the static vulnerability map, the isolation prover, the
+# static budget and the advisor ------------------------------------------------
+
+# Runs ``python -m <module>`` as the supervisor wrapper does, reporting the
+# process's K1 and K2 launches at exit.
+def start_module(module: str, argv) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         SUPERVISOR.replace("coast_tpu_torch.inject.supervisor", module),
+         *argv], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+# Phase 28a's maps: the builds whose verdicts, verdict counts and ACE totals
+# are read from the recorded sweep.
+PROP_MAPS = (("matrixMultiply", "TMR"), ("matrixMultiply", "DWC"),
+             ("crc16", "TMR"), ("matrixMultiply1024", "TMR"),
+             ("matrixMultiply1024", "DWC"))
+
+
+def section_counts(runner, res) -> dict:
+    """Per-section outcome counts of a dense campaign."""
+    from coast_tpu_torch.inject.classify import CLASS_NAMES
+    lids = np.asarray(res.schedule.leaf_id)
+    out = {}
+    for sec in runner.mmap.sections:
+        binc = np.bincount(res.codes[lids == sec.leaf_id],
+                           minlength=len(CLASS_NAMES))
+        out[sec.name] = {k: int(c) for k, c in zip(CLASS_NAMES, binc) if c}
+    return out
+
+
+def check_edited(region, leaf: str):
+    """``region`` whose check sees ``leaf`` xor'ed with 0: only that
+    section's check cone (and fingerprint) changes."""
+    import dataclasses
+    old_check = region.check
+
+    def new_check(state):
+        state = dict(state)
+        state[leaf] = state[leaf] ^ 0
+        return old_check(state)
+
+    return dataclasses.replace(region, check=new_check)
+
+
+def propagation_phase(work: Path, card: str, TMR, DWC, REGISTRY,
+                      CampaignRunner, hv, hc, results) -> tuple:
+    """Phase 28: item 17c on the card (the analyses capture on the host;
+    every campaign runs on the card).  (a) The vulnerability maps of
+    matrixMultiply TMR/DWC, crc16 TMR and matrixMultiply1024 TMR/DWC built
+    on the card equal the recorded sweep's; live soundness: no SDC outside
+    sdc-possible sections in matrixMultiply TMR (1500 rows at 500) and
+    matrixMultiply1024 TMR/DWC (512 at 128, full width).  (b) Clean
+    proofs hold with the recorded voted commits; the seeded voter bypass
+    is refuted on crc16 unfused and fused and on matrixMultiply1024, and a
+    bypassed card build launches no K1 or K2; after it a fresh
+    matrixMultiply1024 TMR campaign equals phase 4's, row for row.  (c)
+    The static budget on crc16 TMR fused and matrixMultiply TMR: a
+    1500-row equivalence journal, then a no-op and a one-section-edit
+    delta under ``sdc:0.05;min=128``, plain and static: the same counts,
+    the verdicts recorded, no more physical rows.  (d) The advisor on the
+    card = on the host for matrixMultiply; matrixMultiply1024 at 512 with
+    validation; the static seed.  (e) The stencil's step 3 for both
+    placements.  (f) opt ``-propOut``, the lint's ``--propagation``, the
+    supervisor's ``--static-budget`` and the advisor's CLI as processes,
+    started at the phase's start, each equal to the in-process result.
+    Returns the (K1, K2) launches."""
+    from coast_tpu_torch.analysis.advisor import advise, harm_rate
+    from coast_tpu_torch.inject.classify import CLASS_NAMES
+    from coast_tpu_torch.analysis.propagation import (VERDICT_SDC,
+                                                      analyze_propagation,
+                                                      crossvalidate_counts,
+                                                      prove_isolation,
+                                                      seeded_voter_bypass)
+    from coast_tpu_torch.models import resolve_region
+    from coast_tpu_torch.obs.convergence import StopWhen
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    hv.LAUNCHES = hc.LAUNCHES = 0
+
+    def count() -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    with open(ROOT / "artifacts" / "lint_sweep.json") as fh:
+        sweep = json.load(fh)["benchmarks"]
+    strats = {"TMR": TMR, "DWC": DWC}
+
+    # (f) The command lines, started now so they overlap the phase.
+    prop_out = work / "mm1024_prop.json"
+    lint_out = work / "crc16_lint.json"
+    sup_j = work / "sup_equiv.journal"
+    sup_argv = ["-f", "matrixMultiply", "-O", "-TMR", "-t", "4096", "--seed",
+                "9", "--batch-size", "1024", "-q"]
+    procs = {
+        "opt": start_module("coast_tpu_torch.opt", [
+            "-TMR", f"-propOut={prop_out}", "matrixMultiply1024"]),
+        "lint": start_module("coast_tpu_torch.analysis.lint", [
+            "-TMR", "crc16", "--propagation", "--json", str(lint_out)]),
+        "advisor": start_module("coast_tpu_torch.analysis.advisor", [
+            "matrixMultiply", "-e", "2048", "-t", "0.02"]),
+        "equiv": start_cli([*sup_argv, "--equiv", "--journal", str(sup_j)],
+                           "gpu"),
+    }
+
+    # (a) The maps, and live soundness.
+    maps = {}
+    progs = {}
+    for name, strat in PROP_MAPS:
+        prog = strats[strat](REGISTRY[name]())
+        t0 = time.perf_counter()
+        vmap = analyze_propagation(prog)
+        t_an = time.perf_counter() - t0
+        want = sweep[name][strat]["propagation"]
+        got = {"verdicts": vmap.section_verdicts(),
+               "verdict_counts": vmap.counts(), "ace": vmap.ace_summary()}
+        if got != {k: want[k] for k in got}:
+            fail(f"phase 28a {name} {strat}: map {got} differs from the "
+                 f"recorded {want}")
+        maps[(name, strat)] = vmap
+        progs[(name, strat)] = prog
+        ace = vmap.ace_summary()
+        share = ace["sdc_possible_ace_bits"] / max(ace["ace_bits"], 1)
+        log(f"  28a {name} {strat}: {vmap.counts()}, sdc-possible ACE "
+            f"{ace['sdc_possible_ace_bits']}/{ace['ace_bits']} bits "
+            f"({100 * share:.2f}%), analysis {t_an:.3f} s (host capture, "
+            f"clean run on the card) [{card}]")
+    count()
+    for (name, strat), (n, batch) in (
+            (("matrixMultiply", "TMR"), (1500, 500)),
+            (("matrixMultiply1024", "TMR"), (512, 128)),
+            (("matrixMultiply1024", "DWC"), (512, 128))):
+        runner = CampaignRunner(progs[(name, strat)], strategy_name=strat)
+        res = runner.run(n, seed=13, batch_size=batch)
+        violations = crossvalidate_counts(maps[(name, strat)],
+                                          section_counts(runner, res))
+        if violations:
+            fail(f"phase 28a {name} {strat}: soundness violations "
+                 f"{violations}")
+        k1, _ = count()
+        if k1 <= 0:
+            fail(f"phase 28a {name} {strat}: the campaign launched K1 no "
+                 "time")
+        log(f"  28a live soundness {name} {strat}: {nonzero(res.counts)}, "
+            f"{n} rows, no SDC outside sdc-possible sections; "
+            f"{res.injections_per_sec:.1f} inj/s, K1 launches {k1} [{card}]")
+
+    # (b) Isolation.
+    proofs = {}
+    for name in ("matrixMultiply", "matrixMultiply1024", "crc16"):
+        for strat in ("TMR", "DWC"):
+            prog = progs.get((name, strat)) or strats[strat](REGISTRY[name]())
+            t0 = time.perf_counter()
+            proof = prove_isolation(prog, strategy=strat)
+            want = sweep[name][strat]["propagation"]["isolation"]
+            if not proof.holds or proof.vacuous \
+                    or len(proof.voted_commits) != want["voted_commits"] \
+                    or proof.assumptions != want["assumptions"]:
+                fail(f"phase 28b {name} {strat}: {proof.summary()} against "
+                     f"the recorded {want}")
+            proofs[(name, strat)] = proof
+            log(f"  28b {name} {strat}: isolation holds, "
+                f"{len(proof.voted_commits)} voted commits "
+                f"({time.perf_counter() - t0:.3f} s, host)")
+    flip = {"leaf_id": 1, "lane": 0, "word": 0, "bit": 5, "t": 0}
+    for name, kw in (("crc16", {}), ("crc16", {"fuse_step": True}),
+                     ("matrixMultiply1024", {})):
+        with seeded_voter_bypass():
+            bad = TMR(REGISTRY[name](), **kw)
+            proof = prove_isolation(bad, strategy="TMR")
+            before = (hv.LAUNCHES, hc.LAUNCHES)
+            if name == "crc16":
+                rec = bad.run(flip)
+                if (hv.LAUNCHES, hc.LAUNCHES) != before \
+                        or int(rec["corrected"]) != 0:
+                    fail(f"phase 28b {name} {kw}: the bypassed build "
+                         "launched a kernel or corrected a flip")
+        if proof.holds or not proof.leaks \
+                or not all(l.path for l in proof.leaks):
+            fail(f"phase 28b {name} {kw}: the seeded bypass was not "
+                 f"refuted: {proof.summary()}")
+        log(f"  28b bypass {name} {kw or ''}: refuted, "
+            f"{proof.total_leak_paths} leak paths, e.g. "
+            f"{proof.leaks[0].format()[:160]}")
+    count()
+    region = REGISTRY["matrixMultiply1024"]()
+    again = CampaignRunner(TMR(region), strategy_name="TMR").run(
+        1024, seed=1, batch_size=128)
+    first = results[TMR]
+    for col in ("codes", "errors", "corrected", "steps"):
+        if not np.array_equal(getattr(again, col), getattr(first, col)):
+            fail(f"phase 28b: after the bypass, matrixMultiply1024 TMR's "
+                 f"{col} differ from phase 4's")
+    k1, _ = count()
+    log(f"  28b after the bypass: matrixMultiply1024 TMR 1024 rows equal "
+        f"phase 4's, K1 launches {k1} [{card}]")
+
+    # (c) The static budget.
+    stop = StopWhen.parse("sdc:0.05;min=128")
+    for name, kw, edit in (("crc16", {"fuse_step": True}, "crc"),
+                           ("matrixMultiply", {}, "results")):
+        base_runner = CampaignRunner(TMR(REGISTRY[name](), **kw),
+                                     strategy_name="TMR", equiv=True)
+        jpath = str(work / f"{name}_sb.journal")
+        base = base_runner.run(1500, seed=4, batch_size=500, journal=jpath)
+        for label, region in (("no-op", REGISTRY[name]()),
+                              (f"{edit} edited",
+                               check_edited(REGISTRY[name](), edit))):
+            runner = CampaignRunner(TMR(region, **kw), strategy_name="TMR",
+                                    equiv=True)
+            plain = runner.run_delta(1500, jpath, seed=4, batch_size=64,
+                                     stop_when=stop)
+            static = runner.run_delta(1500, jpath, seed=4, batch_size=64,
+                                      stop_when=stop, static_budget=True)
+            sb = static.delta["static_budget"]
+            want_changed = [] if label == "no-op" else [edit]
+            if plain.delta["changed_sections"] != want_changed \
+                    or static.physical_n > plain.physical_n \
+                    or set(sb["verdicts"]) != set(
+                        runner.equiv_partition.signatures):
+                fail(f"phase 28c {name} {label}: plain {plain.delta}, "
+                     f"static {static.delta} ({plain.physical_n} vs "
+                     f"{static.physical_n} rows)")
+            if label == "no-op" and static.counts != base.counts:
+                fail(f"phase 28c {name}: the no-op static delta's counts "
+                     f"{static.counts} differ from the base's {base.counts}")
+            k1, k2 = count()
+            log(f"  28c {name} {kw or ''} {label}: plain "
+                f"{plain.physical_n} rows, static {static.physical_n} "
+                f"(order {sb.get('order', [])}, relaxed "
+                f"{sb.get('relaxed_min', {})}, verdict of {edit} "
+                f"{sb['verdicts'][edit]}); K1 {k1}, K2 {k2} launches "
+                f"[{card}]")
+            if kw and label != "no-op" and k2 <= 0:
+                fail(f"phase 28c {name} fused: the delta launched K2 no "
+                     "time")
+
+    # (d) The advisor.
+    mm_card = advise(REGISTRY["matrixMultiply"](), budget=2048,
+                     target_harm=0.02, batch_size=1024)
+    mm_host = advise(REGISTRY["matrixMultiply"](), budget=2048,
+                     target_harm=0.02, batch_size=1024, device="cpu")
+
+    def harms(adv):
+        return [(h.name, h.injections, h.sdc, h.due, h.invalid, h.words)
+                for h in adv.ranked]
+
+    if (mm_card.protect, harms(mm_card), mm_card.config_text) \
+            != (mm_host.protect, harms(mm_host), mm_host.config_text):
+        fail(f"phase 28d: the advice on the card {mm_card.protect} "
+             f"differs from the host's {mm_host.protect}")
+    k1, _ = count()
+    log(f"  28d advise(matrixMultiply) card = host: protect "
+        f"{mm_card.protect}; K1 launches {k1} [{card}]")
+    t0 = time.perf_counter()
+    big = advise(REGISTRY["matrixMultiply1024"](), budget=512,
+                 batch_size=128)
+    if big.achieved is None or harm_rate(big.achieved) \
+            > harm_rate(big.baseline):
+        fail(f"phase 28d: matrixMultiply1024's selective harm "
+             f"{big.achieved} exceeds the unprotected {big.baseline}")
+    k1, _ = count()
+    log(f"  28d advise(matrixMultiply1024, 512): protect {big.protect}, "
+        f"harm unprotected {harm_rate(big.baseline):.4f}, selective "
+        f"{harm_rate(big.achieved):.4f}, full {harm_rate(big.full):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s, K1 launches {k1} [{card}]")
+    seeded = advise(REGISTRY["matrixMultiply"](), budget=2048,
+                    static_seed=True, validate=False)
+    if seeded.static_verdicts.get("golden") != VERDICT_SDC \
+            or sorted(seeded.protect) != sorted(mm_card.protect):
+        fail(f"phase 28d: the static seed gave {seeded.protect}, "
+             f"verdicts {seeded.static_verdicts}")
+    count()
+    log(f"  28d static seed on matrixMultiply: protect {seeded.protect}")
+
+    # (e) The stencil's step 3.
+    for placement in ("compute", "link"):
+        prog = TMR(resolve_region("stencil", placement=placement))
+        vmap = analyze_propagation(prog)
+        reach = {g: vmap.shard_reach[g].get("cross_shard")
+                 for g in ("grid0", "grid1")}
+        if any(v is not (placement == "link") for v in reach.values()):
+            fail(f"phase 28e {placement}: grid reach {reach}")
+        runner = CampaignRunner(prog, strategy_name="TMR")
+        res = runner.run(480, seed=7, batch_size=48)
+        violations = crossvalidate_counts(vmap, section_counts(runner, res))
+        if violations:
+            fail(f"phase 28e {placement}: soundness violations "
+                 f"{violations}")
+        k1, _ = count()
+        log(f"  28e stencil {placement}: cross_shard {reach}, "
+            f"{nonzero(res.counts)}, no SDC outside sdc-possible sections; "
+            f"K1 launches {k1} [{card}]")
+
+    # (f) The command lines.
+    def done(key, what):
+        got = finish_cli(procs[key], what)
+        launches[0] += got["k1"]
+        launches[1] += got["k2"]
+        return got
+
+    done("opt", "phase 28f opt -propOut")
+    proof = prove_isolation(progs[("matrixMultiply1024", "TMR")],
+                            strategy="TMR")
+    want = json.loads(json.dumps(
+        {"vulnerability_map": maps[("matrixMultiply1024", "TMR")].summary(),
+         "isolation": proof.summary()}, sort_keys=True))
+    if json.loads(prop_out.read_text()) != want:
+        fail("phase 28f: opt -propOut's document differs from the "
+             "in-process map and proof")
+    lint_run = done("lint", "phase 28f lint --propagation")
+    lint_doc = json.loads(lint_out.read_text())
+    if lint_doc["propagation"]["crc16:TMR"] != json.loads(json.dumps(
+            maps[("crc16", "TMR")].summary())) \
+            or "static vulnerability map: crc16" not in lint_run["out"]:
+        fail("phase 28f: the lint's --propagation map differs from the "
+             "in-process one")
+    equiv_cli = done("equiv", "phase 28f supervisor --equiv")
+    delta_cli = finish_cli(start_cli(
+        [*sup_argv, "--delta-from", str(sup_j), "--stop-when",
+         "sdc:0.05;min=128", "--static-budget"], "gpu"),
+        "phase 28f supervisor --static-budget")
+    launches[0] += delta_cli["k1"]
+    launches[1] += delta_cli["k2"]
+    got, base = delta_cli["summary"], equiv_cli["summary"]
+    want = {"verdicts": maps[("matrixMultiply", "TMR")].section_verdicts()}
+    if got["delta"]["static_budget"] != want \
+            or got["delta"]["changed_sections"] != [] \
+            or {k: got.get(k) for k in CLASS_NAMES} \
+            != {k: base.get(k) for k in CLASS_NAMES}:
+        fail(f"phase 28f: --static-budget gave {got}, the --equiv run "
+             f"{base}, the in-process verdicts {want}")
+    adv_run = done("advisor", "phase 28f advisor")
+    if mm_card.format() not in adv_run["out"]:
+        fail("phase 28f: the advisor CLI's report differs from the "
+             f"in-process advice:\n{adv_run['out'][-2000:]}")
+    count()
+    log("  28f opt -propOut, lint --propagation, supervisor --equiv then "
+        "--static-budget, advisor CLI: each exits 0 and equals the "
+        f"in-process result [{card}]")
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0 or launches[1] <= 0:
+        fail(f"phase 28 launched K1 {launches[0]} and K2 {launches[1]} "
+             "times")
     return tuple(launches)
 
 
@@ -3175,6 +3549,11 @@ def main() -> None:
     # 27. Equivalence-reduced and delta campaigns.
     new_launches.append(equiv_campaigns(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc))
+    # 28. The vulnerability map, the isolation prover, the static budget
+    # and the advisor.
+    phase28 = propagation_phase(work, card, TMR, DWC, REGISTRY,
+                                CampaignRunner, hv, hc, results)
+    new_launches.append(phase28)
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -3192,6 +3571,7 @@ def main() -> None:
         "source": "coast_tpu_torch/csrc/vote.cu",
         "replaces": "coast_tpu/ops/pallas_voters.py:87",
         "launches": main_launches,
+        "launches_phase_28": phase28[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3205,6 +3585,7 @@ def main() -> None:
         "source": "coast_tpu_torch/csrc/commit.cu",
         "replaces": "coast_tpu/ops/fused_step.py:373",
         "launches": fused_launches,
+        "launches_phase_28": phase28[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

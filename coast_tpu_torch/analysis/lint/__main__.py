@@ -12,12 +12,17 @@ drift) plus linter options::
     python -m coast_tpu_torch.analysis.lint -TMR crc16 --baseline b.json
     python -m coast_tpu_torch.analysis.lint -TMR crc16 --write-baseline b.json
     python -m coast_tpu_torch.analysis.lint -TMR crc16 --device cpu
+    python -m coast_tpu_torch.analysis.lint -TMR crc16 --propagation
 
 The programs are built on the card (``--device cuda``, the default), where
 the survival pass runs its trips through K1 and K2; ``--device cpu`` lints
 on the host.  The capture of the provenance pass always runs on the CPU.
-``--propagation`` (the lane-isolation prover and the vulnerability map) is
-ROADMAP Queue A item 17c and exits 2.
+``--propagation`` adds the third static pass: the lane-isolation prover
+gates alongside the other rules (leaks are ``isolation-leak`` error
+findings with counterexample paths), and each target's static
+vulnerability map is printed and recorded under the ``propagation`` key
+of the ``--json`` export (the map runs one fault-free run on the device
+to bound the live flip window).
 
 Exit status: 0 when every report is error-free (after baseline
 suppression), 1 otherwise, 2 on usage errors.
@@ -38,6 +43,7 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     baseline_path = None
     write_baseline = None
     survival = True
+    propagation = False
     sweep_all = False
     rest: List[str] = []
     i = 0
@@ -61,10 +67,7 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         elif arg == "--no-survival":
             survival = False
         elif arg == "--propagation":
-            from coast_tpu_torch.analysis.lint import PROPAGATION_ITEM
-            print(f"ERROR: --propagation: {PROPAGATION_ITEM}",
-                  file=sys.stderr)
-            return 2
+            propagation = True
         elif arg == "--all":
             sweep_all = True
         elif arg.startswith("--"):
@@ -114,16 +117,28 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
             return 2
 
     reports = []
+    prop_maps = {}
     for bench in benches:
         try:
             prog = make(resolve_region(bench), device=device, **overrides)
         except SoRViolation as e:
             print(str(e), file=sys.stderr)
             return 1
+        facts = None
+        if propagation:
+            from coast_tpu_torch.analysis.propagation import analyze_step
+            facts = analyze_step(prog, closed=lint.trace_step(prog))
         rep = lint.lint_program(prog, survival=survival, strategy=strategy,
-                                baseline=base)
+                                baseline=base, propagation=propagation,
+                                facts=facts)
         reports.append(rep)
         print(rep.format())
+        if propagation:
+            from coast_tpu_torch.analysis.propagation import (
+                analyze_propagation)
+            vmap = analyze_propagation(prog, facts=facts)
+            prop_maps[f"{bench}:{strategy}"] = vmap.summary()
+            print(vmap.format())
 
     if write_baseline is not None:
         from coast_tpu_torch.analysis.lint.findings import write_baseline_set
@@ -133,6 +148,8 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         doc = {"strategy": strategy,
                "survival": survival,
                "reports": [r.to_dict() for r in reports]}
+        if propagation:
+            doc["propagation"] = prop_maps
         os.makedirs(os.path.dirname(json_out) or ".", exist_ok=True)
         with open(json_out, "w") as fh:
             json.dump(doc, fh, indent=1)

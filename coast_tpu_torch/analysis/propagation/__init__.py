@@ -1,12 +1,23 @@
 """Static fault-propagation analysis over the captured protected step.
 
-The counterpart of ``coast_tpu/analysis/propagation``.  The shared
-fault-propagation walker (:mod:`walker`) is ported: one walk of the
-captured trips feeds the equivalence partition (``analysis/equiv``).  The
-static vulnerability map (``vulnmap``) and the lane-isolation prover
-(``isolation``) that consume the same :class:`StepFacts` are ROADMAP Queue
-A item 17c: importing either from this package, or any of their names, or
-calling :func:`analyze_propagation`, raises ``NotImplementedError``.
+The counterpart of ``coast_tpu/analysis/propagation``: one shared
+fault-propagation walk of the captured trips (:mod:`walker`) feeds the
+equivalence partition (``analysis/equiv``) and the two passes here:
+
+  * :mod:`vulnmap` -- the ACE-style **static vulnerability map**: each
+    (memory-map section, bit class) gets a verdict -- ``masked``,
+    ``detected-bounded`` or ``sdc-possible`` with a witness dataflow path
+    -- cross-validated against campaign distributions;
+  * :mod:`isolation` -- the **lane-isolation noninterference prover**:
+    flips in replica lanes cannot flow into other lanes, shared state or
+    step flags except through sanctioned voted commits; refutations carry
+    counterexample paths, and :func:`seeded_voter_bypass` is the generic
+    seeded regression.
+
+Wired as: the ``opt`` build gate and ``-propOut=``, ``python -m
+coast_tpu_torch.analysis.lint --propagation``, ``CampaignRunner(preflight=
+"propagation")``, the delta-campaign budget allocator
+(``run_delta(static_budget=True)``) and the advisor's ``static_seed``.
 """
 
 from __future__ import annotations
@@ -15,30 +26,14 @@ from coast_tpu_torch.analysis.propagation.walker import (StepFacts,
                                                          TraceTaint,
                                                          analyze_step,
                                                          cross_lane_sites)
+from coast_tpu_torch.analysis.propagation.vulnmap import (
+    VERDICT_DETECTED, VERDICT_MASKED, VERDICT_SDC, VERDICTS, VulnRow,
+    VulnerabilityMap, analyze_propagation, crossvalidate_counts)
+from coast_tpu_torch.analysis.propagation.isolation import (
+    IsolationProof, Leak, prove_isolation, seeded_voter_bypass)
 
 __all__ = ["StepFacts", "TraceTaint", "analyze_step", "cross_lane_sites",
-           "analyze_propagation"]
-
-#: What the refusals of the unported consumers name.
-PROPAGATION_ITEM = ("the static vulnerability map and the lane-isolation "
-                    "prover are not ported yet; see ROADMAP Queue A item "
-                    "17c")
-
-# The reference's names that the two unported modules bring.
-_LATER = frozenset({
-    "vulnmap", "isolation", "VERDICT_MASKED", "VERDICT_DETECTED",
-    "VERDICT_SDC", "VERDICTS", "VulnRow", "VulnerabilityMap",
-    "crossvalidate_counts", "IsolationProof", "Leak", "prove_isolation",
-    "seeded_voter_bypass"})
-
-
-def analyze_propagation(*args, **kwargs):
-    """The static vulnerability map: ROADMAP Queue A item 17c."""
-    raise NotImplementedError(PROPAGATION_ITEM)
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(PROPAGATION_ITEM)
-    raise AttributeError(
-        f"module {__name__!r} has no attribute {name!r}")
+           "VERDICT_MASKED", "VERDICT_DETECTED", "VERDICT_SDC", "VERDICTS",
+           "VulnRow", "VulnerabilityMap", "analyze_propagation",
+           "crossvalidate_counts", "IsolationProof", "Leak",
+           "prove_isolation", "seeded_voter_bypass"]

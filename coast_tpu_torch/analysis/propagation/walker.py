@@ -1,6 +1,6 @@
 """The shared fault-propagation walker: one abstract interpretation of the
-protected step, consumed by the equivalence partition (and by the static
-vulnerability map and the isolation prover, ROADMAP Queue A item 17c).
+protected step, consumed by the equivalence partition, the static
+vulnerability map and the isolation prover.
 
 The counterpart of ``coast_tpu/analysis/propagation/walker.py``.  The
 reference walks a jaxpr; the port walks the aten operations of the trips
@@ -229,7 +229,7 @@ class _InfluenceWalk(_TaintWalk):
     still kill it except for ``shared_surviving`` leaves, and single-lane
     call boundaries pass it.  The per-step leaf->leaf edges
     (``StepFacts.out_taint``) are the raw material of the vulnerability
-    map's cross-shard reach (ROADMAP Queue A item 17c)."""
+    map's cross-shard reach (``vulnmap._shard_reach``)."""
 
     def _node_outs(self, i: int, node) -> List[FrozenSet[str]]:
         tag = node.tag

@@ -419,11 +419,11 @@ class CampaignRunner:
 
         ``preflight`` runs the replication-integrity linter
         (``analysis/lint``) before anything else and raises
-        ``ReplicationLintError`` on an error finding: ``"static"`` runs
-        the provenance rules, another truthy value adds the survival
-        checks.  ``True``, ``"full"`` and ``"propagation"`` also ask for
-        the isolation prover, which is ROADMAP Queue A item 17c, and raise
-        ``NotImplementedError``.
+        ``ReplicationLintError`` on an error finding, so a leaking build
+        spends no device time: ``"static"`` runs the provenance rules,
+        ``"propagation"`` adds the lane-isolation prover, ``True`` and
+        ``"full"`` add the prover and the survival checks, any other
+        truthy value the survival checks.
 
         The reference's ``metrics``, ``profile`` and ``slo`` raise
         ``NotImplementedError`` naming their ROADMAP item."""
@@ -451,15 +451,11 @@ class CampaignRunner:
                 f"unknown collect mode {collect!r}; one of 'dense', "
                 "'sparse'")
         if preflight:
-            if preflight in (True, "full", "propagation"):
-                raise NotImplementedError(
-                    f"CampaignRunner(preflight={preflight!r}) runs the "
-                    "lane-isolation prover, which is not ported yet; see "
-                    "ROADMAP Queue A item 17c (preflight='static' runs the "
-                    "provenance rules, any other truthy value adds the "
-                    "survival checks)")
             from coast_tpu_torch.analysis import lint as lint_mod
-            lint_mod.check(prog, survival=preflight != "static")
+            lint_mod.check(
+                prog,
+                survival=preflight not in ("static", "propagation"),
+                propagation=preflight in (True, "full", "propagation"))
         self.unroll = max(1, int(unroll))
         self.prog = prog
         # A training region's counts always carry the train classes; every
@@ -1186,19 +1182,21 @@ class CampaignRunner:
         ``convergence`` holds one report a section and
         ``delta["dropped_rows"]`` the rows cut.
 
-        ``static_budget`` (the vulnerability map's budget allocator) is
-        ROADMAP Queue A item 17c and raises ``NotImplementedError``.
+        ``static_budget`` feeds the static vulnerability map
+        (``analysis/propagation``) into the re-injection loop: sections
+        verdicted ``sdc-possible`` run first, and sections it proves
+        ``masked`` or ``detected-bounded`` run under a ``min_done`` floor
+        quartered (at least 32), since the static proof already rules their
+        silent classes out.  ``True`` derives the map from this runner's
+        partition; a ``VulnerabilityMap`` is taken as it is.  Per-class
+        thresholds are untouched.  ``delta["static_budget"]`` records the
+        verdicts, and with ``stop_when`` the order and the relaxed floors.
 
         Needs ``equiv=True`` (the partition supplies the fingerprints) and a
         base journal written by an equivalence run; an incompatible base
         raises :class:`~coast_tpu_torch.analysis.equiv.DeltaMismatchError`.
         """
         from coast_tpu_torch.analysis.equiv import load_delta_base, plan_delta
-        if static_budget:
-            raise NotImplementedError(
-                "run_delta(static_budget=...) spends the convergence budget "
-                "by the static vulnerability map, which is not ported yet; "
-                "see ROADMAP Queue A item 17c")
         if self.equiv_partition is None:
             raise ValueError(
                 "run_delta needs CampaignRunner(equiv=True): the "
@@ -1274,6 +1272,18 @@ class CampaignRunner:
 
         keep = None
         convergence: Optional[Dict[str, object]] = None
+        static_info: Optional[Dict[str, object]] = None
+        static_verdicts: Dict[str, str] = {}
+        if static_budget:
+            from coast_tpu_torch.analysis.propagation import (
+                VulnerabilityMap, analyze_propagation)
+            vmap = (static_budget
+                    if isinstance(static_budget, VulnerabilityMap)
+                    else analyze_propagation(
+                        self.prog, partition=self.equiv_partition))
+            static_verdicts = vmap.section_verdicts()
+            static_info = {"verdicts": dict(sorted(
+                static_verdicts.items()))}
         if len(run_idx) and stop_when is None:
             sub = _rows_subset(part, run_idx)
             take(self.run_schedule(
@@ -1291,13 +1301,33 @@ class CampaignRunner:
             per_section: Dict[str, object] = {}
             agg_counts = dict(splice_counts)
             agg_done = int(len(splice_idx))
-            for name in sorted(groups):
+            ordered = sorted(groups)
+            relaxed: Dict[str, int] = {}
+            if static_info is not None:
+                # The static prior: uncertain (sdc-possible) sections
+                # first, and the min_done floor -- there so rare classes
+                # get a chance to appear -- quartered on sections the map
+                # proves cannot silently corrupt.
+                from coast_tpu_torch.analysis.propagation import VERDICT_SDC
+                ordered = sorted(groups, key=lambda nm: (
+                    static_verdicts.get(nm) != VERDICT_SDC, nm))
+                static_info["order"] = list(ordered)
+            for name in ordered:
                 idx = np.asarray(groups[name], np.int64)
                 sub = _rows_subset(part, idx)
+                sub_stop = stop_when
+                if (static_info is not None and stop_when.min_done
+                        and static_verdicts.get(name) not in (
+                            None, VERDICT_SDC)):
+                    floor = max(32, int(stop_when.min_done) // 4)
+                    if floor < int(stop_when.min_done):
+                        sub_stop = dataclasses.replace(stop_when,
+                                                       min_done=floor)
+                        relaxed[name] = floor
                 sub_res = self.run_schedule(
                     sub, batch_size=min(batch_size, len(sub)),
                     progress=with_base(agg_done, dict(agg_counts)),
-                    stop_when=stop_when)
+                    stop_when=sub_stop)
                 ran = len(sub_res.codes)
                 sel = idx[:ran]
                 take(sub_res, sel)
@@ -1312,6 +1342,8 @@ class CampaignRunner:
                 "stop_when": stop_when.spec(),
                 "per_section": per_section,
             }
+            if static_info is not None and relaxed:
+                static_info["relaxed_min"] = dict(sorted(relaxed.items()))
         dropped = 0
         if keep is not None and not keep.all():
             # Early stop cut some sections short: the result describes
@@ -1328,6 +1360,8 @@ class CampaignRunner:
         counts["cache_invalid"] = int(w_col[~fired].sum())
         delta_summary: Dict[str, object] = {**plan.summary(),
                                             "base": delta_from}
+        if static_info is not None:
+            delta_summary["static_budget"] = static_info
         if stop_when is not None:
             delta_summary["dropped_rows"] = dropped
         if len(run_idx):

@@ -96,8 +96,7 @@ class CampaignSpec:
     ``static_budget``
         Delta campaigns only: allocate the per-section convergence
         budget by the static vulnerability map
-        (the static
-        propagation map, ROADMAP Queue A item 17c) -- ``sdc-possible``
+        (``analysis/propagation``) -- ``sdc-possible``
         sections re-inject first and statically-proven sections run
         under a relaxed ``min_done`` floor.  Fleet-item-only like
         ``delta_from`` (it shapes HOW the delta spends budget, not what

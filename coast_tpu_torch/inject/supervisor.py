@@ -20,7 +20,10 @@ the uninterrupted run's codes, counts and log lines.
 propagation class (``analysis/equiv``), the counts weighted back to ``-t``;
 ``--delta-from JOURNAL`` re-injects only the sections whose propagation
 fingerprint changed since that ``--equiv --journal`` run and splices the
-rest (it implies ``--equiv``).
+rest (it implies ``--equiv``); ``--static-budget`` (with ``--delta-from``
+and ``--stop-when``) re-injects the static vulnerability map's
+``sdc-possible`` sections first and relaxes the ``min_done`` floor of the
+proven ones.
 
 ``--mesh N`` splits the campaign batch over N shards
 (``parallel/mesh.py``: the first N cards, or N logical shards of the host
@@ -28,8 +31,7 @@ with ``-d cpu``), and ``--placement link`` builds the exchange-then-vote
 stencil (``models/stencil.py``).
 
 Flags whose subsystem the port does not have yet are refused with exit code
-2 and the ROADMAP Queue A item that brings them: ``--static-budget``
-(item 17c); ``--metrics-port``,
+2 and the ROADMAP Queue A item that brings them: ``--metrics-port``,
 ``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
 ``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll N`` is
 accepted and clamped to at least 1, as the reference does: it changes no
@@ -72,8 +74,6 @@ _KIND_SECTIONS = {
 #: Flags of the reference whose subsystem the port does not have yet:
 #: (flag, test on the parsed args, why).  Each is refused with exit code 2.
 _UNPORTED_FLAGS = (
-    ("--static-budget", lambda a: a.static_budget, "ROADMAP Queue A item "
-     "17c (the static propagation map)"),
     ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
      "Queue A item 18 (live metrics)"),
     ("--status-json", lambda a: a.status_json, "ROADMAP Queue A item 18 "
@@ -175,7 +175,14 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         "of the rest.  Implies --equiv; with --stop-when "
                         "each re-injected section converges on its own")
     parser.add_argument("--static-budget", action="store_true",
-                        help=argparse.SUPPRESS)
+                        help="delta campaigns: allocate the per-section "
+                        "convergence budget by the static vulnerability "
+                        "map (analysis/propagation) -- sdc-possible "
+                        "sections re-inject first, and sections the map "
+                        "proves masked/detected-bounded run under a "
+                        "quartered --stop-when min floor (same per-class "
+                        "thresholds, fewer physical injections).  Needs "
+                        "--delta-from")
     parser.add_argument("--stratified", action="store_true",
                         help="equal-allocation sampling per section: -t "
                         "is divided across sections (floored at 1 each)")
@@ -342,6 +349,14 @@ def parse_command_line(argv: Optional[List[str]] = None):
         print("Error, --delta-from reads its journal as the splice base; "
               "it cannot be combined with --journal/--resume/"
               "--stream-logs", file=sys.stderr)
+        sys.exit(-1)
+    if args.static_budget and not (args.delta_from and args.stop_when):
+        # Without a stop condition there is no per-section budget to
+        # allocate: the flag would record a block for a run it never
+        # shaped.
+        print("Error, --static-budget allocates a delta campaign's "
+              "per-section convergence budget; it needs --delta-from "
+              "AND --stop-when", file=sys.stderr)
         sys.exit(-1)
     if args.collect == "sparse":
         if args.errorCount or args.forceBreak or args.delta_from:
@@ -559,7 +574,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                        seed=args.seed,
                                        batch_size=args.batch_size,
                                        start_num=args.start_num,
-                                       stop_when=args.stop_when_parsed)
+                                       stop_when=args.stop_when_parsed,
+                                       static_budget=args.static_budget)
             except DeltaMismatchError as e:
                 print(f"Error, {e}", file=sys.stderr)
                 return 1

@@ -347,8 +347,12 @@ def containment_study(device=device_mod.DEFAULT, mesh=None, n: int = 128,
     ``reference`` rows corrupted only the golden copy); the same schedule
     through a sparse ``ShardedCampaignRunner`` over ``mesh`` (default a
     two-shard mesh on ``device``) gives the parity bit and the mesh block.
-    Returns the artifact's keys except the propagation walker's
-    ``soundness_violations`` (the walker is not ported yet)."""
+    Each cell's ``soundness_violations`` holds the static vulnerability
+    map against the cell's per-section outcome counts
+    (``analysis/propagation.crossvalidate_counts``): every SDC lies in an
+    ``sdc-possible`` section.  Returns every key of the artifact."""
+    from coast_tpu_torch.analysis.propagation import (analyze_propagation,
+                                                      crossvalidate_counts)
     from coast_tpu_torch.inject import classify as cls
     from coast_tpu_torch.inject.campaign import CampaignRunner
     from coast_tpu_torch.inject.schedule import FaultModel
@@ -367,6 +371,7 @@ def containment_study(device=device_mod.DEFAULT, mesh=None, n: int = 128,
     for placement in PLACEMENTS:
         region = make_region(placement)
         prog = TMR(region, device=device)
+        vmap = analyze_propagation(prog)
         shard_of = region.meta["shard_of"]
         slices = region.meta["shard_slices"]
         golden = region.meta["golden_full"]
@@ -401,6 +406,17 @@ def containment_study(device=device_mod.DEFAULT, mesh=None, n: int = 128,
                         radius["own_shard"] += 1
                     else:
                         radius["cross_shard"] += 1
+            lids = np.asarray(res.schedule.leaf_id)
+            section_counts = {}
+            for sec in runner.mmap.sections:
+                binc = np.bincount(res.codes[lids == sec.leaf_id],
+                                   minlength=cls.NUM_CLASSES)
+                section_counts[sec.name] = {
+                    k: int(c) for k, c in zip(cls.CLASS_NAMES, binc) if c}
+            violations = crossvalidate_counts(vmap, section_counts)
+            if violations:
+                failures.append(f"{placement}/{model.spec()}: SDC outside "
+                                f"sdc-possible sections: {violations}")
             sh = ShardedCampaignRunner(prog, mesh=mesh, strategy_name="TMR",
                                        fault_model=model, collect="sparse")
             sres = sh.run_schedule(res.schedule, batch_size=batch_size)
@@ -414,6 +430,7 @@ def containment_study(device=device_mod.DEFAULT, mesh=None, n: int = 128,
             cells[model.spec()] = {
                 "counts": res.counts, "sdc": int(len(sdc_rows)),
                 "sdc_by_section": by_section, "blast_radius": radius,
+                "soundness_violations": violations,
                 "sharded_parity": parity,
                 "mesh": sres.summary().get("mesh")}
         doc["placements"][placement] = {"cells": cells}

@@ -16,16 +16,18 @@ on stderr for a stack-overflow or assert trip, a DWC or CFCSS abort; 124
 for a timeout; else the error count (at most 100).
 
 Every TMR or DWC build runs the replication-integrity gate first (the
-provenance rules of ``analysis/lint`` over a CPU capture of the step, the
-reference's ``verifyCloningSuccess`` check): an error finding refuses the
-build with exit 1 unless ``-noCloneOpsCheck`` is given.
-``-lintOut=<path>`` writes the report for any build.  ``-dumpModule`` (or
+provenance rules of ``analysis/lint`` and the lane-isolation prover of
+``analysis/propagation`` over one CPU capture of the step and one shared
+walk, the reference's ``verifyCloningSuccess`` check): an error finding
+refuses the build with exit 1 unless ``-noCloneOpsCheck`` is given.
+``-lintOut=<path>`` writes the report for any build, ``-propOut=<path>``
+the static vulnerability map and the isolation proof (``{"vulnerability_map":
+..., "isolation": ...}``; the map runs one fault-free run on the device to
+bound the live flip window).  ``-dumpModule`` (or
 ``-dumpModule=jaxpr``) prints the captured graph of the step's first trip;
 ``-dumpModule=hlo`` prints the operation stream one trip dispatches on the
 device, the aten operations and the K1/K2 launches with their site
 records -- the closest the port has to the reference's compiled module.
-``-propOut`` (the static propagation map) is ROADMAP Queue A item 17c and
-exits 2.
 """
 
 from __future__ import annotations
@@ -182,10 +184,6 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
               f"benchmarks: {', '.join(sorted(REGISTRY))}",
               file=sys.stderr)
         return 2
-    if "propOut" in flags:
-        print("ERROR: -propOut is not ported yet; see ROADMAP Queue A item "
-              "17c (the static propagation map)", file=sys.stderr)
-        return 2
     dump = flags.get("dumpModule")
     if dump not in (None, True, "jaxpr", "hlo"):
         print(f"ERROR: -dumpModule={dump}: format must be jaxpr or hlo",
@@ -240,20 +238,36 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
                   f"replicated={prog.replicated[name]}", file=sys.stderr)
 
     # The replication-integrity gate (verifyCloningSuccess analogue): the
-    # provenance rules run on every protected build and refuse to run the
-    # program on an error; -noCloneOpsCheck disables it, -lintOut writes
-    # the report either way.  The survival pass stays with the lint CLI and
-    # the campaign pre-flight.
+    # provenance rules and the isolation prover run on every protected
+    # build and refuse to run the program on an error; -noCloneOpsCheck
+    # disables it, -lintOut and -propOut write their reports either way.
+    # One capture and one shared walk feed them all.  The survival pass
+    # stays with the lint CLI and the campaign pre-flight.
     trips = None
     gate = strategy in ("TMR", "DWC") and not flags.get("noCloneOpsCheck")
-    if "lintOut" in flags or gate:
+    if "lintOut" in flags or "propOut" in flags or gate:
         from coast_tpu_torch.analysis import lint as lint_mod
+        from coast_tpu_torch.analysis.propagation import analyze_step
         trips = lint_mod.trace_step(prog)
+        facts = analyze_step(prog, closed=trips,
+                             track_paths="propOut" in flags)
         report = lint_mod.lint_program(
             prog, survival=False, strategy=strategy or "unprotected",
-            closed=trips)
+            closed=trips, propagation=True, facts=facts)
         if "lintOut" in flags:
             report.write_json(flags["lintOut"])          # type: ignore
+        if "propOut" in flags:
+            import json
+            from coast_tpu_torch.analysis.propagation import (
+                analyze_propagation, prove_isolation)
+            vmap = analyze_propagation(prog, facts=facts)
+            proof = prove_isolation(prog, facts=facts,
+                                    strategy=strategy or "unprotected")
+            with open(flags["propOut"], "w") as fh:     # type: ignore
+                json.dump({"vulnerability_map": vmap.summary(),
+                           "isolation": proof.summary()},
+                          fh, indent=1, sort_keys=True)
+                fh.write("\n")
         if gate and not report.ok:
             print(report.format(include_notes=False), file=sys.stderr)
             print("ERROR: replication-integrity check failed; rerun with "

@@ -8,7 +8,9 @@ rows and gives the base's counts; a base without the representatives
 record splices by position only when the schedule sha proves it; the typed
 refusals carry the reference's messages; per-section ``stop_when``
 converges each re-injected section on its own; the CLI runs it; and the
-static budget (the vulnerability map) names ROADMAP Queue A item 17c.
+static budget (the vulnerability map) orders the re-injected sections and
+records its verdicts (its spend against the reference's is held in
+``tests/test_torch_propagation.py``).
 
 Across packages: the fingerprints are each package's own, so a delta
 whose base the reference wrote re-injects every row (and still gives the
@@ -210,15 +212,31 @@ def test_delta_per_section_stop_when(mm_tmr_equiv, tmp_path):
 
 
 def test_static_budget_names_item_17c(mm_tmr_equiv, tmp_path, capsys):
+    """Item 17c landed: the static budget records the map's verdicts and
+    re-injects the changed sdc-possible section under the full floor; the
+    supervisor flag needs --delta-from and --stop-when, as the
+    reference's does."""
     from coast_tpu_torch.inject import supervisor
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        mm_tmr_equiv.run_delta(64, str(tmp_path / "x"), static_budget=True)
+    jpath = str(tmp_path / "sb.journal")
+    mm_tmr_equiv.run(1024, seed=3, batch_size=512, journal=jpath)
+    edited = CampaignRunner(TMR(edited_region(), device="cpu"),
+                            strategy_name="TMR", equiv=True)
+    stop = StopWhen.parse("sdc:0.2;min=64")
+    res = edited.run_delta(1024, jpath, seed=3, batch_size=64,
+                           stop_when=stop, static_budget=True)
+    sb = res.delta["static_budget"]
+    assert sb["verdicts"]["golden"] == "sdc-possible"
+    assert sb["verdicts"]["results"] == "detected-bounded"
+    assert sb["order"] == ["golden"] and "relaxed_min" not in sb
+    plain = edited.run_delta(1024, jpath, seed=3, batch_size=64,
+                             stop_when=stop)
+    assert "static_budget" not in plain.delta
+    assert plain.counts == res.counts
     with pytest.raises(SystemExit) as exc:
         supervisor.main(["-f", "matrixMultiply", "-t", "8", "-d", "cpu",
-                         "--delta-from", "x.journal", "--stop-when",
-                         "sdc:0.1", "--static-budget"])
-    assert exc.value.code == 2
-    assert "item 17c" in capsys.readouterr().err
+                         "--delta-from", "x.journal", "--static-budget"])
+    assert exc.value.code == -1
+    assert "needs --delta-from AND --stop-when" in capsys.readouterr().err
 
 
 def test_delta_from_through_the_cli(tmp_path, capsys):

@@ -604,8 +604,9 @@ def test_unported_runner_features_name_their_item(kw):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue A item"):
             CampaignRunner(prog, **kw)
-    # Item 17b landed: run_delta runs; its static budget is item 17c.
-    with pytest.raises(NotImplementedError, match="item 17c"):
+    # Items 17b and 17c landed: run_delta with its static budget reaches
+    # run_delta's own checks (an equivalence partition is needed).
+    with pytest.raises(ValueError, match="equiv=True"):
         CampaignRunner(prog).run_delta(100, "base.ndjson",
                                        static_budget=True)
 

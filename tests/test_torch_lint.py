@@ -375,11 +375,17 @@ def test_campaign_preflight_gates():
                        preflight="static")
     with pytest.raises(ReplicationLintError):
         CampaignRunner(average_port(port_tmr("crc16")), preflight="static")
+    # Item 17c landed: True, "full" and "propagation" add the isolation
+    # prover, which refuses a build whose votes are bypassed.
+    from coast_tpu_torch.analysis.propagation import seeded_voter_bypass
     for value in (True, "full", "propagation"):
-        with pytest.raises(NotImplementedError, match="17c"):
-            CampaignRunner(port_tmr("crc16"), preflight=value)
-    with pytest.raises(NotImplementedError, match="17c"):
-        lint.lint_program(port_tmr("crc16"), propagation=True)
+        CampaignRunner(port_tmr("crc16"), preflight=value)
+        with seeded_voter_bypass():
+            with pytest.raises(ReplicationLintError, match="isolation-leak"):
+                CampaignRunner(port_tmr("crc16"), preflight=value)
+    rep = lint.lint_program(port_tmr("crc16"), propagation=True)
+    assert rep.passes_run == ["provenance", "survival", "propagation"]
+    assert rep.ok
 
 
 @pytest.mark.parametrize("unroll", [0, 1, 2, 4])
@@ -428,7 +434,7 @@ def test_opt_gate_refuses_a_broken_build(monkeypatch, capsys):
     capsys.readouterr()
 
 
-def test_opt_dump_module_formats(capsys):
+def test_opt_dump_module_formats(capsys, tmp_path):
     from coast_tpu_torch.opt import main as opt_main
     assert opt_main(["-TMR", "-dumpModule", "trivial"], device="cpu") == 0
     out = capsys.readouterr().out
@@ -442,9 +448,13 @@ def test_opt_dump_module_formats(capsys):
     assert "dispatch stream" in out and "K1 plain version" in out
     assert opt_main(["-TMR", "-dumpModule=bogus", "trivial"],
                     device="cpu") == 2
-    assert opt_main(["-TMR", "-propOut=p.json", "trivial"],
-                    device="cpu") == 2
-    assert "17c" in capsys.readouterr().err
+    # Item 17c landed: -propOut writes the map and the proof.
+    prop = tmp_path / "p.json"
+    assert opt_main(["-TMR", f"-propOut={prop}", "trivial"],
+                    device="cpu") == 0
+    doc = json.loads(prop.read_text())
+    assert doc["isolation"]["holds"] is True
+    assert doc["vulnerability_map"]["benchmark"] == "trivial"
 
 
 def test_lint_cli(tmp_path, capsys):
@@ -463,8 +473,10 @@ def test_lint_cli(tmp_path, capsys):
     assert lint_main(["-TMR", "crc16", "--baseline", str(base)],
                      device="cpu") == 0
     assert lint_main(["-TMR", "nonesuch"], device="cpu") == 2
-    assert lint_main(["-TMR", "crc16", "--propagation"], device="cpu") == 2
-    assert "17c" in capsys.readouterr().err
+    # Item 17c landed: --propagation adds the prover and prints the map.
+    capsys.readouterr()
+    assert lint_main(["-TMR", "crc16", "--propagation"], device="cpu") == 0
+    assert "static vulnerability map: crc16" in capsys.readouterr().out
 
 
 def test_lint_cli_prints_like_the_reference(capsys):

@@ -302,7 +302,9 @@ def test_records_equal_reference(placement, strategy, fused, spec,
 
 def test_containment_study_equals_the_recorded_artifact():
     """The port's study on the CPU gives the recorded counts, SDC sections,
-    blast radii, two-shard ledgers and the containment block."""
+    blast radii, soundness violations (none: every SDC lies in a section
+    the static vulnerability map calls sdc-possible), two-shard ledgers
+    and the containment block: every key of the artifact."""
     with open(ARTIFACT) as f:
         art = json.load(f)
     doc = stencil.containment_study(device="cpu", n=art["n"],
@@ -314,8 +316,9 @@ def test_containment_study_equals_the_recorded_artifact():
     for placement, pl in art["placements"].items():
         for spec, cell in pl["cells"].items():
             got = doc["placements"][placement]["cells"][spec]
+            assert set(got) == set(cell), (placement, spec)
             for key in ("counts", "sdc", "sdc_by_section", "blast_radius",
-                        "sharded_parity", "mesh"):
+                        "soundness_violations", "sharded_parity", "mesh"):
                 assert got[key] == cell[key], (placement, spec, key)
     c = doc["containment"]
     assert c["compute_placement_cross_shard_sdc"] == 0

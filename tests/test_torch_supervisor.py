@@ -260,7 +260,7 @@ def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
 
 
 UNPORTED = [
-    (["--static-budget"], "item 17c"),
+    (["--static-budget"], "needs --delta-from AND --stop-when"),
     (["--metrics-port", "0"], "item 18"),
     (["--status-json", "status.json"], "item 18"),
     (["--heartbeat", "1"], "item 18"),
@@ -279,6 +279,18 @@ def test_unported_flag_refused_with_its_item(extra, why, capsys):
     argv = ["-f", "matrixMultiply", "-t", "4", "-q", "-d", "cpu", *extra]
     with pytest.raises(SystemExit) as exc:
         supervisor.main(argv)
+    if extra == ["--static-budget"]:
+        # Item 17c landed: the flag is ported, and refused as the
+        # reference refuses it without --delta-from and --stop-when.
+        err = capsys.readouterr().err
+        assert exc.value.code == -1 and why in err
+        with pytest.raises(SystemExit) as ref_exc:
+            from coast_tpu.inject import supervisor as jsup
+            jsup.parse_command_line(argv)
+        assert ref_exc.value.code == -1
+        assert capsys.readouterr().err.strip().splitlines()[-1] \
+            == err.strip().splitlines()[-1]
+        return
     assert exc.value.code == 2
     assert why in capsys.readouterr().err
 

@@ -147,16 +147,18 @@ def test_eight_trips_hold_every_trip_graph(build):
 
 
 def test_propagation_consumers_name_item_17c():
-    """The package exports the walker; the vulnerability map and the
-    isolation prover (and their names) are ROADMAP Queue A item 17c."""
+    """Item 17c landed: the package exports the reference's whole
+    ``__all__`` -- the walker, the vulnerability map and the isolation
+    prover -- and the map reads the walker's facts of mm TMR."""
+    from coast_tpu.analysis import propagation as jprop
     from coast_tpu_torch.analysis import propagation
-    assert set(propagation.__all__) >= {"StepFacts", "TraceTaint",
-                                        "analyze_step", "cross_lane_sites"}
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        propagation.analyze_propagation(None)
-    for name in ("vulnmap", "isolation", "VulnerabilityMap",
-                 "prove_isolation"):
-        with pytest.raises(NotImplementedError, match="item 17c"):
-            getattr(propagation, name)
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        from coast_tpu_torch.analysis.propagation import vulnmap  # noqa
+    from coast_tpu_torch.analysis.propagation import isolation, vulnmap
+    assert propagation.__all__ == jprop.__all__
+    for name in propagation.__all__:
+        assert getattr(propagation, name) is not None
+    assert propagation.analyze_propagation is vulnmap.analyze_propagation
+    assert propagation.prove_isolation is isolation.prove_isolation
+    prog = port_prog("matrixMultiply", "TMR", {})
+    facts = analyze_step(prog)
+    vmap = propagation.analyze_propagation(prog, facts=facts)
+    assert vmap.verdict("phase") == propagation.VERDICT_SDC
