@@ -60,7 +60,7 @@ Phases, in order; any failure exits non-zero:
      sparse; rates, peak memory and transfer bytes;
  11. flip groups through both engines: matrixMultiply and crc16 under TMR
      and DWC with multibit(k=4), cluster(span=4,k=3) and
-     burst(window=8,rate=0.5), 65,536 injections at batch 4096, unfused
+     burst(window=8,rate=0.5), 16,384 injections at batch 4096, unfused
      and fused, dense and sparse: the four records equal;
  12. a sparse campaign with ``sparse_capacity=1`` (every batch falls back
      to a dense fetch) equal to dense;
@@ -131,7 +131,7 @@ Phases, in order; any failure exits non-zero:
  23. the preemptive RTOS kernel targets (run before phase 18): rtos_mm
      and rtos_kUser under their canonical config (``rtos/Makefile``'s
      lists plus ``rtos/kernel.config``), TMR and DWC: fault-free rows
-     clean unfused and fused; 16,384 injections at batch 4096, seed 42,
+     clean unfused and fused; 8,192 injections at batch 4096, seed 42,
      as phase 19 (fused = unfused, sparse = dense, K1/K2 launches a trip,
      256 rows against the CPU), each with DUE_STACK_OVERFLOW and
      DUE_ASSERT rows, its counts rolled up over ``rtos_sections``; the
@@ -142,8 +142,8 @@ Phases, in order; any failure exits non-zero:
  24. the protected training step (run before phase 18): train_mlp and
      train_mlp_adam, the card's golden against the host's (losses within
      1e-5, weights bit-equal), fault-free rows success at batch 1 and
-     4096 under unprotected, DWC, TMR and selective xMR; 32,768
-     injections at batch 4096, seed 11, unprotected and selective, 8,192
+     4096 under unprotected, DWC, TMR and selective xMR; 16,384
+     injections at batch 4096, seed 11, unprotected and selective, 4,096
      under DWC and TMR (unfused: float regions; K1 launches a trip; 256
      rows against the CPU); unprotected
      with train_self_heal and train_sdc rows and no raw sdc, selective
@@ -155,7 +155,7 @@ Phases, in order; any failure exits non-zero:
      recorded study (``artifacts/stencil_campaign.json``, read as data:
      TMR, 128 rows, seed 7, both placements x single, cluster, link) with
      equal counts, blast radii, two-shard ledgers and containment block;
-     16,384 injections at batch 4096, both placements, single and link
+     8,192 injections at batch 4096, both placements, single and link
      faults, on the single-device runner (unfused and fused, K1/K2
      launches a trip from a CPU twin), a one-device mesh and the
      two-shard mesh, dense and sparse, and ``run_histogram``: equal codes
@@ -167,7 +167,7 @@ Phases, in order; any failure exits non-zero:
  26. the log parser and the replication-integrity linter (run before
      phase 18): phase 9's 10^6-row dense campaign as a fresh ndjson log,
      summarised by the native classifier (``csrc/ndjson.cpp``), counts
-     equal; a 65,536-row crc16 TMR campaign, dense and sparse, in
+     equal; a 16,384-row crc16 TMR campaign, dense and sparse, in
      json/ndjson/columnar, plain and ``.gz``, through the Python path,
      counts equal; ``lint_program`` with survival on the card (its trips
      and lane probes through K1 and K2) for matrixMultiply TMR/DWC, crc16
@@ -211,6 +211,23 @@ Phases, in order; any failure exits non-zero:
      soundness for both placements; ``opt -propOut``, the lint's
      ``--propagation``, the supervisor's ``--static-budget`` and the
      advisor's CLI as processes, each equal to the in-process result;
+ 29. the region lifters, the fuzz tier, the flag-matrix harness and the
+     smoke drivers (run before phase 18): ``lift_step`` re-derives
+     matrixMultiply1024 from its program (annotations ``first`` and
+     ``second``) with the hand spec's kinds and 16 nominal steps, and its
+     TMR and DWC campaigns (512 rows at 128, seed 1) equal the hand
+     region's, through K1; lifted again with the lifter's own check
+     (its golden made on the card), 128 fault-free rows read 0 errors and
+     its TMR campaign classifies as the hand region's off the ``golden``
+     leaf and ``mm256.order_sensitive``; the lifted crc16 under ``fuse_step=True``
+     (4096 rows) equals the fused hand region's, through K2; ``lift_fn``
+     of a scan over a 1 MiB carry (64 iterations) and of a while-then-scan
+     function gives the function's eager result on the card, and a
+     4096-row TMR campaign of each equals a CPU rerun on its first 64
+     rows; ``fuzz -n 20 -d cuda`` prints Success!; the harness runs
+     fast.yml's 4 x 3 matrix, full.yml's 18 OPT_PASSES on matrixMultiply
+     and crc16 (every cell exits 0 with ``E: 0``) and the eight ported
+     drivers (each prints Success!) on the card;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -220,16 +237,18 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-28, K2 those of phases 7b, 9-12, 14-17, 19-23 and
-25-28 (each
+9-12, 14-17 and 19-29, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+25-29 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
-coast_tpu package.  ``launches_phase_28`` is phase 28's share.
+coast_tpu package.  ``launches_phase_28`` and ``launches_phase_29`` are
+those phases' shares.
 """
 
 from __future__ import annotations
 
 import ast
+import atexit
 import json
 import os
 import re
@@ -251,8 +270,35 @@ sys.path.insert(0, str(ROOT))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 
 
+# Every process the script starts.  fail() and the script's exit kill
+# those still running (and what they started), so none outlives the script.
+CHILDREN: list = []
+
+
+def spawn(argv, **kw) -> subprocess.Popen:
+    """``subprocess.Popen`` in a session of its own, recorded in
+    :data:`CHILDREN`."""
+    proc = subprocess.Popen(argv, start_new_session=True, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
+atexit.register(stop_children)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -1030,7 +1076,7 @@ def flagship_sparse(torch, TMR, DWC, CampaignRunner, FaultModel,
 def grouped(torch, TMR, DWC, CampaignRunner, FaultModel, REGISTRY, hv, hc,
             card: str) -> tuple:
     """Phase 11: flip groups through both engines -- matrixMultiply and
-    crc16 under TMR and DWC with the three multi-site models, 65,536
+    crc16 under TMR and DWC with the three multi-site models, 16,384
     injections at batch 4096, seed 1, unfused and fused, dense and
     sparse: the four records equal.  Returns the (K1, K2) launches."""
     hv.LAUNCHES = hc.LAUNCHES = 0
@@ -1047,7 +1093,7 @@ def grouped(torch, TMR, DWC, CampaignRunner, FaultModel, REGISTRY, hv, hc,
                         res = CampaignRunner(
                             progs[fuse], strategy_name=strat.__name__,
                             fault_model=model, collect=collect).run(
-                                65536, seed=1, batch_size=4096)
+                                16384, seed=1, batch_size=4096)
                         if base is None:
                             base = res
                         else:
@@ -1057,7 +1103,7 @@ def grouped(torch, TMR, DWC, CampaignRunner, FaultModel, REGISTRY, hv, hc,
                                      f"fuse_step={fuse} {collect}: records "
                                      f"differ from unfused dense: {why}")
                         rates.append(f"{res.injections_per_sec:.1f}")
-                log(f"{bench} {strat.__name__} {spec} 65536 at 4096: "
+                log(f"{bench} {strat.__name__} {spec} 16384 at 4096: "
                     f"{base.counts}; four records equal; inj/s unfused "
                     f"dense/sparse, fused dense/sparse {' / '.join(rates)} "
                     f"[{card}]")
@@ -1187,7 +1233,7 @@ runpy.run_module("coast_tpu_torch.inject.supervisor", run_name="__main__",
 
 def start_cli(argv, board: str) -> subprocess.Popen:
     """Start one supervisor process on ``board`` from the checkout's root."""
-    return subprocess.Popen(
+    return spawn(
         [sys.executable, "-c", SUPERVISOR, *argv, "-d", board], cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -1297,12 +1343,16 @@ def kill_resume(work: Path, board: str, card: str, n: int = 262144,
     uninterrupted; once killed with SIGKILL as soon as its journal holds
     ``kill_at`` batch records, then rerun with ``--resume``.  The resumed
     run's summary and log equal the uninterrupted run's, and its journal
-    holds exactly ceil(n / batch) batch records.  Returns the (K1, K2)
-    launches and, for phase 16, the first campaign's argv, uninterrupted
-    run and its log directory."""
+    holds exactly ceil(n / batch) batch records.  The campaigns' processes
+    overlap (every uninterrupted and to-be-killed run starts at once, the
+    resumed runs as soon as the kills are done): each has its own journal
+    and log directory, and a process's start-up is most of its wall.
+    Returns the (K1, K2) launches and, for phase 16, the first campaign's
+    argv, uninterrupted run and its log directory."""
     launches = [0, 0]
     first = None
     want_batches = -(-n // batch)
+    runs = []
     for label, argv, fmt in KILL_CAMPAIGNS:
         argv = [*argv, "-t", str(n), "--batch-size", str(batch), "--seed",
                 "5"]
@@ -1310,39 +1360,51 @@ def kill_resume(work: Path, board: str, card: str, n: int = 262144,
         dirs = {k: work / f"{tag}_{k}" for k in ("full", "killed", "resumed")}
         for d in dirs.values():
             d.mkdir(parents=True)
-        t0 = time.perf_counter()
-        full = run_cli([*argv, "--journal", str(work / f"{tag}_full.ndjson"),
-                        "-l", str(dirs["full"])], board,
-                       f"{label}, uninterrupted")
-        full_s = time.perf_counter() - t0
         journal = work / f"{tag}_killed.ndjson"
-        proc = start_cli([*argv, "--journal", str(journal), "-l",
-                          str(dirs["killed"])], board)
-        t0 = time.perf_counter()
-        while count_batches(journal) < kill_at:
-            if proc.poll() is not None:
+        runs.append({
+            "label": label, "argv": argv, "fmt": fmt, "dirs": dirs,
+            "journal": journal, "t0": time.perf_counter(),
+            "full": start_cli([*argv, "--journal",
+                               str(work / f"{tag}_full.ndjson"), "-l",
+                               str(dirs["full"])], board),
+            "kill": start_cli([*argv, "--journal", str(journal), "-l",
+                               str(dirs["killed"])], board)})
+    t0 = time.perf_counter()
+    waiting = list(runs)
+    while waiting:
+        for run in list(waiting):
+            label, proc = run["label"], run["kill"]
+            if count_batches(run["journal"]) >= kill_at:
+                os.kill(proc.pid, signal.SIGKILL)
+                killed = finish_cli(proc, f"{label}, killed",
+                                    expect_ok=False)
+                run["at_kill"] = at_kill = count_batches(run["journal"])
+                if killed["rc"] != -signal.SIGKILL \
+                        or at_kill >= want_batches:
+                    fail(f"{label}: the kill did not cut the campaign (exit "
+                         f"{killed['rc']}, {at_kill} of {want_batches} "
+                         "batches)")
+                run["resumed_t0"] = time.perf_counter()
+                run["resume"] = start_cli([
+                    *run["argv"], "--journal", str(run["journal"]),
+                    "--resume", "-l", str(run["dirs"]["resumed"])], board)
+                waiting.remove(run)
+            elif proc.poll() is not None:
                 finish_cli(proc, f"{label}, to be killed")
                 fail(f"{label}: the campaign ended before its journal held "
                      f"{kill_at} batches")
-            if time.perf_counter() - t0 > 600:
-                proc.kill()
-                proc.communicate()
-                fail(f"{label}: no {kill_at} batches journaled in 600 s")
-            time.sleep(0.002)
-        os.kill(proc.pid, signal.SIGKILL)
-        killed = finish_cli(proc, f"{label}, killed", expect_ok=False)
-        at_kill = count_batches(journal)
-        if killed["rc"] != -signal.SIGKILL or at_kill >= want_batches:
-            fail(f"{label}: the kill did not cut the campaign (exit "
-                 f"{killed['rc']}, {at_kill} of {want_batches} batches)")
-        t0 = time.perf_counter()
-        resumed = run_cli([*argv, "--journal", str(journal), "--resume",
-                           "-l", str(dirs["resumed"])], board,
-                          f"{label}, resumed")
-        resumed_s = time.perf_counter() - t0
+        if time.perf_counter() - t0 > 600:
+            fail(f"no {kill_at} batches journaled in 600 s")
+        time.sleep(0.002)
+    for run in runs:
+        label, dirs, fmt = run["label"], run["dirs"], run["fmt"]
+        full = finish_cli(run["full"], f"{label}, uninterrupted")
+        full_s = time.perf_counter() - run["t0"]
+        resumed = finish_cli(run["resume"], f"{label}, resumed")
+        resumed_s = time.perf_counter() - run["resumed_t0"]
         size = check_same_run(f"{label}, resumed", resumed, full,
                               dirs["resumed"], dirs["full"], fmt)
-        got_batches = count_batches(journal)
+        got_batches = count_batches(run["journal"])
         if got_batches != want_batches:
             fail(f"{label}: the resumed journal holds {got_batches} batch "
                  f"records, not {want_batches}")
@@ -1351,14 +1413,15 @@ def kill_resume(work: Path, board: str, card: str, n: int = 262144,
         launches[0] += k1
         launches[1] += k2
         log(f"{label}, {n} at {batch} through the supervisor: SIGKILL after "
-            f"{at_kill} journaled batches, --resume gives the uninterrupted "
-            f"counts {steady(full['summary'])} and per-injection log "
-            f"({size} bytes without timestamps); {got_batches} batch "
-            f"records; uninterrupted {full_s:.2f} s, resumed {resumed_s:.2f}"
-            f" s wall per process; K1 {k1}, K2 {k2} launches (uninterrupted "
-            f"and resumed) [{card}]")
+            f"{run['at_kill']} journaled batches, --resume gives the "
+            f"uninterrupted counts {steady(full['summary'])} and "
+            f"per-injection log ({size} bytes without timestamps); "
+            f"{got_batches} batch records; uninterrupted {full_s:.2f} s, "
+            f"resumed {resumed_s:.2f} s wall per process (the phase's "
+            f"processes overlapped); K1 {k1}, K2 {k2} launches "
+            f"(uninterrupted and resumed) [{card}]")
         if first is None:
-            first = (argv, full, dirs["full"], fmt)
+            first = (run["argv"], full, dirs["full"], fmt)
     return tuple(launches), first
 
 
@@ -1732,12 +1795,22 @@ def baseline_regions(work: Path, board: str, card: str, torch, TMR, DWC,
                      n: int = 2048, cpu_rows: int = 256) -> tuple:
     """Phase 19: each BASELINE region (and quicksort under DWC) through
     ``region_cases``.  Then chstone_jpeg TMR through the supervisor CLI,
-    with and without ``-pallasVoters``: the runner's records and counts,
-    and the same K1 launches.  Returns the (K1, K2) launches."""
+    with and without ``-pallasVoters`` (two processes started at the
+    phase's start, so they overlap its campaigns): the runner's records
+    and counts, and the same K1 launches.  Returns the (K1, K2)
+    launches."""
     from coast_tpu_torch.inject import logs
     from coast_tpu_torch.inject.supervisor import section_filter
     device = "cpu" if board == "cpu" else "cuda"
     t_phase = time.perf_counter()
+    clis = {}
+    for extra in ("", " -pallasVoters"):
+        cli_dir = work / f"jpeg_cli{extra.replace(' -', '_')}"
+        cli_dir.mkdir()
+        clis[extra] = (cli_dir, start_cli(
+            ["-f", "chstone_jpeg", "-O", f"-TMR{extra}", "-t", str(n),
+             "--batch-size", str(n), "--seed", "1", "--log-format",
+             "ndjson", "-l", str(cli_dir)], board))
     cases = [(name, TMR, {}) for name in BASELINE] + [("quicksort", DWC, {})]
     got, rates = region_cases(board, card, cases, CampaignRunner, hv, hc, fs,
                               n=n, cpu_rows=cpu_rows)
@@ -1759,15 +1832,8 @@ def baseline_regions(work: Path, board: str, card: str, torch, TMR, DWC,
     logs.write_ndjson(res, runner.mmap, str(ref_dir / "runner.json"))
     want_rows = log_content(ref_dir, "ndjson")[1]
     cli_k1 = {}
-    for extra in ("", " -pallasVoters"):
-        cli_dir = work / f"jpeg_cli{extra.replace(' -', '_')}"
-        cli_dir.mkdir()
-        t0 = time.perf_counter()
-        cli = run_cli(["-f", "chstone_jpeg", "-O", f"-TMR{extra}", "-t",
-                       str(n), "--batch-size", str(n), "--seed", "1",
-                       "--log-format", "ndjson", "-l", str(cli_dir)], board,
-                      f"chstone_jpeg -TMR{extra} CLI")
-        wall = time.perf_counter() - t0
+    for extra, (cli_dir, proc) in clis.items():
+        cli = finish_cli(proc, f"chstone_jpeg -TMR{extra} CLI")
         counts = {k: cli["summary"][k] for k in res.counts}
         if counts != res.counts:
             fail(f"chstone_jpeg -TMR{extra} CLI: counts {counts} differ "
@@ -1780,8 +1846,9 @@ def baseline_regions(work: Path, board: str, card: str, torch, TMR, DWC,
         launches[1] += cli["k2"]
         log(f"chstone_jpeg -O '-TMR{extra}' through the supervisor CLI: "
             f"{counts}, the runner's records, "
-            f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, "
-            f"{wall:.2f} s process wall, K1 {cli['k1']} [{card}]")
+            f"{cli['summary']['injections_per_sec']:.1f} inj/s in run "
+            f"(overlapping the phase's campaigns), K1 {cli['k1']} "
+            f"[{card}]")
     if cli_k1[""] != cli_k1[" -pallasVoters"] or cli_k1[""] <= 0:
         fail(f"-pallasVoters changed the K1 launches: {cli_k1}")
     log(json.dumps({"phase19_inj_per_s": {
@@ -2096,7 +2163,7 @@ RTOS_TARGETS = ("rtos_mm", "rtos_kUser")
 
 def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
                         REGISTRY, CampaignRunner, hv, hc, fs,
-                        n: int = 16384, batch: int = 4096, seed: int = 42,
+                        n: int = 8192, batch: int = 4096, seed: int = 42,
                         cpu_rows: int = 256) -> tuple:
     """Phase 23: rtos_mm and rtos_kUser under the canonical config, TMR
     and DWC: fault-free rows clean, unfused and fused; then ``n``
@@ -2223,7 +2290,7 @@ TRAIN_RTOL = 1e-5
 
 
 def train_regions(board: str, card: str, torch, DWC, TMR, unprotected,
-                  REGISTRY, CampaignRunner, hv, hc, fs, n: int = 32768,
+                  REGISTRY, CampaignRunner, hv, hc, fs, n: int = 16384,
                   batch: int = 4096, seed: int = 11,
                   cpu_rows: int = 256) -> tuple:
     """Phase 24: train_mlp and train_mlp_adam.  The card's golden loss
@@ -2324,7 +2391,7 @@ def free_port() -> int:
 
 
 def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
-                    CampaignRunner, hv, hc, fs, n: int = 16384,
+                    CampaignRunner, hv, hc, fs, n: int = 8192,
                     batch: int = 4096, cpu_rows: int = 256) -> tuple:
     """Phase 25: the sharded backend on the stencil.  (a) fault-free rows
     clean under TMR and DWC, both placements, unfused and fused;
@@ -2529,7 +2596,7 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
         launches[0] += hv.LAUNCHES
         launches[1] += hc.LAUNCHES
         t0 = time.perf_counter()
-        proc = subprocess.Popen(
+        proc = spawn(
             [sys.executable, "-c", WORKER, "stencil", "--coordinator",
              f"127.0.0.1:{free_port()}", "--num-processes", "1",
              "--process-id", "0", "-e", str(n), "--seed", "21"],
@@ -2563,7 +2630,7 @@ LINT_ON_CARD = (("matrixMultiply", "TMR", {}), ("matrixMultiply", "DWC", {}),
 
 def parse_and_lint(work: Path, card: str, TMR, DWC, REGISTRY,
                    CampaignRunner, hv, hc, bare: dict,
-                   n: int = 65536) -> tuple:
+                   n: int = 16384) -> tuple:
     """Phase 26: the log parser and the linter on the card.  (a) Phase 9's
     10^6-row dense campaign (``bare``, run on the card) as a fresh ndjson
     log, summarised by the native classifier, its counts equal the
@@ -3003,7 +3070,7 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
 # Runs ``python -m <module>`` as the supervisor wrapper does, reporting the
 # process's K1 and K2 launches at exit.
 def start_module(module: str, argv) -> subprocess.Popen:
-    return subprocess.Popen(
+    return spawn(
         [sys.executable, "-c",
          SUPERVISOR.replace("coast_tpu_torch.inject.supervisor", module),
          *argv], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -3349,6 +3416,305 @@ def propagation_phase(work: Path, card: str, TMR, DWC, REGISTRY,
     return tuple(launches)
 
 
+# -- phase 29: the region lifters, the fuzz tier, the flag-matrix harness
+# and the smoke drivers on the card (item 17d, first part).
+
+LIFTED_MM_ANNOS = ("first", "second")     # the corpus matrix's mm256 entry
+
+
+def relift(hand, annotated, hand_check: bool = True):
+    """``lift_step`` of a registry region from its program alone, with the
+    corpus matrix's annotations (``tests/test_torch_lifter_corpus_a.py``).
+    ``hand_check=False`` leaves ``check``/``output``/``max_steps`` to the
+    lifter: written memory as the output, the golden made per device."""
+    from coast_tpu_torch.frontend import lift_step
+    meta = ({"store_slice": hand.meta["store_slice"]}
+            if "store_slice" in hand.meta else None)
+    own = ({"check": hand.check, "output": hand.output,
+            "max_steps": hand.max_steps} if hand_check else {})
+    lifted = lift_step(
+        hand.name + "_lifted", hand.step, hand.init, done=hand.done,
+        annotations={leaf: hand.spec[leaf] for leaf in annotated},
+        default_xmr=hand.default_xmr, functions=hand.functions, meta=meta,
+        **own)
+    lifted.spec = {k: lifted.spec[k] for k in hand.spec}
+    return lifted
+
+
+def fault_free_errors(torch, region, rows: int) -> np.ndarray:
+    """``region.check`` of ``rows`` fault-free unprotected rows run to
+    their end on the card."""
+    from coast_tpu_torch.ir.region import rows as row_mask
+    dev = torch.device("cuda")
+    state = {k: v.unsqueeze(0).expand(rows, *v.shape).clone()
+             for k, v in region.init(dev).items()}
+    halted = torch.zeros(rows, dtype=torch.bool, device=dev)
+    step = region.bound_step()
+    with torch.no_grad():
+        for t in range(region.max_steps):
+            new = {**state, **step(state, t)}
+            state = {k: torch.where(row_mask(halted, v), state[k], v)
+                     for k, v in new.items()}
+            halted = halted | region.done(state)
+            if bool(halted.all()):
+                break
+        return region.check(state).cpu().numpy()
+
+
+def same_records(what: str, got, want, cols=("codes", "errors", "corrected",
+                                              "steps")) -> None:
+    for col in cols:
+        if not np.array_equal(getattr(got, col), getattr(want, col)):
+            fail(f"{what}: {col} differ")
+    if got.counts != want.counts:
+        fail(f"{what}: counts {got.counts} != {want.counts}")
+
+
+def lifted_functions(torch):
+    """29c's two functions, written with ``frontend.loops``: a single scan
+    over a 1 MiB carry (262,144 words, 64 iterations), and a while loop
+    (gcd) then a scan."""
+    from coast_tpu_torch.frontend import loops
+    from coast_tpu_torch.ops.u32 import lsr
+
+    def big_scan(c0, xs):
+        def body(c, x):
+            c = (c ^ x) * 16777619 + lsr(c, 13)
+            return c, c[:8]
+        final, ys = loops.scan(body, c0, xs)
+        return final ^ -1515870811, ys
+
+    def urem(x, y):
+        xs = x.to(torch.int64) & 0xFFFFFFFF
+        ys = y.to(torch.int64) & 0xFFFFFFFF
+        r = torch.remainder(xs, torch.where(ys == 0, 1, ys))
+        return torch.where(ys == 0, xs, r).to(torch.int32)
+
+    def gcd_scan(a, b, data):
+        def cond(c):
+            return c[1] != 0
+
+        def body(c):
+            x, y = c
+            return (y, urem(x, y))
+        g, _ = loops.while_loop(cond, body, (a, b))
+
+        def sbody(acc, x):
+            return acc + x * g, acc
+        tot, trace = loops.scan(
+            sbody, torch.zeros((), dtype=torch.int32, device=data.device),
+            data)
+        return tot, trace
+
+    rng = np.random.RandomState(29)
+    words = rng.randint(0, 2**32, 262144, np.uint32).view(np.int32)
+    xs = rng.randint(0, 2**32, 64, np.uint32).view(np.int32)
+    data = (np.arange(12, dtype=np.uint32) * np.uint32(2654435761)
+            & np.uint32(0x3FF)).view(np.int32)
+    return [("big_scan", big_scan, (torch.from_numpy(words.copy()),
+                                    torch.from_numpy(xs.copy()))),
+            ("gcd_scan", gcd_scan, (torch.tensor(462, dtype=torch.int32),
+                                    torch.tensor(1071, dtype=torch.int32),
+                                    torch.from_numpy(data.copy())))]
+
+
+def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
+                 hc) -> tuple:
+    """Phase 29: item 17d's first part on the card.  (a) ``lift_step``
+    re-derives matrixMultiply1024 from its program with the annotations
+    ``first``/``second``: the hand spec's kinds and nominal steps, and TMR
+    and DWC campaigns (512 rows at 128, seed 1, full width) equal to the
+    hand region's, through K1.  (a') Lifted again with the lifter's own
+    check and output, the golden made by a fault-free run on the card: 128
+    fault-free rows read 0 errors, and a TMR campaign (512 at 128) has the
+    hand region's codes on every row neither injected into ``golden`` nor
+    ``mm256.order_sensitive``, and success on the ``golden`` rows.  (b) The lifted crc16 under
+    ``TMR(..., fuse_step=True)``, 4096 rows: the fused hand region's
+    records, through K2.  (c) ``lift_fn`` of a single scan over a 1 MiB
+    carry and of a while-then-scan function: output = the function's eager
+    result on the card; a 4096-row TMR campaign whose first 64 rows equal
+    a CPU rerun.  (d) ``fuzz.main(["-n", "20", "-d", "cuda"])``.  (e) The
+    harness: fast.yml's benchmark matrix, full.yml's 18 OPT_PASSES on
+    matrixMultiply and crc16, and the eight ported drivers, on the card.
+    Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from coast_tpu_torch.frontend import lift_fn
+    from coast_tpu_torch.models import mm256
+    from coast_tpu_torch.testing import fuzz, harness
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    hv.LAUNCHES = hc.LAUNCHES = 0
+
+    def count() -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    # (a) The flagship, re-lifted.
+    t0 = time.perf_counter()
+    hand = REGISTRY["matrixMultiply1024"]()
+    lifted = relift(hand, LIFTED_MM_ANNOS)
+    kinds = {k: v.kind for k, v in lifted.spec.items()}
+    if kinds != {k: v.kind for k, v in hand.spec.items()} \
+            or not lifted.nominal_steps == hand.nominal_steps == 16:
+        fail(f"phase 29a: matrixMultiply1024 lifted as {kinds}, "
+             f"{lifted.nominal_steps} steps")
+    lift_s = time.perf_counter() - t0
+    hand_tmr = None
+    for strat in (TMR, DWC):
+        want = CampaignRunner(strat(hand)).run(512, seed=1, batch_size=128)
+        count()
+        got = CampaignRunner(strat(lifted)).run(512, seed=1, batch_size=128)
+        k1, _ = count()
+        same_records(f"phase 29a matrixMultiply1024 {strat.__name__}", got,
+                     want)
+        if k1 <= 0:
+            fail(f"phase 29a: the lifted {strat.__name__} campaign launched "
+                 "K1 no time")
+        hand_tmr = want if strat is TMR else hand_tmr
+        log(f"  29a lifted matrixMultiply1024 {strat.__name__}: records = "
+            f"the hand region's, {got.counts}, {got.injections_per_sec:.1f} "
+            f"inj/s, K1 {k1} [{card}]")
+    log(f"  29a lift_step of matrixMultiply1024: {lift_s:.1f} s, "
+        f"{lifted.nominal_steps} steps = the hand spec's (capture on the "
+        "host, nominal steps on the card)")
+
+    # (a') The lifter's own check and output on a float program: the
+    # golden made by a one-row fault-free run on the card, compared at the
+    # campaign's batch (cuBLAS picks its kernel by shape).
+    lifted = relift(hand, LIFTED_MM_ANNOS, hand_check=False)
+    lifted.spec = {k: lifted.spec[k] for k in hand.spec}
+    clean = fault_free_errors(torch, lifted, 128)
+    if clean.any():
+        fail(f"phase 29a': {int((clean != 0).sum())} of 128 fault-free rows "
+             "of the lifted matrixMultiply1024 differ from its golden")
+    prog = TMR(lifted)
+    got = CampaignRunner(prog).run(512, seed=1, batch_size=128)
+    k1, _ = count()
+    sched = got.schedule
+    on_golden = np.array([prog.leaf_order[i] == "golden"
+                          for i in np.asarray(sched.leaf_id)])
+    # The lifter's check compares the written memory (first, results,
+    # second) word for word, not results against the hand golden leaf: a
+    # flip into `golden` is the hand check's SDC and nothing here, and a
+    # mantissa flip of first/second/acc (mm256.order_sensitive) may leave
+    # a subnormal the voters read as zero in the image while the product
+    # stays exact.
+    same = ~on_golden & ~mm256.order_sensitive(prog.leaf_order,
+                                               sched.leaf_id, sched.bit)
+    if not np.array_equal(got.codes[same], hand_tmr.codes[same]) \
+            or got.codes[on_golden].any():
+        fail("phase 29a': the lifted matrixMultiply1024 with its own check "
+             f"classifies unlike the hand region ({got.counts} against "
+             f"{hand_tmr.counts})")
+    log(f"  29a' lifted matrixMultiply1024, the lifter's check: 128 "
+        f"fault-free rows read 0 errors; TMR 512 at 128: {got.counts} "
+        f"(hand {hand_tmr.counts}); codes = the hand region's on the "
+        f"{int(same.sum())} rows neither `golden` nor order-sensitive, "
+        f"success on the {int(on_golden.sum())} `golden` rows, K1 {k1} "
+        f"[{card}]")
+
+    # (b) crc16, fused.
+    hand = REGISTRY["crc16"]()
+    lifted = relift(hand, ("msg",))
+    want = CampaignRunner(TMR(hand, fuse_step=True)).run(
+        4096, seed=1, batch_size=4096)
+    count()
+    prog = TMR(lifted, fuse_step=True)
+    if prog._fuse_plan is None:
+        fail("phase 29b: the lifted crc16 built no fused plan")
+    got = CampaignRunner(prog).run(4096, seed=1, batch_size=4096)
+    _, k2 = count()
+    same_records("phase 29b lifted crc16 TMR fused", got, want)
+    if k2 <= 0:
+        fail("phase 29b: the lifted fused campaign launched K2 no time")
+    log(f"  29b lifted crc16 TMR fused: records = the fused hand region's, "
+        f"{got.counts}, K2 {k2} [{card}]")
+
+    # (c) lift_fn.
+    for name, fn, args in lifted_functions(torch):
+        t0 = time.perf_counter()
+        region = lift_fn(name, fn, *args)
+        lift_s = time.perf_counter() - t0
+        with torch.no_grad():
+            eager = fn(*[a.cuda() for a in args])
+        want = torch.cat([o.reshape(-1) for o in eager]).cpu()
+        final = region.run_unprotected("cuda")
+        out = region.output({k: v.unsqueeze(0)
+                             for k, v in final.items()})[0].cpu()
+        if not torch.equal(out, want):
+            fail(f"phase 29c {name}: lifted output differs from the eager "
+                 "result on the card")
+        batch = 512 if name == "big_scan" else 4096
+        runner = CampaignRunner(TMR(region))
+        res = runner.run(4096, seed=1, batch_size=batch)
+        k1, _ = count()
+        if k1 <= 0:
+            fail(f"phase 29c {name}: the campaign launched K1 no time")
+        sub = res.schedule.slice(0, 64)
+        cpu = CampaignRunner(TMR(region, device="cpu")).run_schedule(
+            sub, batch_size=64)
+        for col in ("codes", "errors", "corrected", "steps"):
+            if not np.array_equal(getattr(res, col)[:64], getattr(cpu, col)):
+                fail(f"phase 29c {name}: {col} of the first 64 rows differ "
+                     "between the card and the CPU")
+        log(f"  29c lift_fn {name}: {sorted(region.spec)}, "
+            f"{region.nominal_steps} steps, lifted in {lift_s:.1f} s; "
+            f"output = eager; TMR 4096 at {batch}: {res.counts}, "
+            f"{res.injections_per_sec:.1f} inj/s, K1 {k1}; 64 rows = CPU "
+            f"[{card}]")
+
+    # (d) The fuzz tier.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fuzz.main(["-n", "20", "-d", "cuda"])
+    if rc != 0 or buf.getvalue().splitlines()[-1:] != ["Success!"]:
+        fail(f"phase 29d: fuzz -n 20 -d cuda failed:\n{buf.getvalue()}")
+    k1, k2 = count()
+    log(f"  29d fuzz -n 20 -d cuda: Success! in "
+        f"{time.perf_counter() - t0:.1f} s, K1 {k1} [{card}]")
+
+    # (e) The harness: the matrices and the drivers.
+    t0 = time.perf_counter()
+    fast = {k: harness.FAST[k] for k in ("benchmarks", "OPT_PASSES")}
+    full = {"benchmarks": [e for e in harness.FULL["benchmarks"]
+                           if e["path"] in ("matrixMultiply", "crc16")],
+            "OPT_PASSES": harness.FULL["OPT_PASSES"]}
+    drivers = {"drivers": [d for d in harness.FAST["drivers"]
+                           if d["module"] in harness.PORTED_DRIVERS]}
+    if len(drivers["drivers"]) != 8:
+        fail(f"phase 29e: {len(drivers['drivers'])} ported drivers")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cells = harness.run_config(fast, quiet=True, device="cuda")
+            cells_full = harness.run_config(full, quiet=True, device="cuda")
+            t_cells = time.perf_counter() - t0
+            ran = harness.run_drivers(drivers, quiet=True, device="cuda")
+        except harness.HarnessError as e:
+            fail(f"phase 29e: {e}\n{buf.getvalue()[-3000:]}")
+    if (cells, cells_full, ran) != (12, 36, 8):
+        fail(f"phase 29e: {cells} + {cells_full} cells, {ran} drivers")
+    k1, k2 = count()
+    log(f"  29e harness: fast.yml 4 x 3 and full.yml 18 x 2 cells exit 0 "
+        f"with 'E: 0' in {t_cells:.1f} s; the 8 drivers print Success! in "
+        f"{time.perf_counter() - t0 - t_cells:.1f} s; K1 {k1}, K2 {k2} "
+        f"[{card}]")
+    log(f"phase 29: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0 or launches[1] <= 0:
+        fail(f"phase 29 launched K1 {launches[0]} and K2 {launches[1]} "
+             "times")
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -3389,6 +3755,15 @@ def main() -> None:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    t_start = t_lap = time.perf_counter()
+
+    def lap(what: str) -> None:
+        """The wall time since the last lap: where the script's time goes
+        against its limit."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"wall {what}: {now - t_lap:.1f} s [{card}]")
+        t_lap = now
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -3399,6 +3774,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    lap("phase 2")
     # 3. K1 against its plain version, its time per leaf and per group.
     worst = check_k1(torch, hv, voters)
     later = []       # device-only timings, run in phase 18
@@ -3407,6 +3783,7 @@ def main() -> None:
     k1["shapes"] = time_k1_groups(torch, later, hv, voters, TMR, DWC,
                                   REGISTRY, card) + k1["shapes"]
 
+    lap("phase 3")
     # 4. Main path: matrixMultiply1024 under TMR and DWC on the card.
     region = REGISTRY["matrixMultiply1024"]()
     results = {}
@@ -3462,6 +3839,7 @@ def main() -> None:
         f"of first/second/acc), the rest equal; {exempt_differ} of the "
         "exempt rows differ")
 
+    lap("phases 4-5")
     # 6. matrixMultiply (9x9) TMR, the bench workload.
     hv.LAUNCHES = 0
     mm = CampaignRunner(TMR(REGISTRY["matrixMultiply"]()),
@@ -3470,6 +3848,7 @@ def main() -> None:
     log(f"matrixMultiply TMR: {mm.counts} {mm.injections_per_sec:.1f} inj/s "
         f"({mm.seconds:.2f} s), K1 launches {hv.LAUNCHES} [{card}]")
 
+    lap("phase 6")
     # 7. The fused engine and K2.
     k2 = time_k2(torch, later, fs, hv, _repair, card)
     k2["max_abs_err"] = max(k2["max_abs_err"], check_k2(torch, fs))
@@ -3486,6 +3865,7 @@ def main() -> None:
     log("matrixMultiply1024 TMR fuse_step=True: no fused plan (float "
         "leaves), the unfused program runs")
 
+    lap("phase 7")
     # 8-13. Multi-site fault models and the sparse collect.
     check_generator(torch, TMR, REGISTRY, MemoryMap, FaultModel, generate,
                     DeviceScheduleGen, card)
@@ -3502,6 +3882,7 @@ def main() -> None:
         torch, TMR, REGISTRY, CampaignRunner, FaultModel, generate,
         DeviceScheduleGen, fault_from_numpy, card)
     log(json.dumps({"sparse_batch_ms": sparse_times}))
+    lap("phases 8-13")
     # 14-17. The supervisor CLI: kill and resume, out-of-memory
     # degradation, the watchdog, and what durability costs at 10^6.
     work = ROOT / "build" / "chip_smoke"
@@ -3515,45 +3896,60 @@ def main() -> None:
         watchdog(work, "gpu", card, first),
         durability(work, "gpu", card, TMR, REGISTRY, CampaignRunner,
                    StreamLogWriter, bare)]
+    lap("phases 14-17")
     # 19. The BASELINE regions: aes, sha256, quicksort and the CHStone
     # suite.
     # Its CPU reruns cover 64 rows a case: the script's time limit.
     new_launches.append(baseline_regions(
         work, "gpu", card, torch, TMR, DWC, REGISTRY, CampaignRunner, hv, hc,
         fs, cpu_rows=64))
+    lap("phase 19")
     # 20. The rest of the registry: the corpus, the float regions and
     # towersOfHanoi with -protectStack.
     new_launches.append(corpus_regions(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    lap("phase 20")
     # 21. BASELINE config 5: CFCSS stacked with TMR.
     new_launches.append(cfcss_regions(
         "gpu", card, TMR, REGISTRY, CampaignRunner, hv, hc, fs,
         order_sensitive))
+    lap("phase 21")
     # 22. Function scope, segmented scheduling and the CFCSS CLI.
     new_launches.append(scope_regions(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    lap("phase 22")
     # 23. The preemptive RTOS kernel targets with their guards.
     new_launches.append(rtos_kernel_targets(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+    lap("phase 23")
     # 24. The protected training step.
     new_launches.append(train_regions(
         "gpu", card, torch, DWC, TMR, unprotected, REGISTRY, CampaignRunner,
         hv, hc, fs))
+    lap("phase 24")
     # 25. The sharded backend on the stencil.
     new_launches.append(sharded_stencil(
         work, "gpu", card, torch, TMR, DWC, CampaignRunner, hv, hc, fs))
+    lap("phase 25")
     # 26. The log parser and the replication-integrity linter on the card,
     # and the --unroll repair.
     new_launches.append(parse_and_lint(
         work, card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, bare))
+    lap("phase 26")
     # 27. Equivalence-reduced and delta campaigns.
     new_launches.append(equiv_campaigns(
         work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc))
+    lap("phase 27")
     # 28. The vulnerability map, the isolation prover, the static budget
     # and the advisor.
     phase28 = propagation_phase(work, card, TMR, DWC, REGISTRY,
                                 CampaignRunner, hv, hc, results)
     new_launches.append(phase28)
+    lap("phase 28")
+    # 29. The region lifters, the fuzz tier, the harness and the drivers.
+    phase29 = lifted_phase(card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc)
+    new_launches.append(phase29)
+    lap("phase 29")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -3564,6 +3960,8 @@ def main() -> None:
         log(f"{name} {record['shape']}: {key} {fmt_ms(record[key])} a call "
             f"(torch.profiler, 200 calls) [{card}]")
     later.clear()
+    lap("phase 18")
+    log(f"wall in all: {time.perf_counter() - t_start:.1f} s [{card}]")
 
     log(json.dumps({"kernels": [{
         "name": "vote",
@@ -3572,6 +3970,7 @@ def main() -> None:
         "replaces": "coast_tpu/ops/pallas_voters.py:87",
         "launches": main_launches,
         "launches_phase_28": phase28[0],
+        "launches_phase_29": phase29[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3586,6 +3985,7 @@ def main() -> None:
         "replaces": "coast_tpu/ops/fused_step.py:373",
         "launches": fused_launches,
         "launches_phase_28": phase28[1],
+        "launches_phase_29": phase29[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -79,6 +79,8 @@ def apply_site(pstate: Dict[str, torch.Tensor], site: Site,
     for name, (idx, mask) in site.items():
         arr = pstate[name]
         flat = arr.view(torch.int32).view(arr.shape[0], -1)
+        if flat.shape[1] == 0:
+            continue        # a zero-size leaf holds no word to flip
         col = idx[:, None]
         cur = flat.gather(1, col)
         flat.scatter_(1, col, cur ^ torch.where(enable, mask, 0)[:, None])

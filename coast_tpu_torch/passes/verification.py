@@ -57,12 +57,21 @@ class RegionDataflow:
     ``deps``: out leaf -> the leaves its value depends on.
     ``load_addr`` / ``store_addr``: leaves that form the index of a row
     read / row write (``ops/indexing.py``) -- the GEP operands the
-    reference's syncGEP votes."""
+    reference's syncGEP votes.
+    ``stored_into``: leaves that are the target (operand 0) of a store-like
+    partial update -- the memory the reference's syncStoreInst guards.
+    ``branch_pred``: leaves that reach the condition operand of a
+    ``where`` -- the terminator-sync state the reference votes before a
+    branch.  Only :func:`analyze_step` fills these two (the lifter's
+    classification reads them); :func:`derive` and the sync tables leave
+    them empty."""
 
     written: FrozenSet[str]
     deps: Dict[str, FrozenSet[str]]
     load_addr: FrozenSet[str] = frozenset()
     store_addr: FrozenSet[str] = frozenset()
+    stored_into: FrozenSet[str] = frozenset()
+    branch_pred: FrozenSet[str] = frozenset()
 
 
 #: Calls of the bare step the derivation captures (t = 0, 1, ...).
@@ -92,12 +101,15 @@ def _refs(arg) -> List[int]:
 
 def _trip_flow(trip):
     """Leaf provenance through one captured call -> ``(written, deps,
-    load, store)``."""
+    load, store, stored_into, branch_pred, src)``; ``src`` maps each value
+    id to the leaves it depends on."""
     from coast_tpu_torch.analysis.lint.capture import SHAPE_ONLY
     src: Dict[int, FrozenSet[str]] = {
         vid: frozenset({name}) for name, vid in trip.state_in.items()}
     load: Set[str] = set()
     store: Set[str] = set()
+    stored: Set[str] = set()
+    pred: Set[str] = set()
     # Values made from an ops/indexing index: its tag already gave their
     # role (update_drop's internal read at the store index is not a load).
     tagged: Set[int] = set()
@@ -114,6 +126,10 @@ def _trip_flow(trip):
             if op in table and len(node.args) > table[op]:
                 role |= deps_of([v for v in _refs(node.args[table[op]])
                                  if v not in tagged])
+        if op in _STORE_INDEX and node.args:
+            stored |= deps_of(_refs(node.args[0]))
+        elif op == "where" and node.args:
+            pred |= deps_of(_refs(node.args[0]))
         tag = node.tag
         if tag == "coast:load_addr":
             load |= deps_of(node.ins[:1])
@@ -136,7 +152,7 @@ def _trip_flow(trip):
         if vid != trip.state_in.get(name):
             written.add(name)
             deps[name] = src.get(vid, frozenset())
-    return written, deps, load, store
+    return written, deps, load, store, stored, pred, src
 
 
 def derive(region: Region) -> RegionDataflow:
@@ -153,7 +169,7 @@ def derive(region: Region) -> RegionDataflow:
     store: Set[str] = set()
     for t in range(DERIVE_TRIPS):
         trip = capture_fn(step, state, t)
-        w, d, ld, st = _trip_flow(trip)
+        w, d, ld, st, _, _, _ = _trip_flow(trip)
         written |= w
         for name, got in d.items():
             deps.setdefault(name, set()).update(got)
@@ -166,6 +182,86 @@ def derive(region: Region) -> RegionDataflow:
         deps={name: (frozenset(deps.get(name, ())) if name in written
                      else frozenset({name})) for name in region.spec},
         load_addr=frozenset(load), store_addr=frozenset(store))
+
+
+#: Calls of a bare step :func:`analyze_step` captures at most.  A leaf's
+#: store or predicate role can first show at a later trip than
+#: :data:`DERIVE_TRIPS` covers; eight trips hold every distinct trip graph
+#: of the registry's fault-free runs (``analysis/lint/capture.MAX_TRIPS``).
+STEP_TRIPS = 8
+
+
+def _image_rows(state) -> Dict[str, "torch.Tensor"]:
+    """A one-image state (unbatched tensors, or a callable of a device) as
+    the two-row CPU state a capture records."""
+    import torch
+    from coast_tpu_torch.analysis.lint.capture import BATCH
+    if callable(state):
+        state = state(torch.device("cpu"))
+    return {k: torch.as_tensor(v).cpu().expand(BATCH, *v.shape).clone()
+            for k, v in state.items()}
+
+
+def analyze_step(step, state, done=None) -> RegionDataflow:
+    """Dataflow facts of a bare step ``step(state, t)`` over the image
+    ``state`` (unbatched tensors, or a callable of a device): the union of
+    captures of up to :data:`STEP_TRIPS` calls on a two-row CPU image (``t = 0, 1,
+    ...``), stopping after the trip at which ``done`` (when given) holds
+    for the image.  Unlike :func:`derive` it fills ``stored_into`` and
+    ``branch_pred``: the lifter (``frontend/lifter.py``) classifies leaf
+    kinds from them."""
+    import torch
+
+    from coast_tpu_torch.analysis.lint.capture import capture_fn
+    rows = _image_rows(state)
+    names = list(rows)
+    written: Set[str] = set()
+    deps: Dict[str, Set[str]] = {}
+    facts = {k: set() for k in ("load", "store", "stored_into",
+                                "branch_pred")}
+    for t in range(STEP_TRIPS):
+        w, d, ld, st, stored, pred, _ = _trip_flow(capture_fn(step, rows, t))
+        written |= w
+        for name, got in d.items():
+            deps.setdefault(name, set()).update(got)
+        facts["load"] |= ld
+        facts["store"] |= st
+        facts["stored_into"] |= stored
+        facts["branch_pred"] |= pred
+        with torch.no_grad():
+            rows = {**rows, **step(dict(rows), t)}
+            if done is not None and bool(done(rows).all()):
+                break
+    return RegionDataflow(
+        written=frozenset(written),
+        deps={name: (frozenset(deps.get(name, ())) if name in written
+                     else frozenset({name})) for name in names},
+        load_addr=frozenset(facts["load"]),
+        store_addr=frozenset(facts["store"]),
+        stored_into=frozenset(facts["stored_into"]),
+        branch_pred=frozenset(facts["branch_pred"]))
+
+
+def reads_of(fn, state, *extra_args) -> FrozenSet[str]:
+    """The state leaves the output of ``fn(state, *extra)`` depends on
+    (e.g. which leaves a region's ``done()`` predicate reads), from a
+    capture of one call on the two-row CPU image of ``state``."""
+    import torch
+
+    from coast_tpu_torch.analysis.lint.capture import Trip, recording
+    rows = _image_rows(state)
+    with torch.no_grad(), recording() as rec:
+        state_in = {k: rec.bind_input(v) for k, v in rows.items()}
+        out = fn(dict(rows), *extra_args)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        out_ids = {f"out{i}": rec.value_of(o) for i, o in enumerate(outs)
+                   if isinstance(o, torch.Tensor)}
+    src = _trip_flow(Trip(0, rec.nodes, rec.shapes, state_in, {}, out_ids,
+                          {}))[-1]
+    acc: Set[str] = set()
+    for vid in out_ids.values():
+        acc |= src.get(vid, frozenset())
+    return frozenset(acc)
 
 
 def analyze(region: Region) -> RegionDataflow:

@@ -1,0 +1,41 @@
+"""The port's smoke drivers (``coast_tpu_torch/testing/*_smoke.py``), the
+counterparts of the reference's fast.yml drivers for the subsystems the
+port has: each prints ``Success!`` with ``-d cpu``, alone and through the
+harness's driver tier."""
+
+import contextlib
+import io
+
+import pytest
+import torch
+
+from coast_tpu_torch.testing import harness
+
+torch.set_num_threads(1)
+
+DRIVERS = ["resume_smoke", "stream_smoke", "faultmodel_smoke",
+           "equiv_smoke", "train_smoke", "sparse_smoke", "stencil_smoke",
+           "propagation_smoke"]
+
+
+@pytest.mark.parametrize("name", DRIVERS)
+def test_driver_prints_success(name):
+    import importlib
+    mod = importlib.import_module(f"coast_tpu_torch.testing.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(["-d", "cpu"])
+    assert rc == 0, buf.getvalue()
+    assert buf.getvalue().splitlines()[-1] == "Success!"
+
+
+def test_ported_drivers_are_fast_yml_minus_the_later_items():
+    fast = [d["module"] for d in harness.FAST["drivers"]]
+    assert sorted(set(fast) - set(harness.LATER_DRIVERS)) == sorted(DRIVERS)
+    assert set(harness.PORTED_DRIVERS) == set(DRIVERS) | {"fuzz"}
+
+
+def test_harness_driver_tier_runs_the_ported_drivers():
+    cfg = {"drivers": [{"module": m} for m in ("resume_smoke",
+                                               "faultmodel_smoke")]}
+    assert harness.run_drivers(cfg, quiet=True, device="cpu") == 2
