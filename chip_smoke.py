@@ -228,6 +228,20 @@ Phases, in order; any failure exits non-zero:
      fast.yml's 4 x 3 matrix, full.yml's 18 OPT_PASSES on matrixMultiply
      and crc16 (every cell exits 0 with ``E: 0``) and the eight ported
      drivers (each prints Success!) on the card;
+ 30. observability (run before phase 18): (a) a profiled
+     matrixMultiply1024 TMR campaign (512 rows at 128) with telemetry, a
+     metrics hub served on a loopback port, its status file and a trace
+     file: the attribution identity wall = device busy + host gap + host
+     other, counts and codes equal to the same campaign with the profiler
+     off, ``/metrics`` and ``/status`` (and the status file) at the
+     finished rows, device-track spans in the trace, an ``mfu`` block
+     naming the card, and ``device_busy_s`` at least the summed kernel
+     time of the same campaign under ``torch.profiler`` (both printed);
+     (b) the flight recorder's bundles of phase 16's wedged supervisor
+     (its events and its torch/card metadata), checked in phase 16;
+     (c) ``fused_smoke`` and ``obs_live_smoke`` on the card; (d) the cost
+     of default telemetry on matrixMultiply TMR at 4096 rows a batch
+     against ``obs.NULL`` (both rates printed, no claim);
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -237,12 +251,12 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-29, K2 those of phases 7b, 9-12, 14-17, 19-23 and
-25-29 (each
+9-12, 14-17 and 19-30, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+25-30 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process reports its own at exit).  It imports nothing of JAX or of the
-coast_tpu package.  ``launches_phase_28`` and ``launches_phase_29`` are
-those phases' shares.
+coast_tpu package.  ``launches_phase_28``, ``launches_phase_29`` and
+``launches_phase_30`` are those phases' shares.
 """
 
 from __future__ import annotations
@@ -1211,9 +1225,14 @@ TIMESTAMP = re.compile(rb'"timestamp": "[^"]*"')
 # Runs the supervisor module as ``python -m coast_tpu_torch.inject.supervisor``
 # does, and at exit reports on stderr the process's K1 and K2 launches and
 # its peak device memory (a process killed with SIGKILL reports nothing).
+# With COAST_FLIGHTREC_DIR set it installs a flight recorder first, whose
+# bundles land there.
 SUPERVISOR = """\
-import atexit, json, runpy, sys
+import atexit, json, os, runpy, sys
 from coast_tpu_torch.ops import hopper_commit, hopper_voters
+if os.environ.get("COAST_FLIGHTREC_DIR"):
+    from coast_tpu_torch.obs import flightrec
+    flightrec.install(source="chip_smoke supervisor")
 
 
 def report():
@@ -1231,11 +1250,12 @@ runpy.run_module("coast_tpu_torch.inject.supervisor", run_name="__main__",
 """
 
 
-def start_cli(argv, board: str) -> subprocess.Popen:
-    """Start one supervisor process on ``board`` from the checkout's root."""
+def start_cli(argv, board: str, env=None) -> subprocess.Popen:
+    """Start one supervisor process on ``board`` from the checkout's root
+    (``env``: more environment variables)."""
     return spawn(
         [sys.executable, "-c", SUPERVISOR, *argv, "-d", board], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -1265,8 +1285,8 @@ def finish_cli(proc: subprocess.Popen, what: str, expect_ok: bool = True,
                         if dicts else None)}
 
 
-def run_cli(argv, board: str, what: str, **kw) -> dict:
-    return finish_cli(start_cli(argv, board), what, **kw)
+def run_cli(argv, board: str, what: str, env=None, **kw) -> dict:
+    return finish_cli(start_cli(argv, board, env), what, **kw)
 
 
 def steady(summary: dict) -> dict:
@@ -1486,15 +1506,20 @@ def watchdog(work: Path, board: str, card: str, first) -> tuple:
     --max-retries 1``: every collect outlives the watchdog, so the run
     exits non-zero with CampaignWedgedError and an intact journal; then
     ``--resume`` without the timeout completes, equal to phase 14's
-    uninterrupted run.  Returns the (K1, K2) launches."""
+    uninterrupted run.  The wedged process runs with a flight recorder
+    (phase 30b): each watchdog fire and the crash dump a bundle, whose
+    events and torch/card metadata are checked.  Returns the (K1, K2)
+    launches."""
     argv, full, full_dir, fmt = first
     journal = work / "wedged.ndjson"
     wedged_dir, resumed_dir = work / "wedged", work / "wedged_resumed"
+    bundles_dir = work / "flightrec"
     wedged_dir.mkdir()
     resumed_dir.mkdir()
     wedged = run_cli([*argv, "--journal", str(journal), "-l",
                       str(wedged_dir), "--collect-timeout", "1e-6",
                       "--max-retries", "1"], board, "wedged campaign",
+                     env={"COAST_FLIGHTREC_DIR": str(bundles_dir)},
                      expect_ok=False)
     if wedged["rc"] == 0 or "CampaignWedgedError" not in wedged["err"]:
         fail(f"the wedged campaign exited {wedged['rc']} without "
@@ -1506,6 +1531,7 @@ def watchdog(work: Path, board: str, card: str, first) -> tuple:
         fail(f"the wedged campaign's journal holds {kinds}")
     if os.listdir(wedged_dir):
         fail("the wedged campaign left a log behind")
+    check_bundles(bundles_dir, retries, card)
     resumed = run_cli([*argv, "--journal", str(journal), "--resume", "-l",
                        str(resumed_dir)], board, "wedged campaign, resumed")
     check_same_run("wedged campaign, resumed", resumed, full, resumed_dir,
@@ -1517,6 +1543,47 @@ def watchdog(work: Path, board: str, card: str, first) -> tuple:
         f"K1 {wedged['k1'] + resumed['k1']}, K2 "
         f"{wedged['k2'] + resumed['k2']} launches [{card}]")
     return (wedged["k1"] + resumed["k1"], wedged["k2"] + resumed["k2"])
+
+
+def check_bundles(bundles_dir: Path, retries: int, card: str) -> None:
+    """Phase 30b: the flight recorder's bundles of the wedged supervisor.
+    Each watchdog fire dumps one (``watchdog_wedge``, with the process's
+    thread stacks) and the crash one more; the crash bundle's events
+    run from the journal's open through the dispatches, fires and retries
+    to the crash, and its metadata names torch, its CUDA build, the card
+    and its power limit as ``nvidia-smi`` gives them."""
+    names = sorted(os.listdir(bundles_dir)) if bundles_dir.exists() else []
+    docs = [json.loads((bundles_dir / n).read_text()) for n in names
+            if n.startswith("flightrec_") and n.endswith(".json")]
+    reasons = [d["reason"] for d in docs]
+    fires = reasons.count("watchdog_wedge")
+    crash = [d for d in docs
+             if d["reason"] == "campaign_crash:CampaignWedgedError"]
+    if fires != retries + 1 or len(crash) != 1 \
+            or any(d["format"] != "coast-flightrec" for d in docs):
+        fail(f"phase 30b: the wedged supervisor's bundles are {reasons} "
+             f"({retries} retry)")
+    if not all("[MainThread]" in d["stacks"] for d in docs):
+        fail("phase 30b: a bundle lacks the process's thread stacks")
+    events = [e["event"] for e in crash[0]["events"]]
+    want = ["journal_open", "dispatch", "watchdog_fired", "retry",
+            "campaign_crash"]
+    if [e for e in want if e not in events] or events[-1] != \
+            "campaign_crash" or events.count("watchdog_fired") != fires:
+        fail(f"phase 30b: the crash bundle's events are {events}")
+    meta = crash[0]["torch"]
+    name, limit = card.rsplit(", ", 1)
+    if (meta.get("backend") != "gpu" or meta.get("device_name") != name
+            or meta.get("power_limit") != limit
+            or not meta.get("cuda_version")
+            or not meta.get("torch_version")):
+        fail(f"phase 30b: the bundle's metadata is {meta}, the card "
+             f"{card!r}")
+    log(f"phase 30b: {len(docs)} flight-recorder bundles of the wedged "
+        f"supervisor ({fires} watchdog_wedge, 1 campaign_crash); the crash "
+        f"bundle's {len(events)} events {sorted(set(events))}; metadata "
+        f"torch {meta['torch_version']} cuda {meta['cuda_version']} "
+        f"{meta['device_name']}, {meta['power_limit']} [{card}]")
 
 
 def durability(work: Path, board: str, card: str, TMR, REGISTRY,
@@ -3687,8 +3754,11 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
     full = {"benchmarks": [e for e in harness.FULL["benchmarks"]
                            if e["path"] in ("matrixMultiply", "crc16")],
             "OPT_PASSES": harness.FULL["OPT_PASSES"]}
+    # The drivers of the slices up to 29 (phase 30c runs fused_smoke and
+    # obs_live_smoke).
     drivers = {"drivers": [d for d in harness.FAST["drivers"]
-                           if d["module"] in harness.PORTED_DRIVERS]}
+                           if d["module"] in harness.PORTED_DRIVERS
+                           and d["module"] not in OBS_DRIVERS]}
     if len(drivers["drivers"]) != 8:
         fail(f"phase 29e: {len(drivers['drivers'])} ported drivers")
     buf = io.StringIO()
@@ -3711,6 +3781,182 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
         f"{launches[0]}, K2 {launches[1]} launches [{card}]")
     if launches[0] <= 0 or launches[1] <= 0:
         fail(f"phase 29 launched K1 {launches[0]} and K2 {launches[1]} "
+             "times")
+    return tuple(launches)
+
+
+# The smoke drivers phase 30c runs (phase 29e runs the others).
+OBS_DRIVERS = ("fused_smoke", "obs_live_smoke")
+
+
+def http_get(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.read().decode("utf-8")
+
+
+def observability_phase(work: Path, card: str, torch, TMR, REGISTRY,
+                        CampaignRunner, hv, hc) -> tuple:
+    """Phase 30: the port's obs layer on the card (see the module
+    docstring; 30b runs in phase 16).  Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+    from coast_tpu_torch import obs
+    from coast_tpu_torch.breakdown import kernel_times
+    from coast_tpu_torch.testing import fused_smoke, obs_live_smoke
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+
+    def count() -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    # (a) A profiled flagship campaign with every surface on, under
+    # torch.profiler (device activity only, as breakdown.py takes it).
+    name, limit = card.rsplit(", ", 1)
+    prog = TMR(REGISTRY["matrixMultiply1024"]())
+    n, batch, seed = 512, 128, 30
+    off = CampaignRunner(prog, strategy_name="TMR").run(n, seed=seed,
+                                                        batch_size=batch)
+    tel = obs.Telemetry()
+    status = work / "phase30_status.json"
+    trace = work / "phase30_trace.json"
+    hub = obs.CampaignMetrics(status_path=str(status))
+    server = obs.MetricsServer(hub, port=0)
+    port = server.start()
+    runner = CampaignRunner(prog, strategy_name="TMR", telemetry=tel,
+                            metrics=hub, profile=True)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as tp:
+            res = runner.run(n, seed=seed, batch_size=batch)
+            torch.cuda.synchronize()
+        prom = http_get(f"http://127.0.0.1:{port}/metrics")
+        doc = json.loads(http_get(f"http://127.0.0.1:{port}/status"))
+    finally:
+        server.stop()
+    obs.write_trace(tel, str(trace), metadata={"phase": 30})
+    summ = res.summary()
+    prof, mfu = summ["profile"], summ.get("mfu") or {}
+    # The identity, before the block's rounding to 6 digits: the host's
+    # other time is what the busy and gap seconds leave of the wall, and
+    # no bucket is negative.
+    p = runner.profiler
+    other = res.seconds - p._busy_s - p._gap_s
+    if (other < 0 or p._gap_s < 0 or p._busy_s <= 0
+            or (prof["wall_s"], prof["device_busy_s"], prof["host_gap_s"],
+                prof["host_other_s"]) != (
+                round(res.seconds, 6), round(p._busy_s, 6),
+                round(p._gap_s, 6), round(other, 6))):
+        fail(f"phase 30a: the attribution does not sum to the wall: {prof}")
+    for col in ("codes", "errors", "corrected", "steps"):
+        if not np.array_equal(getattr(res, col), getattr(off, col)):
+            fail(f"phase 30a: {col} differ with the profiler on")
+    if res.counts != off.counts:
+        fail(f"phase 30a: counts {res.counts} with the profiler on, "
+             f"{off.counts} off")
+    labels = 'benchmark="matrixMultiply1024",strategy="TMR"'
+    file_doc = json.loads(status.read_text())
+    if (f"coast_campaign_rows_done{{{labels}}} {n}" not in prom
+            or f'coast_campaign_state{{{labels},state="finished"}} 1'
+            not in prom or doc["state"] != "finished"
+            or doc["done_rows"] != n or file_doc["done_rows"] != n
+            or file_doc["state"] != "finished"
+            or doc["counts"].get("sdc", 0) != res.counts["sdc"]):
+        fail(f"phase 30a: /metrics, /status or the status file do not "
+             f"report the {n} finished rows: {doc.get('state')} "
+             f"{doc.get('done_rows')}, file {file_doc.get('done_rows')}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e["tid"] == 2]
+    if len(device) != prof["dispatches"] or any(
+            e["name"] != "device:step" for e in device):
+        fail(f"phase 30a: {len(device)} device-track spans for "
+             f"{prof['dispatches']} dispatches")
+    kernel_s = sum(k["us"] for k in kernel_times(tp)) / 1e6
+    if (mfu.get("backend") != "gpu" or name not in str(
+            mfu.get("peak_source")) or not mfu.get("achieved_mfu")):
+        fail(f"phase 30a: the mfu block does not name the card: {mfu}")
+    if not kernel_s > 0 or prof["device_busy_s"] < kernel_s:
+        fail(f"phase 30a: device_busy_s {prof['device_busy_s']} below the "
+             f"campaign's summed kernel time {kernel_s:.6f} s")
+    k1, k2 = count()
+    log(f"phase 30a: matrixMultiply1024 TMR {n} at {batch}, profiled: "
+        f"wall {prof['wall_s']} s = device busy {prof['device_busy_s']} + "
+        f"host gap {prof['host_gap_s']} + host other "
+        f"{prof['host_other_s']} ({prof['dispatches']} dispatches); summed "
+        f"kernel time under torch.profiler {kernel_s:.6f} s <= device busy; "
+        f"records = the unprofiled run's; /metrics, /status and the status "
+        f"file at {n} finished rows; {len(device)} device-track spans; mfu: "
+        f"useful {mfu['useful_ops_per_run']} / program "
+        f"{mfu['program_ops_per_run']} ops a run (overhead "
+        f"{mfu['flops_overhead']}), achieved {mfu['achieved_ops_per_s']} "
+        f"ops/s, MFU {mfu['achieved_mfu']}, roofline ceiling "
+        f"{mfu['roofline_mfu']}, voter bytes share "
+        f"{mfu['voter_bytes_share']}, peak {mfu['peak_source']}; K1 {k1} "
+        f"[{card}]")
+    log(json.dumps({"phase30_profile": prof, "phase30_mfu": mfu,
+                    "phase30_kernel_s": kernel_s}))
+
+    # (c) The two smoke drivers of this slice on the card.
+    for drv in (obs_live_smoke, fused_smoke):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = drv.main(["-d", "cuda"])
+        out = buf.getvalue().splitlines()
+        drv_name = drv.__name__.rsplit(".", 1)[-1]
+        if drv is fused_smoke and rc != 0:
+            # The op-count oracle: the port's eager engine has no per-step
+            # bookkeeping for the fused engine to remove (ROADMAP Queue
+            # C).  Its other two oracles must hold.
+            errors = [ln for ln in out if ln.startswith("Error")]
+            if (rc != 1 or not any(ln.startswith("byte parity:")
+                                   for ln in out)
+                    or not any(ln.startswith("journal identity:")
+                               for ln in out)
+                    or any("overhead reduction" not in ln for ln in errors)):
+                fail(f"phase 30c: fused_smoke -d cuda:\n{buf.getvalue()}")
+            verdict = ("exit 1 on the op-count oracle alone: " + "; ".join(
+                ln for ln in out if "flops_overhead" in ln))
+        elif rc != 0 or out[-1:] != ["Success!"]:
+            fail(f"phase 30c: {drv_name} -d cuda failed:\n{buf.getvalue()}")
+        else:
+            verdict = "Success!"
+        k1, k2 = count()
+        log(f"phase 30c: {drv_name} -d cuda: {verdict} in "
+            f"{time.perf_counter() - t0:.1f} s, K1 {k1}, K2 {k2} [{card}]")
+
+    # (d) What default telemetry costs on the host-bound main path.
+    mm = TMR(REGISTRY["matrixMultiply"]())
+    rows, batch = 16384, 4096
+    rates = {"default": [], "NULL": []}
+    runners = {"default": CampaignRunner(mm, strategy_name="TMR"),
+               "NULL": CampaignRunner(mm, strategy_name="TMR",
+                                      telemetry=obs.NULL)}
+    runners["default"].run(batch, seed=0, batch_size=batch)      # warm-up
+    counts = set()
+    for which in ("default", "NULL", "default", "NULL", "NULL", "default"):
+        got = runners[which].run(rows, seed=1, batch_size=batch)
+        rates[which].append(got.injections_per_sec)
+        counts.add(json.dumps(got.counts, sort_keys=True))
+    if len(counts) != 1:
+        fail(f"phase 30d: counts differ with and without telemetry: {counts}")
+    k1, k2 = count()
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"phase 30d: matrixMultiply TMR {rows} at {batch}: default "
+        f"telemetry {rates['default']} inj/s (median {med['default']}), "
+        f"obs.NULL {rates['NULL']} inj/s (median {med['NULL']}); cost "
+        f"{100 * (1 - med['default'] / med['NULL']):.2f} % of the NULL "
+        f"rate; K1 {k1} [{card}]")
+    log(json.dumps({"phase30_telemetry_inj_per_s": rates}))
+    log(f"phase 30: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0 or launches[1] <= 0:
+        fail(f"phase 30 launched K1 {launches[0]} and K2 {launches[1]} "
              "times")
     return tuple(launches)
 
@@ -3950,6 +4196,12 @@ def main() -> None:
     phase29 = lifted_phase(card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc)
     new_launches.append(phase29)
     lap("phase 29")
+    # 30. Observability: the profiled flagship campaign, the live surfaces,
+    # the trace, the drivers and what telemetry costs.
+    phase30 = observability_phase(work, card, torch, TMR, REGISTRY,
+                                  CampaignRunner, hv, hc)
+    new_launches.append(phase30)
+    lap("phase 30")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -3971,6 +4223,7 @@ def main() -> None:
         "launches": main_launches,
         "launches_phase_28": phase28[0],
         "launches_phase_29": phase29[0],
+        "launches_phase_30": phase30[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3986,6 +4239,7 @@ def main() -> None:
         "launches": fused_launches,
         "launches_phase_28": phase28[1],
         "launches_phase_29": phase29[1],
+        "launches_phase_30": phase30[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -106,6 +106,9 @@ class Trip:
     flags_in: Dict[str, int]
     state_out: Dict[str, int]
     flags_out: Dict[str, int]
+    # The dtype of every value (the lifter's join of same-signature
+    # selects reads it).
+    dtypes: Dict[int, torch.dtype] = dataclasses.field(default_factory=dict)
 
     def signature(self) -> tuple:
         """Trips with equal signatures are the same graph."""
@@ -129,6 +132,7 @@ class _Recorder(TorchDispatchMode):
         super().__init__()
         self.nodes: List[Node] = []
         self.shapes: Dict[int, Tuple[int, ...]] = {}
+        self.dtypes: Dict[int, torch.dtype] = {}
         self._ids: Dict[int, _Entry] = {}
         self._keep: List[torch.Tensor] = []   # no id() reuse in a trip
         self._events: Dict[int, List[Tuple[int, int]]] = {}
@@ -139,6 +143,7 @@ class _Recorder(TorchDispatchMode):
         vid = self._next
         self._next += 1
         self.shapes[vid] = tuple(t.shape)
+        self.dtypes[vid] = t.dtype
         return vid
 
     def _bind(self, t: torch.Tensor, vid: int) -> None:
@@ -273,7 +278,7 @@ def capture_step(step, pstate: Mapping[str, torch.Tensor],
         state_out = {k: rec.value_of(v) for k, v in new_state.items()}
         flags_out = {k: rec.value_of(v) for k, v in new_flags.items()}
     trip = Trip(t, rec.nodes, rec.shapes, state_in, flags_in, state_out,
-                flags_out)
+                flags_out, rec.dtypes)
     return trip, new_state, new_flags
 
 
@@ -313,7 +318,8 @@ def capture_fn(fn, state: Mapping[str, torch.Tensor], t: int = 0) -> Trip:
         state_in = {k: rec.bind_input(v) for k, v in state.items()}
         out = fn(dict(state), t)
         state_out = {k: rec.value_of(v) for k, v in out.items()}
-    return Trip(t, rec.nodes, rec.shapes, state_in, {}, state_out, {})
+    return Trip(t, rec.nodes, rec.shapes, state_in, {}, state_out, {},
+                rec.dtypes)
 
 
 def format_trip(trip: Trip) -> str:

@@ -48,7 +48,6 @@ touch (``ProtectedProgram.fire_plan_bytes``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import time
@@ -58,6 +57,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from coast_tpu_torch import obs
 from coast_tpu_torch.inject import classify as cls
 from coast_tpu_torch.inject import resilience as resilience_mod
 from coast_tpu_torch.inject.device_gen import DeviceGenError, DeviceScheduleGen
@@ -74,6 +74,7 @@ from coast_tpu_torch.inject.schedule import (FaultModel, FaultSchedule,
                                              generate)
 from coast_tpu_torch.inject.spec import (CampaignSpec, header_collect,
                                          header_fuse, header_placement)
+from coast_tpu_torch.obs import flightrec
 
 _COLUMNS = ("code", "errors", "corrected", "steps")
 # Journal record key of each result column.
@@ -83,12 +84,11 @@ _RECORD_KEYS = (("code", "codes"), ("errors", "errors"),
 # (``breakdown.py`` reads their device time from a campaign's profile).
 SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 
-# Runner features of the reference that later slices port, with the ROADMAP
-# Queue A item that brings each.
+# Runner features of the reference that a later slice ports, with the
+# ROADMAP Queue A item that brings each.
 _LATER_RUNNER = {
-    "metrics": "item 18 (live metrics)",
-    "profile": "item 18 (the campaign profiler)",
     "slo": "item 19 (reliability SLOs)",
+    "slo_baseline": "item 19 (reliability SLOs)",
 }
 
 
@@ -111,9 +111,10 @@ class CampaignResult:
     # n, start_num) of every chunk, in order; replay_chunks(chunks)
     # reproduces ``codes``.  None for single-seed campaigns.
     chunks: Optional[List[Dict[str, int]]] = None
-    # Wall-clock seconds per stage: schedule, sparse_setup, pad, dispatch,
-    # collect, classify, plus serialize (and the ``overlap`` fraction of a
-    # streamed log) once a log writer ran.
+    # Wall-clock seconds per stage: the runner's Telemetry's top-level span
+    # totals (schedule, sparse_setup, pad, dispatch, collect, classify),
+    # plus serialize (and the ``overlap`` fraction of a streamed log) once
+    # a log writer ran; {} when telemetry is disabled.
     stages: Dict[str, float] = dataclasses.field(default_factory=dict)
     # First injection number of this campaign within its seed stream.
     start_num: int = 0
@@ -142,6 +143,10 @@ class CampaignResult:
     # A delta campaign's accounting (run_delta): the changed sections and
     # the reused and re-injected rows.  None otherwise.
     delta: Optional[Dict[str, object]] = None
+    # Device-time attribution (CampaignRunner(profile=True)): the
+    # obs.profiler block with its roofline "mfu" sub-block; None for an
+    # unprofiled campaign.
+    profile: Optional[Dict[str, object]] = None
 
     @property
     def injections_per_sec(self) -> float:
@@ -200,6 +205,14 @@ class CampaignResult:
                 self.n / self.physical_n, 2) if self.physical_n else 0.0
         if self.delta is not None:
             out["delta"] = dict(self.delta)
+        if self.profile is not None:
+            # The device-time attribution, with the roofline accounting
+            # split out as its own ``mfu`` key.
+            prof = dict(self.profile)
+            mfu = prof.pop("mfu", None)
+            out["profile"] = prof
+            if mfu is not None:
+                out["mfu"] = mfu
         if self.convergence is not None:
             out["convergence"] = dict(self.convergence)
         if self.mesh is not None:
@@ -209,16 +222,6 @@ class CampaignResult:
         if self.resilience:
             out["resilience"] = dict(self.resilience)
         return out
-
-
-@contextlib.contextmanager
-def _stage(stages: Dict[str, float], name: str):
-    """Add the wall clock of the ``with`` body to ``stages[name]``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
 
 
 class _Degrade(Exception):
@@ -386,7 +389,10 @@ class CampaignRunner:
                  sparse_capacity: Optional[int] = None,
                  retry: Optional[resilience_mod.RetryPolicy] = None,
                  mesh=None, unroll: int = 1, preflight: "bool | str" = False,
-                 equiv: "bool | object" = False, **later):
+                 equiv: "bool | object" = False,
+                 telemetry: "Optional[obs.Telemetry]" = None,
+                 metrics: "Optional[object]" = None,
+                 profile: "bool | object" = False, **later):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
@@ -425,7 +431,25 @@ class CampaignRunner:
         ``"full"`` add the prover and the survival checks, any other
         truthy value the survival checks.
 
-        The reference's ``metrics``, ``profile`` and ``slo`` raise
+        ``telemetry`` is the runner's stage recorder (``obs.Telemetry``;
+        default a fresh, enabled one unless ``COAST_TELEMETRY=0``): every
+        campaign records its schedule/pad/dispatch/collect/classify spans
+        there, ``CampaignResult.stages`` is their top-level totals, and
+        ``obs.write_trace(runner.telemetry, path)`` exports the timeline.
+
+        ``metrics`` is an ``obs.CampaignMetrics`` hub the campaign loop
+        feeds once a collected batch (progress, rates, class intervals,
+        stage totals, resilience and transfer counters); an
+        ``obs.MetricsServer`` or its status file reads it live.
+
+        ``profile`` arms per-dispatch device-time attribution
+        (``obs.CampaignProfiler``, or ``True`` for one on this program):
+        the device-busy / host-gap / host-other split, the per-dispatch
+        histograms, ``device:<phase>`` spans on the trace's device track,
+        and the roofline block in ``summary()["profile"]`` /
+        ``["mfu"]``.  Records and counts are the same with it on or off.
+
+        The reference's ``slo`` and ``slo_baseline`` raise
         ``NotImplementedError`` naming their ROADMAP item."""
         if mesh is not None:
             raise TypeError(
@@ -458,11 +482,23 @@ class CampaignRunner:
                 propagation=preflight in (True, "full", "propagation"))
         self.unroll = max(1, int(unroll))
         self.prog = prog
+        self.metrics = metrics
+        self.telemetry = (telemetry if telemetry is not None
+                          else obs.Telemetry())
+        self.profiler = None
+        if profile:
+            from coast_tpu_torch.obs.profiler import CampaignProfiler
+            self.profiler = (profile
+                             if isinstance(profile, CampaignProfiler)
+                             else CampaignProfiler(prog))
+            if self.profiler.telemetry is None:
+                self.profiler.telemetry = self.telemetry
         # A training region's counts always carry the train classes; every
         # other region keeps the base key set.
         self._train = prog.region.train_probe is not None
         self.retry = retry
-        self.mmap = MemoryMap(prog, sections)
+        with self.telemetry.span("memory_map"):
+            self.mmap = MemoryMap(prog, sections)
         self.strategy_name = strategy_name or f"N={prog.cfg.num_clones}"
         self.fault_model = (fault_model if fault_model is not None
                             else FaultModel())
@@ -487,8 +523,11 @@ class CampaignRunner:
         if equiv:
             from coast_tpu_torch.analysis.equiv import (EquivPartition,
                                                         analyze_equivalence)
-            self.equiv_partition = (equiv if isinstance(equiv, EquivPartition)
-                                    else analyze_equivalence(prog))
+            with self.telemetry.activate(), \
+                    self.telemetry.span("equiv_analysis"):
+                self.equiv_partition = (
+                    equiv if isinstance(equiv, EquivPartition)
+                    else analyze_equivalence(prog))
         self.collect = collect
         self._sparse_capacity = (int(sparse_capacity) if sparse_capacity
                                  else None)
@@ -728,7 +767,7 @@ class CampaignRunner:
                      journal_base: int = 0,
                      stream: "Optional[object]" = None,
                      stop_when: "Optional[object]" = None,
-                     _stages: Optional[Dict[str, float]] = None
+                     _telemetry_mark: Optional[int] = None
                      ) -> CampaignResult:
         """Run every row of ``sched`` in edge-padded batches.
 
@@ -747,19 +786,30 @@ class CampaignRunner:
         stops dispatching once every target class's Wilson half-width is
         at or below its threshold; the result then covers the rows that
         ran, and a journal gets the terminal ``early_stop`` record.
-        ``self.retry`` governs failures (see ``__init__``)."""
+        ``self.retry`` governs failures (see ``__init__``).  The stages
+        are recorded into ``self.telemetry`` and ``_telemetry_mark`` lets
+        ``run`` extend the stage window back over its schedule span."""
         batch_size = self._round_batch(batch_size)
         self._ledger_reset()
         if journal is not None:
             self._check_identity(journal, sched, stop_when)
         retry = self.retry
+        metrics = self.metrics
         tracker = None
         if stop_when is not None:
             from coast_tpu_torch.obs.convergence import ConvergenceTracker
             tracker = ConvergenceTracker(stop_when)
         planned_n = sched.effective_n
-        stages: Dict[str, float] = dict(_stages or {})
+        if metrics is not None:
+            metrics.campaign_started(self.prog.region.name,
+                                     self.strategy_name, len(sched),
+                                     planned_n)
+        tel = self.telemetry
+        mark = tel.mark() if _telemetry_mark is None else _telemetry_mark
         t0 = time.perf_counter()
+        prof = self.profiler
+        if prof is not None:
+            prof.begin(t0)
         outs: List[Dict[str, np.ndarray]] = []
         done = 0
         live_counts = np.zeros(cls.NUM_CLASSES, np.int64)
@@ -772,7 +822,7 @@ class CampaignRunner:
         transfer: Dict[str, int] = {"up": 0, "down": 0}
         state: Optional[Dict[str, object]] = None
         if self.collect == "sparse":
-            with _stage(stages, "sparse_setup"):
+            with tel.span("sparse_setup"):
                 state = self._sparse_setup(sched, batch_size, transfer)
 
         def counts_now() -> Dict[str, int]:
@@ -806,6 +856,7 @@ class CampaignRunner:
             return counts_now()
 
         def journal_early_stop(rows: int) -> None:
+            tel.instant("early_stop", rows=rows)
             if journal is not None:
                 journal.append({
                     "kind": "early_stop",
@@ -844,10 +895,25 @@ class CampaignRunner:
                                     sched.slice(done, done + n_batch), out)
                 outs.append(out)
                 done += n_batch
+                # The crashed run's batch spans, re-materialised (marked
+                # replayed) at their wall-clock offsets: one exported
+                # trace covers the whole campaign.
+                for name, t_abs, dur in rec.get("spans") or []:
+                    t0_local = tel.origin + (float(t_abs) - tel.epoch)
+                    tel.span_at(str(name), t0_local,
+                                t0_local + float(dur), replayed=True)
                 if tracker is not None:
                     tracker.update(counts)
+                if metrics is not None:
+                    metrics.record_batch(done, n_batch, counts,
+                                         tel.stage_totals(since=mark),
+                                         resilience, replayed=True,
+                                         transfer=transfer)
                 if progress is not None:
                     progress(done, counts)
+            if done:
+                tel.instant("journal_resume", rows=done)
+                flightrec.record("journal_resume", rows=int(done))
             early = next(
                 (r for r in journal.records()
                  if r.get("kind") == "early_stop"
@@ -860,10 +926,21 @@ class CampaignRunner:
                 stopped = True
                 journal_early_stop(done)
 
+        def last_span(store: List) -> None:
+            """The span that just closed, as (name, t0, t1), for the
+            journal's per-batch span record (a disabled recorder records
+            none)."""
+            if tel.enabled and tel.events \
+                    and tel.events[-1]["kind"] == "span":
+                e = tel.events[-1]
+                store.append((str(e["name"]), float(e["t0"]),
+                              float(e["t1"])))
+
         def dispatch(flight: Dict[str, object]) -> None:
             lo, n_part = int(flight["lo"]), int(flight["n"])
+            spans_rec = flight.setdefault("spans", [])
             if "fault" not in flight:
-                with _stage(stages, "pad"):
+                with tel.span("pad", lo=lo):
                     if state is not None:
                         flight["fault"] = self._sparse_args(state, lo,
                                                             transfer)
@@ -873,14 +950,33 @@ class CampaignRunner:
                         transfer["up"] += sum(int(v.nbytes)
                                               for v in fault.values())
                         flight["fault"] = (fault, None)
+                last_span(spans_rec)
+                if batch_size - n_part:
+                    tel.count("pad_waste_rows", batch_size - n_part)
             fault, count_w = flight["fault"]
-            with _stage(stages, "dispatch"):
+            flightrec.record("dispatch", lo=lo, n=n_part,
+                             batch_size=int(batch_size))
+            args = ({"n": n_part} if int(flight["attempts"]) == 1 else
+                    {"n": n_part, "retry": int(flight["attempts"])})
+            td0 = time.perf_counter()
+            with tel.span("dispatch", **args):
                 transfer["down"] += self._fire_plan_bytes(fault)
                 if state is not None:
                     flight["pending"] = self._sparse_dispatch(
                         state, fault, count_w, n_part)
                 else:
                     flight["pending"] = self._dispatch(fault)
+                if prof is not None:
+                    # The blocking marker: recorded after the batch's
+                    # last launch, waited on at the collect.
+                    flight["ready"] = (
+                        torch.cuda.Event()
+                        if self.prog.device.type == "cuda" else None)
+                    if flight["ready"] is not None:
+                        flight["ready"].record()
+            last_span(spans_rec)
+            if prof is not None:
+                prof.dispatched(lo, n_part, td0, time.perf_counter())
 
         def collect(flight: Dict[str, object]):
             pending, n_part = flight["pending"], int(flight["n"])
@@ -894,11 +990,30 @@ class CampaignRunner:
                     transfer["down"] += sum(int(v.nbytes)
                                             for v in got.values())
                     return got
-            with _stage(stages, "collect"):
+            if prof is not None:
+                # Device timing: wait for the batch on the card (no
+                # copy), then the ordinary fetch; inside the fetch so the
+                # watchdog guards the marker too.  ``_p`` pins the
+                # attempt: an abandoned watchdog thread that wakes after
+                # a re-dispatch reports no ready.
+                def fetch(_inner=fetch, _fl=flight, _p=pending,
+                          _ev=flight.get("ready")):
+                    if _ev is not None:
+                        _ev.synchronize()
+                    if _fl.get("pending") is _p:
+                        prof.ready(int(_fl["lo"]), int(_fl["n"]),
+                                   time.perf_counter())
+                    return _inner()
+            with tel.span("collect", n=n_part):
                 if retry is not None and retry.collect_timeout:
-                    return resilience_mod.watchdog_collect(
-                        fetch, retry.collect_timeout)
-                return fetch()
+                    # The watchdog's own counter lands in this recorder.
+                    with tel.activate():
+                        got = resilience_mod.watchdog_collect(
+                            fetch, retry.collect_timeout)
+                else:
+                    got = fetch()
+            last_span(flight.setdefault("spans", []))
+            return got
 
         def handle(flight: Dict[str, object], exc: Exception) -> None:
             """Classify a failed dispatch or collect: re-raise, signal a
@@ -915,9 +1030,13 @@ class CampaignRunner:
                 raise exc
             key = "retry_wedged" if kind == "wedged" else "retry_transient"
             resilience[key] += 1
+            lo = int(flight["lo"])
+            tel.count(f"resilience_{key}", lo=lo, error=type(exc).__name__)
+            flightrec.record("retry", lo=lo, attempt=attempts, kind=kind,
+                             error=type(exc).__name__)
             if journal is not None:
                 journal.append({"kind": "retry",
-                                "lo": journal_base + int(flight["lo"]),
+                                "lo": journal_base + lo,
                                 "attempt": attempts, "class": kind,
                                 "error": type(exc).__name__})
             time.sleep(retry.backoff(attempts))
@@ -929,6 +1048,9 @@ class CampaignRunner:
             journal)."""
             nonlocal done
             lo, n_part = int(flight["lo"]), int(flight["n"])
+            spans = [(name, round(tel.epoch + (a - tel.origin), 6),
+                      round(b - a, 6))
+                     for name, a, b in flight.get("spans") or []]
             if state is not None:
                 out = got
                 out["invalid"] = batch_invalid(lo, n_part)
@@ -939,7 +1061,8 @@ class CampaignRunner:
                     journal.append_batch_sparse(
                         journal_base + lo, n_part, out["hist"],
                         out["invalid"], journal_base + out["rows"],
-                        {k: out[k] for k in _COLUMNS}, counts, stages)
+                        {k: out[k] for k in _COLUMNS}, counts,
+                        tel.stage_totals(since=mark), spans=spans)
                 if stream is not None:
                     stream.feed_sparse(journal_base + out["rows"],
                                        _rows_subset(sched, out["rows"]), out)
@@ -950,61 +1073,85 @@ class CampaignRunner:
                 done += n_part
                 if journal is not None:
                     journal.append_batch(journal_base + lo, out, counts,
-                                         stages)
+                                         tel.stage_totals(since=mark),
+                                         spans=spans)
                 if stream is not None:
                     stream.feed(journal_base + lo,
                                 sched.slice(lo, lo + n_part), out)
             outs.append(out)
+            if metrics is not None:
+                metrics.record_batch(done, n_part, counts,
+                                     tel.stage_totals(since=mark),
+                                     resilience, transfer=transfer,
+                                     profile=(prof.batch_sample()
+                                              if prof is not None
+                                              else None))
             if progress is not None:
                 progress(done, counts)
             return counts
 
-        while done < len(sched) and not stopped:
-            flight = {"lo": done, "attempts": 1,
-                      "n": min(done + batch_size, len(sched)) - done}
-            try:
-                while True:
-                    try:
-                        dispatch(flight)
-                        got = collect(flight)
-                        break
-                    except Exception as e:  # noqa: BLE001 - classified
-                        handle(flight, e)
-            except _Degrade as sig:
-                # Out of memory: free the failed batch, halve the batch
-                # and restart at the first uncollected row.
-                cause = sig.__cause__
-                flight.clear()
-                _release(cause, self.prog.device)
-                new_bs = retry.degraded_batch(batch_size)
-                if new_bs is None:
-                    raise cause
-                new_bs = self._round_batch(new_bs)
-                if new_bs >= batch_size:
-                    raise cause     # the shard count's floor is reached
-                resilience["oom_degrade"] += 1
-                batch_size = new_bs
-                if state is not None:
-                    with _stage(stages, "sparse_setup"):
-                        state = self._sparse_setup(sched, batch_size,
-                                                   transfer)
-                if journal is not None:
-                    journal.append({"kind": "geometry",
-                                    "batch_size": batch_size,
-                                    "lo": journal_base + done})
-                continue
-            counts = grab(flight, got)
-            if tracker is not None:
-                tracker.update(counts)
-                if tracker.converged:
-                    stopped = True
-                    journal_early_stop(done)
+        try:
+            while done < len(sched) and not stopped:
+                flight = {"lo": done, "attempts": 1,
+                          "n": min(done + batch_size, len(sched)) - done}
+                try:
+                    while True:
+                        try:
+                            dispatch(flight)
+                            got = collect(flight)
+                            break
+                        except Exception as e:  # noqa: BLE001 - classified
+                            handle(flight, e)
+                except _Degrade as sig:
+                    # Out of memory: free the failed batch, halve the batch
+                    # and restart at the first uncollected row.
+                    cause = sig.__cause__
+                    flight.clear()
+                    _release(cause, self.prog.device)
+                    new_bs = retry.degraded_batch(batch_size)
+                    if new_bs is None:
+                        raise cause
+                    new_bs = self._round_batch(new_bs)
+                    if new_bs >= batch_size:
+                        raise cause     # the shard count's floor is reached
+                    resilience["oom_degrade"] += 1
+                    tel.count("resilience_oom_degrade", batch_size=new_bs)
+                    flightrec.record("oom_degrade", batch_size=int(new_bs),
+                                     lo=int(done))
+                    batch_size = new_bs
+                    if state is not None:
+                        with tel.span("sparse_setup"):
+                            state = self._sparse_setup(sched, batch_size,
+                                                       transfer)
+                    if journal is not None:
+                        journal.append({"kind": "geometry",
+                                        "batch_size": batch_size,
+                                        "lo": journal_base + done})
+                    continue
+                counts = grab(flight, got)
+                if tracker is not None:
+                    tracker.update(counts)
+                    if tracker.converged:
+                        stopped = True
+                        journal_early_stop(done)
+        except BaseException as e:
+            # The campaign died: the live surfaces say so, and the flight
+            # recorder dumps its bundle while the failing state exists.
+            flightrec.record("campaign_crash", lo=int(done),
+                             error=type(e).__name__)
+            flightrec.current().dump(
+                f"campaign_crash:{type(e).__name__}",
+                extra={"error": f"{type(e).__name__}: {e}",
+                       "done_rows": int(done)})
+            if metrics is not None:
+                metrics.campaign_finished(error=f"{type(e).__name__}: {e}")
+            raise
         if stopped and done < len(sched):
             sched = sched.slice(0, done)
             sched_t = np.asarray(sched.t)
             sched_w = sched.class_weight
         interesting_rows = None
-        with _stage(stages, "classify"):
+        with tel.span("classify"):
             if outs:
                 merged = {k: np.concatenate([o[k] for o in outs])
                           for k in _COLUMNS}
@@ -1027,6 +1174,10 @@ class CampaignRunner:
             counts = cls.counts_dict(binc, self._train)
             counts["cache_invalid"] = invalid_total
         seconds = time.perf_counter() - t0
+        profile = None
+        if prof is not None:
+            # device_busy + host_gap + host_other == seconds, exactly.
+            profile = prof.finish(time.perf_counter(), wall_s=seconds)
         res = CampaignResult(
             benchmark=self.prog.region.name, strategy=self.strategy_name,
             n=sched.effective_n,
@@ -1034,13 +1185,17 @@ class CampaignRunner:
             counts=counts, seconds=seconds,
             codes=merged["code"], errors=merged["errors"],
             corrected=merged["corrected"], steps=merged["steps"],
-            schedule=sched, seed=sched.seed, stages=stages,
+            schedule=sched, seed=sched.seed,
+            stages=tel.stage_totals(since=mark),
             resilience=resilience, collect=self.collect,
             interesting_rows=interesting_rows, transfer=transfer,
-            mesh=self._mesh_block())
+            mesh=self._mesh_block(), profile=profile)
         if tracker is not None:
             res.convergence = tracker.report(stopped, planned_n=planned_n,
                                              done_n=sched.effective_n)
+        if metrics is not None:
+            metrics.campaign_finished(res.summary(),
+                                      convergence=res.convergence)
         return res
 
     def _campaign_spec(self, n: int, seed: int = 0, batch_size: int = 4096,
@@ -1101,21 +1256,24 @@ class CampaignRunner:
             return journal, False
         return CampaignJournal.open(str(journal), header), True
 
-    def _seeded_part(self, n: int, seed: int, start_num: int,
-                     stages: Dict[str, float]) -> FaultSchedule:
+    def _seeded_part(self, n: int, seed: int,
+                     start_num: int) -> FaultSchedule:
         """generate, the start_num slice, then the equivalence reduction:
         the one schedule ``run`` and ``run_delta`` share, so the reduced
         rows a delta splices against are the rows a run journals.  The
         reduction comes after the slice: its representatives and weights
         describe exactly the rows this campaign covers."""
-        with _stage(stages, "schedule"):
+        tel = self.telemetry
+        with tel.activate(), tel.span("schedule", n=start_num + n,
+                                      seed=seed):
             sched = generate(self.mmap, start_num + n, seed,
                              self.prog.region.nominal_steps,
                              model=self.fault_model)
-            part = sched.slice(start_num, start_num + n)
-            if self.equiv_partition is not None:
+        part = sched.slice(start_num, start_num + n)
+        if self.equiv_partition is not None:
+            with tel.activate(), tel.span("schedule_equiv"):
                 part = self.equiv_partition.reduce(part)
-            return part
+        return part
 
     def run(self, n: int, seed: int = 0, batch_size: int = 4096,
             start_num: int = 0,
@@ -1132,8 +1290,8 @@ class CampaignRunner:
         the header -- the regenerated schedule's fingerprint included --
         is validated (JournalMismatchError otherwise).  ``progress``,
         ``stream`` and ``stop_when`` as in ``run_schedule``."""
-        stages: Dict[str, float] = {}
-        part = self._seeded_part(n, seed, start_num, stages)
+        mark = self.telemetry.mark()
+        part = self._seeded_part(n, seed, start_num)
         j, owned = None, False
         if journal is not None:
             spec = self._campaign_spec(n, seed=seed, batch_size=batch_size,
@@ -1153,7 +1311,8 @@ class CampaignRunner:
         try:
             res = self.run_schedule(part, batch_size, progress=progress,
                                     journal=j, stream=stream,
-                                    stop_when=stop_when, _stages=stages)
+                                    stop_when=stop_when,
+                                    _telemetry_mark=mark)
         finally:
             if owned:
                 j.close()
@@ -1209,8 +1368,10 @@ class CampaignRunner:
                 "with collect='dense'")
         base_header, base_sites, base_out, base_rows = load_delta_base(
             delta_from)
-        stages: Dict[str, float] = {}
-        part = self._seeded_part(n, seed, start_num, stages)
+        tel = self.telemetry
+        mark = tel.mark()
+        part = self._seeded_part(n, seed, start_num)
+        stages: Dict[str, float] = tel.stage_totals(since=mark)
         current_header = self._journal_header(
             "run", **self._campaign_spec(
                 n, seed=seed, batch_size=batch_size,
@@ -1284,6 +1445,11 @@ class CampaignRunner:
             static_verdicts = vmap.section_verdicts()
             static_info = {"verdicts": dict(sorted(
                 static_verdicts.items()))}
+            tel.instant("delta_static_budget",
+                        sections=len(static_verdicts),
+                        sdc_possible=sum(
+                            1 for v in static_verdicts.values()
+                            if v == "sdc-possible"))
         if len(run_idx) and stop_when is None:
             sub = _rows_subset(part, run_idx)
             take(self.run_schedule(
@@ -1629,6 +1795,65 @@ def _journal_equiv_schedule(journal: CampaignJournal,
     })
 
 
+def _merge_profiles(parts: List[CampaignResult]
+                    ) -> Optional[Dict[str, object]]:
+    """Merged device-time attribution of a multi-chunk campaign: the
+    per-chunk buckets summed (each chunk's identity holds, so the sums'
+    does too), histograms merged bucket-wise, fractions over the summed
+    wall, and the mfu block re-derived from the summed rows and device
+    seconds (its analytic inputs are per-run constants of the one
+    program)."""
+    profs = [p.profile for p in parts if p.profile]
+    if not profs:
+        return None
+    out: Dict[str, object] = {
+        "dispatches": sum(int(p["dispatches"]) for p in profs),
+        "rows": sum(int(p["rows"]) for p in profs),
+    }
+    for key in ("wall_s", "device_busy_s", "host_gap_s", "host_other_s"):
+        out[key] = round(sum(float(p[key]) for p in profs), 6)
+    wall = float(out["wall_s"]) or 1.0
+    out["device_busy_fraction"] = round(
+        float(out["device_busy_s"]) / wall, 6)
+    out["dispatch_gap_fraction"] = round(
+        float(out["host_gap_s"]) / wall, 6)
+    per_phase: Dict[str, float] = {}
+    for p in profs:
+        for name, s in (p.get("per_phase_device_s") or {}).items():
+            per_phase[name] = per_phase.get(name, 0.0) + float(s)
+    out["per_phase_device_s"] = {k: round(v, 6)
+                                 for k, v in per_phase.items()}
+    for key in ("device_seconds_histogram", "host_gap_seconds_histogram"):
+        hists = [p.get(key) for p in profs if p.get(key)]
+        if hists and all(h["le"] == hists[0]["le"] for h in hists):
+            out[key] = {
+                "le": list(hists[0]["le"]),
+                "counts": [sum(h["counts"][i] for h in hists)
+                           for i in range(len(hists[0]["le"]))],
+                "count": sum(int(h["count"]) for h in hists),
+                "sum": round(sum(float(h["sum"]) for h in hists), 6)}
+    out["backend"] = profs[0].get("backend")
+    mfus = [p.get("mfu") for p in profs if p.get("mfu")]
+    if mfus:
+        mfu = dict(mfus[0])            # per-run analytic constants
+        mfu["runs"] = int(out["rows"])
+        mfu["device_busy_s"] = out["device_busy_s"]
+        mfu["dispatch_gap_fraction"] = out["dispatch_gap_fraction"]
+        useful = float(mfu.get("useful_ops_per_run") or 0.0)
+        busy = float(out["device_busy_s"])
+        achieved = useful * mfu["runs"] / busy if busy > 0 else 0.0
+        mfu["achieved_ops_per_s"] = round(achieved, 1)
+        mfu["achieved_ops_per_s_wall"] = round(
+            useful * mfu["runs"] / wall, 1)
+        peak = mfu.get("peak_gflops")
+        if peak:
+            mfu["achieved_mfu"] = round(achieved / (peak * 1e9), 8)
+            mfu["achieved_mfu_wall"] = round(
+                useful * mfu["runs"] / wall / (peak * 1e9), 8)
+        out["mfu"] = mfu
+    return out
+
+
 def _merge_results(parts: List[CampaignResult], seed: int) -> CampaignResult:
     """Concatenate chunk results into one campaign (rows in chunk order)."""
     if not parts:
@@ -1691,4 +1916,5 @@ def _merge_results(parts: List[CampaignResult], seed: int) -> CampaignResult:
         chunks=[{"seed": p.seed, "n": p.n, "start_num": p.start_num}
                 for p in parts],
         stages=stages, resilience=resilience, collect=first.collect,
-        interesting_rows=interesting, transfer=transfer)
+        interesting_rows=interesting, transfer=transfer,
+        profile=_merge_profiles(parts))

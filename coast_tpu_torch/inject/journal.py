@@ -32,9 +32,8 @@ against the current campaign and refuses a mismatch
 (:class:`JournalMismatchError` and its typed subclasses); ``batch_prefix``
 then returns the contiguous completed-batch prefix, so ``run_schedule``
 restarts at the first missing batch and the resumed campaign's ``codes``
-equal the uninterrupted run's.  The journal-open events the reference
-records in its flight recorder wait for the port's recorder (ROADMAP Queue
-A item 18).
+equal the uninterrupted run's.  Each open records a ``journal_open``
+event in the flight recorder (``obs/flightrec.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from coast_tpu_torch.obs import flightrec
 from coast_tpu_torch.inject.spec import (header_fault_model, header_fuse,
                                    header_placement)
 
@@ -225,11 +225,12 @@ class CampaignJournal:
                     tfh.truncate(valid_bytes)
             j = cls(path, found_header, records, fsync=fsync)
             j._fh = fh
-            # The reference records "journal_open" in its flight recorder
-            # here; the port's recorder is ROADMAP Queue A item 18.
+            flightrec.record("journal_open", path=path, resumed=True,
+                             records=len(records))
             return j
         j = cls(path, header, fsync=fsync)
         j.append({"kind": "header", **header})
+        flightrec.record("journal_open", path=path, resumed=False)
         return j
 
     @staticmethod

@@ -34,7 +34,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from coast_tpu_torch import native
+from coast_tpu_torch import native, obs
 from coast_tpu_torch.inject import classify as cls
 from coast_tpu_torch.inject.campaign import CampaignResult, _rows_subset
 from coast_tpu_torch.inject.mem import MemoryMap
@@ -98,10 +98,11 @@ def _serialize_stage(res: CampaignResult):
     """Bill a writer's wall clock to the campaign's 'serialize' stage.  The
     campaign object exists before any log is written, so serialization
     lands in ``res.stages`` after the fact via record_stage; a result with
-    no stage block (rebuilt, not run) gets none.  (The reference also
-    records a span for trace export: ROADMAP Queue A item 18.)"""
+    no stage block (rebuilt, not run) gets none.  The writer also records
+    a ``serialize`` span into the ambient telemetry, for trace export."""
     t0 = time.perf_counter()
-    yield
+    with obs.span("serialize"):
+        yield
     if res.stages:
         res.record_stage("serialize", time.perf_counter() - t0)
 

@@ -189,9 +189,10 @@ def watchdog_collect(fn, timeout: Optional[float]):
     ``timeout`` seconds a :class:`CampaignWedgedError` is raised and the
     wedged thread is abandoned (it holds a copy of one batch's result
     columns, not the engine: a re-dispatch allocates its own tensors, and
-    a daemon thread cannot keep the process alive).  The reference also
-    counts the fire in its span recorder and dumps its flight recorder;
-    both are the port's ROADMAP Queue A item 18."""
+    a daemon thread cannot keep the process alive).  A fire is counted
+    in the ambient span recorder (``watchdog_fired``) and dumps the flight
+    recorder's bundle before the wedged thread is abandoned, so the
+    bundle's stacks still hold the hung collect."""
     if not timeout or timeout <= 0:
         return fn()
     box: dict = {}
@@ -209,6 +210,11 @@ def watchdog_collect(fn, timeout: Optional[float]):
                           name="coast-collect-watchdog")
     th.start()
     if not done.wait(timeout):
+        from coast_tpu_torch.obs import flightrec, spans
+        spans.current().count("watchdog_fired", timeout_s=timeout)
+        flightrec.record("watchdog_fired", timeout_s=timeout)
+        flightrec.current().dump("watchdog_wedge",
+                                 extra={"timeout_s": timeout})
         raise CampaignWedgedError(
             f"collect did not return within {timeout}s; batch presumed "
             "wedged (device-to-host copy hung) -- re-dispatching")

@@ -30,10 +30,13 @@ proven ones.
 with ``-d cpu``), and ``--placement link`` builds the exchange-then-vote
 stencil (``models/stencil.py``).
 
-Flags whose subsystem the port does not have yet are refused with exit code
-2 and the ROADMAP Queue A item that brings them: ``--metrics-port``,
-``--status-json``, ``--heartbeat``, ``--console``, ``--trace-out``,
-``--profile`` (item 18) and ``--slo`` (item 19).  ``--unroll N`` is
+Observability (``coast_tpu_torch/obs``): ``--metrics-port`` serves the
+live metrics hub (``/metrics``, ``/status``), ``--status-json`` mirrors
+its status document to a file, ``--heartbeat`` / ``--console`` print live
+progress, ``--trace-out`` writes the campaign's Perfetto trace and
+``--profile`` adds per-dispatch device-time attribution and the roofline
+block to the summary.  ``--slo`` is refused with exit code 2 and the
+ROADMAP Queue A item that brings it (item 19).  ``--unroll N`` is
 accepted and clamped to at least 1, as the reference does: it changes no
 record.  ``--port-range`` is accepted and ignored, as the reference
 does.
@@ -74,18 +77,6 @@ _KIND_SECTIONS = {
 #: Flags of the reference whose subsystem the port does not have yet:
 #: (flag, test on the parsed args, why).  Each is refused with exit code 2.
 _UNPORTED_FLAGS = (
-    ("--metrics-port", lambda a: a.metrics_port is not None, "ROADMAP "
-     "Queue A item 18 (live metrics)"),
-    ("--status-json", lambda a: a.status_json, "ROADMAP Queue A item 18 "
-     "(live metrics)"),
-    ("--heartbeat", lambda a: a.heartbeat > 0, "ROADMAP Queue A item 18 "
-     "(live metrics)"),
-    ("--console", lambda a: a.console, "ROADMAP Queue A item 18 (live "
-     "metrics)"),
-    ("--trace-out", lambda a: a.trace_out, "ROADMAP Queue A item 18 (the "
-     "span recorder and trace export)"),
-    ("--profile", lambda a: a.profile, "ROADMAP Queue A item 18 (the "
-     "campaign profiler)"),
     ("--slo", lambda a: a.slo, "ROADMAP Queue A item 19 (reliability "
      "SLOs)"),
 )
@@ -223,17 +214,46 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         "class's Wilson CI half-width is at or below its "
                         "threshold")
     parser.add_argument("--metrics-port", type=int, default=None,
-                        help=argparse.SUPPRESS)
+                        metavar="PORT",
+                        help="serve live campaign metrics over HTTP on "
+                        "127.0.0.1:PORT while the campaign runs: "
+                        "/metrics is Prometheus text exposition, "
+                        "/status the full JSON document (rates with "
+                        "Wilson CIs, time-series rings, stage totals). "
+                        "0 picks an ephemeral port (printed)")
     parser.add_argument("--status-json", type=str, default=None,
-                        help=argparse.SUPPRESS)
+                        metavar="PATH",
+                        help="mirror the live JSON status document to "
+                        "PATH, atomically replaced after every "
+                        "collected batch -- the headless-fleet "
+                        "observation surface (a scraper never sees a "
+                        "torn file)")
     parser.add_argument("--heartbeat", type=float, default=0.0,
-                        help=argparse.SUPPRESS)
+                        metavar="SECONDS",
+                        help="rate-limited one-line progress heartbeat "
+                        "on stderr every SECONDS (0 disables); the "
+                        "final state is always flushed, even on a "
+                        "wedged campaign")
     parser.add_argument("--console", action="store_true",
-                        help=argparse.SUPPRESS)
+                        help="live TTY dashboard on stderr (progress "
+                        "bar, per-class rates with Wilson CI bars, "
+                        "stage breakdown) repainted in place; replaces "
+                        "the bare --heartbeat line")
     parser.add_argument("--trace-out", type=str, default=None,
-                        help=argparse.SUPPRESS)
+                        metavar="PATH",
+                        help="write the campaign's Chrome/Perfetto "
+                        "trace_event JSON here at the end (per-batch "
+                        "spans; on a resumed --journal campaign the "
+                        "crashed run's recorded batches are included, "
+                        "marked as replayed)")
     parser.add_argument("--profile", action="store_true",
-                        help=argparse.SUPPRESS)
+                        help="per-dispatch device-time attribution: "
+                        "measure each batch's device-busy duration and "
+                        "host-side gap (ready-event timing), record the summary profile/mfu "
+                        "blocks (roofline accounting), feed the "
+                        "dispatch-latency histograms to --metrics-port, "
+                        "and put device spans on their own --trace-out "
+                        "track.  Outputs are byte-identical either way")
     parser.add_argument("--slo", type=str, default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--max-retries", type=int, default=0,
@@ -498,6 +518,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                       f"the backend exposes ({count})", file=sys.stderr)
                 return 1
         mesh = make_mesh(args.mesh, device=device)
+    # Live observability surfaces: one metrics hub fed by the runner per
+    # collected batch; the HTTP endpoint and the status file read it.  The
+    # multi-chunk paths (-e, --delta-from) run several campaigns, so they
+    # feed the hub through the cross-chunk progress callback instead.
+    metrics = None
+    server = None
+    chunked = bool(args.errorCount or args.delta_from)
+    if args.metrics_port is not None or args.status_json:
+        from coast_tpu_torch.obs.metrics import CampaignMetrics
+        metrics = CampaignMetrics(status_path=args.status_json)
+    if args.metrics_port is not None:
+        from coast_tpu_torch.obs.serve import MetricsServer
+        server = MetricsServer(metrics, port=args.metrics_port)
+        port = server.start()
+        print(f"# metrics: http://127.0.0.1:{port}/metrics  "
+              f"status: http://127.0.0.1:{port}/status",
+              file=sys.stderr, flush=True)
     try:
         runner = CampaignRunner(prog,
                                 sections=section_filter(prog, args.section),
@@ -506,7 +543,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 unroll=args.unroll,
                                 fault_model=args.fault_model_parsed,
                                 equiv=args.equiv,
-                                collect=args.collect)
+                                metrics=None if chunked else metrics,
+                                collect=args.collect,
+                                profile=args.profile)
     except ValueError as e:
         if args.equiv:
             print(f"Error, {e}", file=sys.stderr)
@@ -545,6 +584,47 @@ def main(argv: Optional[List[str]] = None) -> int:
     stream = None
     if args.stream_logs:
         stream = logs.StreamLogWriter(log_path, mmap, fmt=args.log_format)
+
+    # Live progress: the TTY dashboard (--console) or the one-line
+    # heartbeat (--heartbeat); the last beat is re-emitted in the
+    # ``finally`` below, so a campaign's final state always reaches the
+    # terminal.
+    beat = None
+    progress = None
+    last_beat = {}
+    if args.console or args.heartbeat > 0:
+        # -e sizes itself as it goes and --equiv counts representative
+        # rows: neither gets a percent bar.
+        total = 0 if (args.errorCount or args.equiv) else args.t
+        if args.console:
+            from coast_tpu_torch.obs.console import Console
+            beat = Console(total, interval_s=(args.heartbeat or 1.0),
+                           label=f"{prog.region.name}/{strategy}",
+                           metrics=metrics,
+                           stop_when=args.stop_when_parsed)
+        else:
+            from coast_tpu_torch.obs.heartbeat import Heartbeat
+            beat = Heartbeat(total, interval_s=args.heartbeat,
+                             metrics=metrics)
+
+        def progress(done, counts):
+            last_beat["state"] = (done, counts)
+            # The beat's marks land in the runner's recorder.
+            with runner.telemetry.activate():
+                beat.update(done, counts)
+
+    if metrics is not None and chunked:
+        metrics.campaign_started(prog.region.name, strategy, 0, 0)
+        _mrows = {"done": 0}
+        _beat_progress = progress
+
+        def progress(done, counts, _inner=_beat_progress):
+            metrics.record_batch(done, max(0, done - _mrows["done"]),
+                                 counts, {}, {})
+            _mrows["done"] = done
+            if _inner is not None:
+                _inner(done, counts)
+
     try:
         if args.section in CACHE_SECTIONS:
             cache_name = None if args.section == "cache" else args.section
@@ -553,10 +633,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 prog.region.nominal_steps, cache_name)
             res = runner.run_schedule(
                 sched, batch_size=min(args.batch_size, len(sched)),
-                stream=stream, stop_when=args.stop_when_parsed)
+                progress=progress, stream=stream,
+                stop_when=args.stop_when_parsed)
         elif args.errorCount:
             res = runner.run_until_errors(args.errorCount, seed=args.seed,
                                           batch_size=args.batch_size,
+                                          progress=progress,
                                           journal=args.journal)
         elif args.stratified:
             from coast_tpu_torch.inject.schedule import (
@@ -566,7 +648,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                               model=runner.fault_model)
             res = runner.run_schedule(
                 sched, batch_size=min(args.batch_size, len(sched)),
-                stream=stream, stop_when=args.stop_when_parsed)
+                progress=progress, stream=stream,
+                stop_when=args.stop_when_parsed)
         elif args.delta_from:
             from coast_tpu_torch.analysis.equiv import DeltaMismatchError
             try:
@@ -574,6 +657,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                        seed=args.seed,
                                        batch_size=args.batch_size,
                                        start_num=args.start_num,
+                                       progress=progress,
                                        stop_when=args.stop_when_parsed,
                                        static_budget=args.static_budget)
             except DeltaMismatchError as e:
@@ -583,11 +667,35 @@ def main(argv: Optional[List[str]] = None) -> int:
             res = runner.run(args.t, seed=args.seed,
                              batch_size=args.batch_size,
                              start_num=args.start_num, journal=args.journal,
-                             stream=stream, stop_when=args.stop_when_parsed)
-    except BaseException:
+                             stream=stream, progress=progress,
+                             stop_when=args.stop_when_parsed)
+    except BaseException as e:
         if stream is not None:
             stream.abort()       # never leave a half-written final log
+        if metrics is not None and chunked:
+            # The single-campaign paths report a failure from inside
+            # run_schedule; the chunked paths report it here.
+            metrics.campaign_finished(error=f"{type(e).__name__}: {e}")
         raise
+    finally:
+        if beat is not None and "state" in last_beat:
+            with runner.telemetry.activate():
+                beat.final(*last_beat["state"])
+        if server is not None:
+            server.stop()
+
+    if metrics is not None and chunked:
+        metrics.campaign_finished(res.summary())
+
+    if args.trace_out:
+        from coast_tpu_torch import obs as obs_mod
+        obs_mod.write_trace(
+            runner.telemetry, args.trace_out,
+            metadata={"benchmark": prog.region.name, "strategy": strategy,
+                      "section": args.section},
+            process_name=f"supervisor {prog.region.name}/{strategy}")
+        print(f"# trace -> {args.trace_out} (open at ui.perfetto.dev)",
+              file=sys.stderr, flush=True)
 
     print(res.summary())
     if not args.no_logging:

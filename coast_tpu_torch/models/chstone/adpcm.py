@@ -403,7 +403,12 @@ def _half(st, pre: str, s, xl, xh, il, ih):
             "rlt2": s[:, _SIDX["rlt1"]], "ah1": ah1, "ah2": ah2,
             "ph1": ph, "ph2": s[:, _SIDX["ph1"]], "rh1": rh,
             "rh2": s[:, _SIDX["rh1"]]}
-    leaves = {pre + "s": torch.stack([vals[n] for n in _SCALARS], dim=1),
+    # The reference writes the new scalars one partial update after the
+    # other, in this order, into the old vector.
+    new_s = s
+    for name in _SCALARS:
+        new_s = torch.select_scatter(new_s, vals[name], 1, _SIDX[name])
+    leaves = {pre + "s": new_s,
               pre + "bpl": bpl, pre + "dltx": dltx, pre + "bph": bph,
               pre + "dhx": dhx}
     return leaves, il, ih, sl, rh, detl

@@ -313,8 +313,9 @@ def make_region() -> Region:
         acf = (l_acf_e << _dnorm32(l_acf_e[:, 0])[:, None]) >> 16
         z = zero_acf[:, None]
         p_e = torch.where(z, p_arr, acf)
-        k_e = torch.where(z, k_arr, torch.cat(
-            [k_arr[:, :1], acf[:, 1:8], k_arr[:, 8:]], dim=1))
+        # ``k.at[1:8].set(acf[1:8])``: a partial update into k.
+        k_e = torch.where(z, k_arr, torch.slice_scatter(
+            k_arr, acf[:, 1:8], dim=1, start=1, end=8))
         scal_e = _set_col(scal, 2, zero_acf.to(torch.int32))
 
         # Phase F: one Schur stage n = i - STEP_SCHUR0 + 1.

@@ -27,9 +27,10 @@ _SIGN = -2**31
 
 
 def word(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> the int32 tensor with the same low 32 bits."""
-    x = x & MASK32
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+    """int64 -> the int32 tensor with the same low 32 bits.  The wrap is
+    arithmetic, with no select, as the reference's ``astype`` is: the
+    low 32 bits offset by 2^31, then shifted back into int32's range."""
+    return (((x + 2**31) & MASK32) - 2**31).to(torch.int32)
 
 
 def wide(x: torch.Tensor) -> torch.Tensor:

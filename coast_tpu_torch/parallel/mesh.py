@@ -177,6 +177,11 @@ class ShardedCampaignRunner(CampaignRunner):
                 f"was built on {prog.device}; build both on one device type")
         super().__init__(prog, **kw)
         self.mesh = mesh
+        # Geometry on the record: the trace names the mesh it ran on.
+        self.telemetry.instant(
+            "mesh_geometry", devices=int(mesh.devices.size),
+            axes={name: int(n) for name, n
+                  in zip(mesh.axis_names, mesh.devices.shape)})
         self._local = mesh.local_shards()
         self._progs = {_key(prog.device): prog}
         self._shard_ledger: Optional[np.ndarray] = None
@@ -226,7 +231,12 @@ class ShardedCampaignRunner(CampaignRunner):
         """Floor to a multiple of the shard count, one row a shard at
         least."""
         nd = self.n_devices
-        return max(nd, (batch_size // nd) * nd)
+        rounded = max(nd, (batch_size // nd) * nd)
+        if rounded != batch_size:
+            # The rounding forces the edge padding pad_waste_rows counts.
+            self.telemetry.instant("batch_rounded", requested=batch_size,
+                                   rounded=rounded, devices=nd)
+        return rounded
 
     def _blocks(self, cols: Dict[str, object], per: int):
         """``(shard, device, that shard's rows of cols)`` for every local

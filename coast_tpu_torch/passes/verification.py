@@ -88,6 +88,9 @@ _STORE_INDEX = {"index_put": 1, "index_put_": 1, "_index_put_impl_": 1,
                 "scatter_add_": 2, "scatter_reduce": 2, "scatter_reduce_": 2,
                 "index_copy": 2, "index_copy_": 2, "index_add": 2,
                 "index_add_": 2}
+# Partial updates at a static slice or position (``x.at[1:8].set`` of the
+# reference): stores into their operand 0, with no index value.
+_STORE_STATIC = ("slice_scatter", "select_scatter")
 
 
 def _refs(arg) -> List[int]:
@@ -99,10 +102,17 @@ def _refs(arg) -> List[int]:
     return []
 
 
-def _trip_flow(trip):
+def _trip_flow(trip, join_where: bool = False):
     """Leaf provenance through one captured call -> ``(written, deps,
     load, store, stored_into, branch_pred, src)``; ``src`` maps each value
-    id to the leaves it depends on."""
+    id to the leaves it depends on.
+
+    ``join_where`` reads the trip as the reference's trace of the same
+    step: ``jnp.where`` is one cached sub-jaxpr per operand signature, and
+    its walk seeds that sub-jaxpr with the union of its call sites'
+    provenance, in call order.  So a ``where`` node's operands take the
+    provenance of every earlier ``where`` of the same overload, operand
+    shapes and dtypes as well as their own."""
     from coast_tpu_torch.analysis.lint.capture import SHAPE_ONLY
     src: Dict[int, FrozenSet[str]] = {
         vid: frozenset({name}) for name, vid in trip.state_in.items()}
@@ -113,6 +123,8 @@ def _trip_flow(trip):
     # Values made from an ops/indexing index: its tag already gave their
     # role (update_drop's internal read at the store index is not a load).
     tagged: Set[int] = set()
+    # where signature -> the provenance seeded into each operand so far.
+    joined: Dict[tuple, List[Set[str]]] = {}
 
     def deps_of(vids) -> Set[str]:
         out: Set[str] = set()
@@ -126,10 +138,21 @@ def _trip_flow(trip):
             if op in table and len(node.args) > table[op]:
                 role |= deps_of([v for v in _refs(node.args[table[op]])
                                  if v not in tagged])
-        if op in _STORE_INDEX and node.args:
+        seeded = None
+        if join_where and op == "where":
+            refs = [_refs(a) for a in node.args]
+            key = (node.op, tuple(
+                tuple((trip.shapes[v], trip.dtypes.get(v)) for v in r)
+                for r in refs))
+            acc = joined.setdefault(key, [set() for _ in refs])
+            for slot, r in zip(acc, refs):
+                slot |= deps_of(r)
+            seeded = acc
+        if (op in _STORE_INDEX or op in _STORE_STATIC) and node.args:
             stored |= deps_of(_refs(node.args[0]))
         elif op == "where" and node.args:
-            pred |= deps_of(_refs(node.args[0]))
+            pred |= (seeded[0] if seeded is not None
+                     else deps_of(_refs(node.args[0])))
         tag = node.tag
         if tag == "coast:load_addr":
             load |= deps_of(node.ins[:1])
@@ -142,6 +165,8 @@ def _trip_flow(trip):
             out = frozenset()
         elif op in ("copy_", "copy"):
             out = frozenset(deps_of(node.ins[-1:]))
+        elif seeded is not None:
+            out = frozenset().union(*seeded)
         else:
             out = frozenset(deps_of(node.ins))
         for vid in node.outs:
@@ -220,7 +245,8 @@ def analyze_step(step, state, done=None) -> RegionDataflow:
     facts = {k: set() for k in ("load", "store", "stored_into",
                                 "branch_pred")}
     for t in range(STEP_TRIPS):
-        w, d, ld, st, stored, pred, _ = _trip_flow(capture_fn(step, rows, t))
+        w, d, ld, st, stored, pred, _ = _trip_flow(
+            capture_fn(step, rows, t), join_where=True)
         written |= w
         for name, got in d.items():
             deps.setdefault(name, set()).update(got)

@@ -49,14 +49,16 @@ class HarnessError(Exception):
 
 
 #: Drivers of subsystems the port does not have yet -> their ROADMAP item.
-LATER_DRIVERS = {"fused_smoke": "18", "obs_live_smoke": "18",
-                 "profile_smoke": "18", "slo_smoke": "18",
+#: (``profile_smoke`` and ``slo_smoke`` read ``obs/slo`` and the fleet
+#: queue's trace federation, both item 19.)
+LATER_DRIVERS = {"profile_smoke": "19", "slo_smoke": "19",
                  "serve_smoke": "19", "fleet_smoke": "19", "ci_smoke": "19"}
 
 #: The drivers the port has (``coast_tpu_torch/testing/<name>.py``).
 PORTED_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                   "equiv_smoke", "train_smoke", "sparse_smoke",
-                  "stencil_smoke", "propagation_smoke", "fuzz")
+                  "stencil_smoke", "propagation_smoke", "fused_smoke",
+                  "obs_live_smoke", "fuzz")
 
 _FAST_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                  "equiv_smoke", "obs_live_smoke", "train_smoke",
@@ -185,15 +187,19 @@ def run_config(cfg: dict, quiet: bool = False, device: str = "cuda") -> int:
 def run_drivers(cfg: dict, quiet: bool = False, device: str = "cuda") -> int:
     """The pyDriver.py layer (unittest/pyDriver.py:1-88): run each driver
     (``coast_tpu_torch.testing.<module>.main(argv)``, with ``-d device``
-    unless its args name a device); each must print 'Success!'."""
+    unless its args name a device); each must print 'Success!'.  A
+    config naming a driver the port does not have is refused before any
+    driver runs."""
     import importlib
-    ran = 0
     for drv in cfg.get("drivers", ()):
         name = drv["module"]
         if name in LATER_DRIVERS:
             raise HarnessError(
                 f"driver {name} is not ported yet; see ROADMAP Queue A "
                 f"item {LATER_DRIVERS[name]}")
+    ran = 0
+    for drv in cfg.get("drivers", ()):
+        name = drv["module"]
         mod = importlib.import_module(f"coast_tpu_torch.testing.{name}")
         argv = [str(a) for a in drv.get("args", ())]
         if "-d" not in argv and "--device" not in argv:

@@ -22,12 +22,11 @@ torch.set_num_threads(1)
 SEEDS = list(range(12))
 
 # seed -> {leaf: (kind the port's lift_step derives, why)} (ROADMAP Queue
-# C): the reference's walk seeds the one cached ``_where`` sub-jaxpr with
-# every call site's provenance, so seed 7's ``r1`` reaches the scatter's
-# operand through a select that never reads it and derives ``mem``; the
-# port's capture of the same program shows the scatter's operand made
-# from ``r0`` and ``ro`` alone.
-PINNED = {7: {"r1": ("reg", "the reference's shared _where sub-jaxpr")}}
+# C).  Empty: with the reference's join of same-signature selects
+# (``passes/verification._trip_flow(join_where=True)``), seed 7's ``r1``
+# reaches the scatter's operand through a select that never reads it, as
+# in the reference's shared ``_where`` sub-jaxpr, and derives ``mem``.
+PINNED = {}
 
 
 def _ref():

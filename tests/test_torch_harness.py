@@ -130,4 +130,4 @@ def test_main_refuses_fast_yml_naming_the_missing_drivers():
     with contextlib.redirect_stdout(buf):
         rc = harness.main([os.path.join(CFG, "fast.yml"), "--quiet",
                            "-d", "cpu"])
-    assert rc == 1 and "item 18" in buf.getvalue()
+    assert rc == 1 and "item 19" in buf.getvalue()

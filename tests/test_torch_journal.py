@@ -590,7 +590,7 @@ def test_retry_policy_knobs_match_the_reference():
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"metrics": object()}, {"profile": True},
+                                {"metrics": True}, {"profile": True},
                                 {"slo": "sdc_rate<=0.1"}])
 def test_unported_runner_features_name_their_item(kw):
     prog = ct.TMR(mm.make_region(), device="cpu")
@@ -600,6 +600,16 @@ def test_unported_runner_features_name_their_item(kw):
         # but a jax Mesh.
         with pytest.raises(TypeError, match="Mesh"):
             CampaignRunner(prog, **kw)
+    elif "metrics" in kw or "profile" in kw:
+        # Item 18 landed: the live hub and the profiler are runner
+        # options, fed by every collected batch.
+        from coast_tpu_torch.obs import CampaignMetrics
+        hub = CampaignMetrics()
+        runner = CampaignRunner(prog, metrics=hub,
+                                profile=kw.get("profile", False))
+        res = runner.run(32, seed=0, batch_size=16)
+        assert hub.snapshot()["done_rows"] == 32
+        assert (res.profile is not None) == ("profile" in kw)
     else:
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue A item"):

@@ -11,11 +11,11 @@ keeps its ``slow`` mark).  The matrix is split over two files, so
 the second half and the four models also held against the reference's
 own ``lift_step`` of the JAX twin.
 
-Three models derive some leaves differently from the reference's jaxpr
-walk (``PINNED``: the kind the port derives, with the reason; ROADMAP
-Queue C): the port's capture sees the aten operations the port's step
-runs, and these steps build the leaves without the partial-update or
-select structure the reference's steps have.
+A model whose leaves derived differently from the reference's jaxpr walk
+would stand in ``PINNED`` with the kind the port derives and the reason
+(ROADMAP Queue C); none does: the port's steps write their leaves with
+the partial updates (``slice_scatter``, ``select_scatter``) and the
+select-free word wrap the reference's steps have.
 """
 
 import numpy as np
@@ -66,22 +66,10 @@ _SLOW_CAMPAIGN = {"chstone_jpeg", "chstone_gsm", "chstone_adpcm",
                   "chstone_mips", "whetstone", "matrixMultiply256",
                   "chstone_dfsin", "chstone_sha"}
 
-# model -> {leaf: (kind the port derives, why)}.
-_CAT = ("the port's step builds it with one torch.cat/stack, where the "
-        "reference's chain of .at[].set partial updates carries it into a "
-        "store target's provenance")
-PINNED = {
-    "chstone_adpcm": {leaf: ("ctrl", _CAT) for leaf in (
-        "tqmf", "enc_bpl", "enc_dltx", "enc_bph", "enc_dhx")},
-    "chstone_gsm": {"k": ("ctrl", "the port's step selects the new row with "
-                          "torch.where, where the reference writes it with "
-                          "k.at[1:8].set (a store target)")},
-    "rtos_app": {leaf: ("ctrl", "ops/u32.word's int64->int32 wrap is a "
-                        "torch.where on the value's sign, so the task "
-                        "accumulators reach a where condition; the "
-                        "reference's astype wraps without a select")
-                 for leaf in ("acc_mm", "acc_crc")},
-}
+# model -> {leaf: (kind the port derives, why)}: leaves the port's
+# capture derives differently from the reference's jaxpr walk (ROADMAP
+# Queue C).  Empty: every model derives the reference's kinds.
+PINNED = {}
 
 
 def relift(hand, annotated, device="cpu"):

@@ -254,3 +254,19 @@ def test_unported_features_refuse_with_roadmap_item():
     with pytest.raises(ValueError, match="flip GROUP"):
         generate(MemoryMap(prog), 4, 0, 18, model=FaultModel.multibit(2),
                  equiv=part)
+    # Item 18 landed: telemetry, the metrics hub and the profiler are
+    # runner options; only the reliability SLOs (item 19) still refuse.
+    from coast_tpu_torch import obs
+    from coast_tpu_torch.inject.campaign import CampaignRunner
+    hub = obs.CampaignMetrics()
+    runner = CampaignRunner(prog, telemetry=obs.Telemetry(), metrics=hub,
+                            profile=True)
+    res = runner.run(8, seed=0, batch_size=8)
+    assert hub.done_rows == 8 and res.summary()["profile"]["rows"] == 8
+    for key in ("slo", "slo_baseline"):
+        with pytest.raises(NotImplementedError, match="item 19"):
+            CampaignRunner(prog, **{key: "sdc<0.1"})
+    with pytest.raises(NotImplementedError, match="item 19"):
+        obs.CampaignMetrics(slo="sdc<0.1")
+    with pytest.raises(NotImplementedError, match="item 19"):
+        obs.SLOSet

@@ -261,12 +261,6 @@ def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
 
 UNPORTED = [
     (["--static-budget"], "needs --delta-from AND --stop-when"),
-    (["--metrics-port", "0"], "item 18"),
-    (["--status-json", "status.json"], "item 18"),
-    (["--heartbeat", "1"], "item 18"),
-    (["--console"], "item 18"),
-    (["--trace-out", "trace.json"], "item 18"),
-    (["--profile"], "item 18"),
     (["--slo", "sdc<0.1"], "item 19"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
     (["-f", "prog.c"], "item 17"),
