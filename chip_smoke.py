@@ -242,6 +242,25 @@ Phases, in order; any failure exits non-zero:
      (c) ``fused_smoke`` and ``obs_live_smoke`` on the card; (d) the cost
      of default telemetry on matrixMultiply TMR at 4096 rows a batch
      against ``obs.NULL`` (both rates printed, no claim);
+ 31. reliability SLOs and the verb dispatcher: (a) the flagship,
+     matrixMultiply1024 TMR (512 rows at 128, profiled) with an attached
+     SLO set, its verdicts in ``CampaignResult.slo``,
+     ``summary()["slo"]``, the hub's ``/status`` and ``/metrics`` and the
+     heartbeat and console line, ``p99_dispatch`` printed and not
+     compared (the port's dispatch histogram is its busy window); (b)
+     ``python -m coast_tpu_torch slo check`` on the recorded summary, exit
+     0 on an attained spec and 1 on a seeded burn; (c) the supervisor's
+     ``--slo`` as one process (fused, so K2 runs too), started at the
+     phase's start; (d) ``slo_smoke -d cuda``;
+ 32. the campaign fleet and trace federation: (a) two matrixMultiply TMR
+     items (16,384 rows at 4096, seeds 0 and 1) drained by ``python -m
+     coast_tpu_torch.fleet run --workers 2`` on cuda:0, one worker
+     SIGKILL'd mid-item and its replacement resuming the journal, the
+     merged per-item ``codes_sha256`` and counts equal to the same two
+     campaigns run in this process, at least one compile-cache hit, the
+     fleet ``/metrics`` serving rates while the workers run, and the
+     federated trace; (b) ``profile_smoke -d cuda`` and ``fleet_smoke -d
+     cuda`` (a process of its own beside the fleet);
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -251,12 +270,12 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-30, K2 those of phases 7b, 9-12, 14-17, 19-23 and
-25-30 (each
+9-12, 14-17 and 19-32, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+25-31 (each
 phase's counts set to 0 just before it and read just after; a supervisor
-process reports its own at exit).  It imports nothing of JAX or of the
-coast_tpu package.  ``launches_phase_28``, ``launches_phase_29`` and
-``launches_phase_30`` are those phases' shares.
+process and a fleet worker report their own at exit).  It imports nothing
+of JAX or of the coast_tpu package.  ``launches_phase_28`` to
+``launches_phase_32`` are those phases' shares.
 """
 
 from __future__ import annotations
@@ -3754,11 +3773,11 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
     full = {"benchmarks": [e for e in harness.FULL["benchmarks"]
                            if e["path"] in ("matrixMultiply", "crc16")],
             "OPT_PASSES": harness.FULL["OPT_PASSES"]}
-    # The drivers of the slices up to 29 (phase 30c runs fused_smoke and
-    # obs_live_smoke).
+    # The drivers of the slices up to 29 (phases 30c, 31d and 32b run the
+    # later ones).
     drivers = {"drivers": [d for d in harness.FAST["drivers"]
                            if d["module"] in harness.PORTED_DRIVERS
-                           and d["module"] not in OBS_DRIVERS]}
+                           and d["module"] not in LATER_PHASE_DRIVERS]}
     if len(drivers["drivers"]) != 8:
         fail(f"phase 29e: {len(drivers['drivers'])} ported drivers")
     buf = io.StringIO()
@@ -3785,8 +3804,10 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
     return tuple(launches)
 
 
-# The smoke drivers phase 30c runs (phase 29e runs the others).
-OBS_DRIVERS = ("fused_smoke", "obs_live_smoke")
+# The smoke drivers phases 30c, 31d and 32b run (phase 29e runs the
+# others).
+LATER_PHASE_DRIVERS = ("fused_smoke", "obs_live_smoke", "slo_smoke",
+                       "fleet_smoke", "profile_smoke")
 
 
 def http_get(url: str) -> str:
@@ -3958,6 +3979,287 @@ def observability_phase(work: Path, card: str, torch, TMR, REGISTRY,
     if launches[0] <= 0 or launches[1] <= 0:
         fail(f"phase 30 launched K1 {launches[0]} and K2 {launches[1]} "
              "times")
+    return tuple(launches)
+
+
+# The SLO set of phase 31: the two rate objectives must read ok on the
+# flagship; the dispatch latency is printed and not compared (the port's
+# dispatch histogram is its busy window, an upper bound of the device time).
+SLO31 = "sdc_rate<=0.5,availability>=0.5,p99_dispatch<=30;min=64"
+
+
+# A fleet worker's exit line: its own K1 and K2 launches.
+WORKER_LAUNCHES = re.compile(r"kernel launches K1 (\d+), K2 (\d+)")
+
+
+def worker_launches(text: str) -> tuple:
+    """The summed (K1, K2) launches the fleet workers in ``text`` report
+    at exit (a worker killed with SIGKILL reports nothing)."""
+    got = [tuple(map(int, m)) for m in WORKER_LAUNCHES.findall(text)]
+    return sum(k for k, _ in got), sum(k for _, k in got), len(got)
+
+
+def slo_phase(work: Path, card: str, TMR, REGISTRY, CampaignRunner,
+              hv, hc) -> tuple:
+    """Phase 31: reliability SLOs and the verb dispatcher on the card (see
+    the module docstring).  Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+    from coast_tpu_torch import obs
+    from coast_tpu_torch.obs.slo import status_line
+    from coast_tpu_torch.testing import slo_smoke
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+
+    def count() -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    # (c) The supervisor's --slo as one process, fused, started first: it
+    # runs while the in-process checks below use the card.
+    sup_status = work / "phase31_supervisor_status.json"
+    sup = start_cli(["-f", "matrixMultiply", "--opt-passes=-TMR -fuseStep",
+                     "-t", "8192", "--batch-size", "2048", "-q", "--slo",
+                     "sdc_rate<=0.5;min=64", "--status-json",
+                     str(sup_status)], "gpu")
+
+    # (a) The flagship with an attached SLO set: the verdicts on every
+    # surface.
+    prog = TMR(REGISTRY["matrixMultiply1024"]())
+    n, batch = 512, 128
+    runner = CampaignRunner(prog, strategy_name="TMR", slo=SLO31,
+                            profile=True)
+    server = obs.MetricsServer(runner.metrics, port=0)
+    port = server.start()
+    try:
+        res = runner.run(n, seed=31, batch_size=batch)
+        doc = json.loads(http_get(f"http://127.0.0.1:{port}/status"))
+        prom = http_get(f"http://127.0.0.1:{port}/metrics")
+    finally:
+        server.stop()
+    block = res.summary().get("slo") or {}
+    rows = block.get("objectives") or {}
+    if (res.slo is None or block != res.slo
+            or any(rows.get(k, {}).get("verdict") != "ok"
+                   for k in ("sdc_rate", "availability"))):
+        fail(f"phase 31a: the flagship's SLO block is {block}")
+    report = runner.metrics.slo_status()
+    hub = doc.get("slo") or {}
+    if (hub.get("verdict") != block["verdict"]
+            or any(hub["objectives"][k]["observed"]
+                   != rows[k]["observed"] for k in ("sdc_rate",
+                                                    "availability"))
+            or "coast_campaign_slo_verdict" not in prom):
+        fail(f"phase 31a: /status carries {hub}, the result {block}")
+    beats, panels = [], []
+    obs.Heartbeat(n, interval_s=0.0, metrics=runner.metrics,
+                  emit=beats.append).update(n, res.counts)
+    obs.Console(n, interval_s=0.0, metrics=runner.metrics,
+                emit=panels.append).final(n, res.counts)
+    line = status_line(report)
+    if not beats or not beats[-1].endswith(line) or \
+            f"  {line}" not in panels[-1].splitlines():
+        fail(f"phase 31a: heartbeat {beats[-1:]} / console do not carry "
+             f"{line!r}")
+    p99 = rows.get("p99_dispatch", {})
+    k1, k2 = count()
+    log(f"phase 31a: matrixMultiply1024 TMR {n} at {batch} with "
+        f"slo={SLO31!r}: {res.counts}; verdict {block['verdict']} in "
+        f"CampaignResult.slo, summary()['slo'], /status and /metrics; "
+        f"heartbeat and console line {line!r}; sdc_rate observed "
+        f"{rows['sdc_rate']['observed']} (burn {rows['sdc_rate']['burn_rate']}"
+        f"), availability {rows['availability']['observed']}; p99_dispatch "
+        f"{p99.get('observed')} s (the busy window's bucket bound, printed, "
+        f"not compared); K1 {k1} [{card}]")
+
+    # (b) ``python -m coast_tpu_torch slo check`` on the recorded summary:
+    # exit 0 on an attained spec, 1 on a seeded burn (half the successes
+    # recorded as SDCs).
+    art = work / "phase31_run.json"
+    art.write_text(json.dumps({"summary": res.summary(), "runs": []}))
+    burnt = dict(res.summary())
+    moved = int(burnt["success"]) // 2
+    burnt["success"] -= moved
+    burnt["sdc"] += moved
+    burn_art = work / "phase31_burn.json"
+    burn_art.write_text(json.dumps({"summary": burnt, "runs": []}))
+    checks = [start_module("coast_tpu_torch", [
+        "slo", "check", "--spec", spec, "--input", str(path)])
+        for spec, path in ((SLO31, art), ("sdc_rate<=0.05;min=8", burn_art))]
+    rcs = [finish_cli(p, "phase 31b: slo check", expect_ok=False)["rc"]
+           for p in checks]
+    if rcs != [0, 1]:
+        fail(f"phase 31b: slo check exited {rcs}, want [0, 1]")
+    log(f"phase 31b: python -m coast_tpu_torch slo check: attained spec "
+        f"exit 0, seeded burn ({moved} successes recorded as SDC) exit 1")
+
+    # (d) The driver.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = slo_smoke.main(["-d", "cuda"])
+    if rc != 0 or buf.getvalue().splitlines()[-1:] != ["Success!"]:
+        fail(f"phase 31d: slo_smoke -d cuda failed:\n{buf.getvalue()}")
+    k1, k2 = count()
+    log(f"phase 31d: slo_smoke -d cuda: Success! in "
+        f"{time.perf_counter() - t0:.1f} s, K1 {k1} [{card}]")
+
+    run = finish_cli(sup, "phase 31c: --slo")
+    launches[0] += run["k1"]
+    launches[1] += run["k2"]
+    slo = (run["summary"] or {}).get("slo") or {}
+    status = json.loads(sup_status.read_text())
+    if slo.get("verdict") != "ok" or status.get("slo", {}).get(
+            "verdict") != "ok":
+        fail(f"phase 31c: the supervisor's --slo block is {slo}, its "
+             f"status file's {status.get('slo')}")
+    log(f"phase 31c: supervisor matrixMultiply -TMR -fuseStep 8192 at 2048 "
+        f"--slo: verdict {slo['verdict']} in the summary and the status "
+        f"file; K1 {run['k1']}, K2 {run['k2']} [{card}]")
+    log(f"phase 31: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0 or launches[1] <= 0:
+        fail(f"phase 31 launched K1 {launches[0]} and K2 {launches[1]} "
+             "times")
+    return tuple(launches)
+
+
+def fleet_phase(work: Path, card: str, CampaignRunner, hv, hc) -> tuple:
+    """Phase 32: the campaign fleet and trace federation on the card (see
+    the module docstring).  Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+    from coast_tpu_torch.fleet import (CampaignQueue, CompileCache,
+                                       codes_sha256, item_spec)
+    from coast_tpu_torch.testing import profile_smoke
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+
+    def count() -> tuple:
+        got = (hv.LAUNCHES, hc.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        hv.LAUNCHES = hc.LAUNCHES = 0
+        return got
+
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    # The driver runs as its own process beside the fleet below: both put
+    # their workers on cuda:0.
+    smoke = start_module("coast_tpu_torch.testing.fleet_smoke",
+                         ["-d", "cuda"])
+    # (a) Two items, drained by `fleet run --workers 2` on the card.  Each
+    # batch is throttled by 0.5 s so that a kill lands mid-item.
+    q = CampaignQueue(str(work / "phase32_queue"))
+    specs = [item_spec("matrixMultiply", 16384, seed=s, batch_size=4096,
+                       throttle_s=0.5) for s in (0, 1)]
+    ids = [q.enqueue(spec) for spec in specs]
+    mport = free_port()
+    trace = work / "phase32_trace.json"
+    fleet = start_module("coast_tpu_torch.fleet", [
+        "run", "--queue", q.root, "--workers", "2", "--lease", "60",
+        "--poll", "0.2", "-d", "cuda", "--metrics-port", str(mport),
+        "--trace-out", str(trace)])
+    victim = victim_item = None
+    live_rates = False
+    size_at_kill = 0
+    deadline = time.time() + 240
+    while time.time() < deadline and fleet.poll() is None:
+        if not live_rates:
+            try:
+                prom = http_get(f"http://127.0.0.1:{mport}/metrics")
+                live_rates = ("coast_fleet_class_rate" in prom
+                              and not q.drained())
+            except OSError:
+                pass
+        if victim is None:
+            for rec in q.items("claimed"):
+                jpath = q.journal_path(str(rec["id"]))
+                if not os.path.exists(jpath):
+                    continue
+                if 1 <= count_batches(jpath) <= 2:
+                    st = json.loads(Path(q.worker_status_path(
+                        str(rec["worker"]))).read_text())
+                    if st.get("item") != rec["id"]:
+                        continue
+                    victim, victim_item = st, str(rec["id"])
+                    size_at_kill = os.path.getsize(jpath)
+                    os.kill(int(st["pid"]), signal.SIGKILL)
+                    break
+        if victim is not None and live_rates:
+            break
+        time.sleep(0.05)
+    if victim is None:
+        fail("phase 32a: no worker journaled a batch to be killed in")
+    run = finish_cli(fleet, "phase 32a: fleet run")
+    if "parity ok" not in run["out"]:
+        fail(f"phase 32a: fleet run printed no parity:\n{run['out']}")
+    k1w, k2w, reports = worker_launches(run["err"])
+    launches[0] += k1w
+    launches[1] += k2w
+    result = json.loads((Path(q.root) / "fleet_result.json").read_text())
+    by_id = {item["id"]: item for item in result["items"]}
+    if not live_rates:
+        fail("phase 32a: /metrics never served fleet rates while the "
+             "workers ran")
+    if (by_id[victim_item]["attempts"] != 2
+            or os.path.getsize(q.journal_path(victim_item)) <= size_at_kill):
+        fail(f"phase 32a: the killed item {victim_item} was not resumed "
+             f"by a replacement: {by_id[victim_item]}")
+    if result["cache"]["hits"] < 1:
+        fail(f"phase 32a: no compile-cache hit: {result['cache']}")
+    # The same two campaigns in one process on the card.
+    cache = CompileCache(str(work / "phase32_cache"), device="cuda")
+    for item_id, spec in zip(ids, specs):
+        runner, _, _, _ = cache.runner(spec)
+        ref = runner.run(spec["n"], seed=spec["seed"],
+                         batch_size=spec["batch_size"])
+        got = by_id[item_id]
+        if (got["codes_sha256"] != codes_sha256(ref.codes)
+                or got["counts"] != {k: int(v)
+                                     for k, v in ref.counts.items()}):
+            fail(f"phase 32a: item {item_id} {got['counts']} differs from "
+                 f"the in-process run {ref.counts}")
+    names = {e["name"].split(" ")[0]
+             for e in json.loads(trace.read_text())["traceEvents"]}
+    if not {"enqueue", "claim", "complete", "dispatch"} <= names:
+        fail(f"phase 32a: the federated trace holds {sorted(names)}")
+    k1, k2 = count()
+    log(f"phase 32a: fleet run --workers 2 on cuda:0, 2 x matrixMultiply "
+        f"TMR 16384 at 4096 (seeds 0, 1): worker {victim['worker']} "
+        f"SIGKILL'd in item {victim_item} and the journal resumed by its "
+        f"replacement; per-item codes_sha256 and counts = the in-process "
+        f"run ({result['totals']}); cache {result['cache']}; /metrics "
+        f"served fleet rates live; federated trace written; workers "
+        f"reported K1 {k1w}, K2 {k2w} ({reports} exits), in-process K1 "
+        f"{k1} [{card}]")
+
+    # (b) The drivers.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_smoke.main(["-d", "cuda"])
+    if rc != 0 or buf.getvalue().splitlines()[-1:] != ["Success!"]:
+        fail(f"phase 32b: profile_smoke -d cuda failed:\n{buf.getvalue()}")
+    k1, k2 = count()
+    log(f"phase 32b: profile_smoke -d cuda: Success! in "
+        f"{time.perf_counter() - t0:.1f} s, K1 {k1} [{card}]")
+    run = finish_cli(smoke, "phase 32b: fleet_smoke -d cuda")
+    out = run["out"].splitlines()
+    if out[-1:] != ["Success!"]:
+        fail(f"phase 32b: fleet_smoke -d cuda:\n{run['out']}")
+    k1s, k2s, _ = worker_launches(run["err"])
+    launches[0] += k1s + run["k1"]
+    launches[1] += k2s + run["k2"]
+    log(f"phase 32b: fleet_smoke -d cuda: Success! ({out[-2]}); its "
+        f"workers K1 {k1s}, its own process K1 {run['k1']} [{card}]")
+    log(f"phase 32: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0:
+        fail(f"phase 32 launched K1 {launches[0]} times")
     return tuple(launches)
 
 
@@ -4202,6 +4504,14 @@ def main() -> None:
                                   CampaignRunner, hv, hc)
     new_launches.append(phase30)
     lap("phase 30")
+    # 31. Reliability SLOs and the verb dispatcher.
+    phase31 = slo_phase(work, card, TMR, REGISTRY, CampaignRunner, hv, hc)
+    new_launches.append(phase31)
+    lap("phase 31")
+    # 32. The campaign fleet and trace federation.
+    phase32 = fleet_phase(work, card, CampaignRunner, hv, hc)
+    new_launches.append(phase32)
+    lap("phase 32")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -4224,6 +4534,8 @@ def main() -> None:
         "launches_phase_28": phase28[0],
         "launches_phase_29": phase29[0],
         "launches_phase_30": phase30[0],
+        "launches_phase_31": phase31[0],
+        "launches_phase_32": phase32[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -4240,6 +4552,8 @@ def main() -> None:
         "launches_phase_28": phase28[1],
         "launches_phase_29": phase29[1],
         "launches_phase_30": phase30[1],
+        "launches_phase_31": phase31[1],
+        "launches_phase_32": phase32[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -88,6 +88,10 @@ class Node:
     out_shapes: List[Tuple[int, ...]]
     mutates: bool = False       # an in-place op (its first out is the
     #                             target's new version)
+    # Arithmetic ops per output element set by a ``voters.priced`` helper
+    # (its result's node carries the helper's price, every other node it
+    # dispatched 0); None: the roofline prices the operator itself.
+    price: Optional[float] = None
 
     @property
     def tag(self) -> Optional[str]:
@@ -240,6 +244,21 @@ class _Recorder(TorchDispatchMode):
                 (self._seq, new_written[id(w)]))
         return out
 
+    # -- voters.priced scopes -------------------------------------------------
+    def price_begin(self) -> int:
+        return len(self.nodes)
+
+    def price_end(self, mark: int, per_element: float, out) -> None:
+        """Price the nodes a helper dispatched since ``mark``: the node
+        that made its result at ``per_element``, the others at 0 (an
+        enclosing scope overrides an inner one)."""
+        entry = (self._ids.get(id(out)) if isinstance(out, torch.Tensor)
+                 else None)
+        for node in self.nodes[mark:]:
+            node.price = (float(per_element)
+                          if entry is not None and entry.vid in node.outs
+                          else 0.0)
+
 
 @contextlib.contextmanager
 def recording():
@@ -247,11 +266,13 @@ def recording():
     _register()
     rec = _Recorder()
     voters.CAPTURE = True
+    voters.PRICE_HOOK = rec
     try:
         with rec:
             yield rec
     finally:
         voters.CAPTURE = False
+        voters.PRICE_HOOK = None
 
 
 @contextlib.contextmanager

@@ -84,14 +84,6 @@ _RECORD_KEYS = (("code", "codes"), ("errors", "errors"),
 # (``breakdown.py`` reads their device time from a campaign's profile).
 SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 
-# Runner features of the reference that a later slice ports, with the
-# ROADMAP Queue A item that brings each.
-_LATER_RUNNER = {
-    "slo": "item 19 (reliability SLOs)",
-    "slo_baseline": "item 19 (reliability SLOs)",
-}
-
-
 @dataclasses.dataclass
 class CampaignResult:
     """Aggregate + per-run results of one campaign (host-side)."""
@@ -124,6 +116,10 @@ class CampaignResult:
     # Wilson intervals at the end and whether ``stop_when`` stopped the
     # campaign early; None unless it ran with ``stop_when``.
     convergence: Optional[Dict[str, object]] = None
+    # Reliability-SLO verdicts (obs/slo.summary_block) when the runner
+    # (or its metrics hub) carried an SLO set: per-objective attainment,
+    # error-budget remaining, burn rate, worst verdict.  None otherwise.
+    slo: Optional[Dict[str, object]] = None
     # "dense": the columns above cover all n rows; "sparse": only the
     # interesting rows, whose schedule-local indices (int64) are
     # ``interesting_rows``.
@@ -215,6 +211,8 @@ class CampaignResult:
                 out["mfu"] = mfu
         if self.convergence is not None:
             out["convergence"] = dict(self.convergence)
+        if self.slo is not None:
+            out["slo"] = dict(self.slo)
         if self.mesh is not None:
             out["mesh"] = dict(self.mesh)
         if self.chunks is not None:
@@ -392,7 +390,9 @@ class CampaignRunner:
                  equiv: "bool | object" = False,
                  telemetry: "Optional[obs.Telemetry]" = None,
                  metrics: "Optional[object]" = None,
-                 profile: "bool | object" = False, **later):
+                 profile: "bool | object" = False,
+                 slo: "Optional[object]" = None,
+                 slo_baseline: "Optional[Dict[str, float]]" = None):
         """``fault_model`` is what ``run`` draws (default single sites).
         ``collect`` is ``"dense"`` or ``"sparse"`` (see the module
         docstring); ``sparse_capacity`` bounds the interesting rows a
@@ -449,22 +449,21 @@ class CampaignRunner:
         and the roofline block in ``summary()["profile"]`` /
         ``["mfu"]``.  Records and counts are the same with it on or off.
 
-        The reference's ``slo`` and ``slo_baseline`` raise
-        ``NotImplementedError`` naming their ROADMAP item."""
+        ``slo`` attaches a reliability SLO set (:mod:`coast_tpu_torch
+        .obs.slo`): a spec string (``"sdc_rate<=0.002;min=4096"``) or an
+        :class:`~coast_tpu_torch.obs.slo.SLOSet`.  The runner's metrics
+        hub (created on demand when ``metrics`` is None) re-evaluates the
+        error budgets every collected batch, and every finished campaign
+        lands the verdicts in ``CampaignResult.slo`` /
+        ``summary()["slo"]``.  ``slo_baseline`` feeds the ``mwtf``
+        objective (``{"sdc_rate", "inj_per_sec"}`` from an unprotected
+        run's recorded evidence)."""
         if mesh is not None:
             raise TypeError(
                 "mesh= reached the base CampaignRunner constructor; pass "
                 "it as a keyword to CampaignRunner(prog, mesh=...) or use "
                 "coast_tpu_torch.parallel.mesh.ShardedCampaignRunner "
                 "directly")
-        for key, value in later.items():
-            if key not in _LATER_RUNNER:
-                raise TypeError(
-                    f"CampaignRunner got an unexpected keyword {key!r}")
-            if value:
-                raise NotImplementedError(
-                    f"CampaignRunner({key}=...) is not ported yet; see "
-                    f"ROADMAP Queue A {_LATER_RUNNER[key]}")
         if (device is not None
                 and torch.device(device).type != prog.device.type):
             raise ValueError(
@@ -482,6 +481,17 @@ class CampaignRunner:
                 propagation=preflight in (True, "full", "propagation"))
         self.unroll = max(1, int(unroll))
         self.prog = prog
+        if slo is not None:
+            from coast_tpu_torch.obs.metrics import CampaignMetrics
+            from coast_tpu_torch.obs.slo import SLOSet
+            slo_set = SLOSet.parse(slo) if isinstance(slo, str) else slo
+            if metrics is None:
+                metrics = CampaignMetrics(slo=slo_set,
+                                          slo_baseline=slo_baseline)
+            elif getattr(metrics, "slo_set", None) is None:
+                metrics.slo_set = slo_set
+                metrics.slo_baseline = (dict(slo_baseline)
+                                        if slo_baseline else None)
         self.metrics = metrics
         self.telemetry = (telemetry if telemetry is not None
                           else obs.Telemetry())
@@ -1193,6 +1203,12 @@ class CampaignRunner:
         if tracker is not None:
             res.convergence = tracker.report(stopped, planned_n=planned_n,
                                              done_n=sched.effective_n)
+        if metrics is not None and \
+                getattr(metrics, "slo_set", None) is not None:
+            report = metrics.slo_status()
+            if report is not None:
+                from coast_tpu_torch.obs.slo import summary_block
+                res.slo = summary_block(report)
         if metrics is not None:
             metrics.campaign_finished(res.summary(),
                                       convergence=res.convergence)

@@ -35,8 +35,9 @@ live metrics hub (``/metrics``, ``/status``), ``--status-json`` mirrors
 its status document to a file, ``--heartbeat`` / ``--console`` print live
 progress, ``--trace-out`` writes the campaign's Perfetto trace and
 ``--profile`` adds per-dispatch device-time attribution and the roofline
-block to the summary.  ``--slo`` is refused with exit code 2 and the
-ROADMAP Queue A item that brings it (item 19).  ``--unroll N`` is
+block to the summary, and ``--slo SPEC`` evaluates a reliability SLO set
+live (``obs/slo``: the verdicts ride ``/status``, ``/metrics``, the
+heartbeat and console line, and ``summary()["slo"]``).  ``--unroll N`` is
 accepted and clamped to at least 1, as the reference does: it changes no
 record.  ``--port-range`` is accepted and ignored, as the reference
 does.
@@ -73,14 +74,6 @@ _KIND_SECTIONS = {
     "params": ("param",),
     "opt_state": ("opt_state",),
 }
-
-#: Flags of the reference whose subsystem the port does not have yet:
-#: (flag, test on the parsed args, why).  Each is refused with exit code 2.
-_UNPORTED_FLAGS = (
-    ("--slo", lambda a: a.slo, "ROADMAP Queue A item 19 (reliability "
-     "SLOs)"),
-)
-
 
 def parse_command_line(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(
@@ -254,8 +247,13 @@ def parse_command_line(argv: Optional[List[str]] = None):
                         "dispatch-latency histograms to --metrics-port, "
                         "and put device spans on their own --trace-out "
                         "track.  Outputs are byte-identical either way")
-    parser.add_argument("--slo", type=str, default=None,
-                        help=argparse.SUPPRESS)
+    parser.add_argument("--slo", type=str, default=None, metavar="SPEC",
+                        help="declarative reliability SLO set evaluated "
+                        "live over the campaign's own evidence, e.g. "
+                        "'sdc_rate<=0.002,availability>=0.99;min=4096': "
+                        "Wilson-backed attainment, error budgets, and "
+                        "burn verdicts ride /status, /metrics, the "
+                        "heartbeat/console line, and summary()['slo']")
     parser.add_argument("--max-retries", type=int, default=0,
                         help="retry transient dispatch failures up to N "
                         "times per batch (exponential backoff + jitter); "
@@ -288,11 +286,6 @@ def parse_command_line(argv: Optional[List[str]] = None):
         i += 1
     args = parser.parse_args(joined)
 
-    for flag, given, why in _UNPORTED_FLAGS:
-        if given(args):
-            print(f"Error, {flag} is not supported by the port yet: {why}",
-                  file=sys.stderr)
-            sys.exit(2)
     if args.board == "tpu":
         print("Error, --board tpu is the JAX package's board (python -m "
               "coast_tpu.inject.supervisor); this port runs on gpu or cpu",
@@ -525,9 +518,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     metrics = None
     server = None
     chunked = bool(args.errorCount or args.delta_from)
+    slo_set = None
+    if args.slo:
+        from coast_tpu_torch.obs.slo import SLOError, SLOSet
+        try:
+            slo_set = SLOSet.parse(args.slo)
+        except SLOError as e:
+            print(f"Error, bad --slo spec: {e}", file=sys.stderr)
+            return 1
     if args.metrics_port is not None or args.status_json:
         from coast_tpu_torch.obs.metrics import CampaignMetrics
-        metrics = CampaignMetrics(status_path=args.status_json)
+        metrics = CampaignMetrics(status_path=args.status_json,
+                                  slo=slo_set)
     if args.metrics_port is not None:
         from coast_tpu_torch.obs.serve import MetricsServer
         server = MetricsServer(metrics, port=args.metrics_port)
@@ -545,7 +547,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 equiv=args.equiv,
                                 metrics=None if chunked else metrics,
                                 collect=args.collect,
-                                profile=args.profile)
+                                profile=args.profile,
+                                slo=slo_set)
     except ValueError as e:
         if args.equiv:
             print(f"Error, {e}", file=sys.stderr)

@@ -226,7 +226,8 @@ def make_region() -> Region:
             "hi": torch.where(running, new_hi, state["hi"]),
             "lo": torch.where(running, new_lo, state["lo"]),
             "pc": torch.where(running, new_pc, pc),
-            "n_inst": state["n_inst"] + running.to(torch.int32),
+            "n_inst": state["n_inst"] + torch.where(running, 1, 0).to(
+                torch.int32),
         }
 
     def done(state):

@@ -26,6 +26,7 @@ from coast_tpu_torch.interop import state_from_numpy
 from coast_tpu_torch.ir.graph import loop_graph
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        LeafSpec, Region)
+from coast_tpu_torch.ops.indexing import in_range
 from coast_tpu_torch.passes.verification import RegionDataflow
 
 MESSAGE = b"Automated TMR"
@@ -70,7 +71,7 @@ def make_region() -> Region:
 
     def step(state, t):
         i, crc = state["i"], state["crc"]
-        idx = torch.clamp(i.to(torch.int64), 0, n - 1)
+        idx = in_range(i.to(torch.int64), n)
         byte = state["msg"].gather(1, idx[:, None])[:, 0].to(torch.int64)
         wide = crc.to(torch.int64)
         x = ((wide >> 8) ^ (byte & 0xFF)) & 0xFF

@@ -122,7 +122,8 @@ def make_region() -> Region:
             "st_stage": st_stage,
             "sp": torch.where(push, sp + 1, torch.where(pop, sp - 1, sp)),
             "disk_pos": disk_pos,
-            "moves": state["moves"] + do_move.to(torch.int32),
+            "moves": state["moves"] + torch.where(do_move, 1, 0).to(
+                torch.int32),
         }
 
     def done(state):

@@ -23,6 +23,7 @@ from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG,
                                        KIND_RO, LeafSpec, Region)
 from coast_tpu_torch.ops.indexing import row_select, row_update
+from coast_tpu_torch.ops.voters import priced
 from coast_tpu_torch.passes.verification import RegionDataflow
 
 SIDE = 9
@@ -68,6 +69,7 @@ def _matmul_u32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return acc.astype(np.uint32)
 
 
+@priced(0)
 def _to_word(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the int32 tensor with the same bits."""
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
@@ -113,7 +115,7 @@ def make_region() -> Region:
             "acc": acc,
             "results": results,
             "i": torch.where(compute_phase, i, i + 1),
-            "phase": compute_phase.to(torch.int32),
+            "phase": torch.where(compute_phase, 1, 0).to(torch.int32),
         }
 
     def done(state):

@@ -118,7 +118,7 @@ def make_region(side: int = SIDE, block: int = BLOCK,
             "acc": acc,
             "results": results,
             "i": torch.where(compute_phase, i, i + 1),
-            "phase": compute_phase.to(torch.int32),
+            "phase": torch.where(compute_phase, 1, 0).to(torch.int32),
         }
 
     def done(state):

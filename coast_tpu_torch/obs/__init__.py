@@ -12,33 +12,28 @@ convergence with Wilson-interval early stop
 (:mod:`~coast_tpu_torch.obs.convergence`), a live TTY dashboard
 (:mod:`~coast_tpu_torch.obs.console`), per-dispatch device-time
 attribution (:mod:`~coast_tpu_torch.obs.profiler`) with roofline/MFU
-accounting (:mod:`~coast_tpu_torch.obs.roofline`), and a blackbox flight
-recorder (:mod:`~coast_tpu_torch.obs.flightrec`).
-
-Fleet trace federation (``merge_traces``, ``write_merged_trace``) and
-reliability SLOs (``SLOSpec``, ``SLOSet``, ``SLOError``) are ROADMAP Queue
-A item 19: reaching one of those names raises ``NotImplementedError``.
+accounting (:mod:`~coast_tpu_torch.obs.roofline`), fleet trace
+federation (:mod:`~coast_tpu_torch.obs.federate`), declarative
+reliability SLOs with error-budget burn rates
+(:mod:`~coast_tpu_torch.obs.slo`), and a blackbox flight recorder
+(:mod:`~coast_tpu_torch.obs.flightrec`).
 """
 
 from coast_tpu_torch.obs.console import Console
 from coast_tpu_torch.obs.convergence import (ConvergenceTracker, StopWhen,
                                              StopWhenError, wilson_interval)
+from coast_tpu_torch.obs.federate import merge_traces, write_merged_trace
 from coast_tpu_torch.obs.flightrec import FlightRecorder
 from coast_tpu_torch.obs.heartbeat import Heartbeat
 from coast_tpu_torch.obs.metrics import (CampaignMetrics, Histogram, Ring,
                                          atomic_write_json)
 from coast_tpu_torch.obs.profiler import CampaignProfiler
 from coast_tpu_torch.obs.serve import MetricsServer
+from coast_tpu_torch.obs.slo import SLOError, SLOSet, SLOSpec
 from coast_tpu_torch.obs.spans import (NULL, Telemetry, count, current,
                                        instant, span)
 from coast_tpu_torch.obs.trace_export import (to_trace_doc, to_trace_events,
                                               write_trace)
-
-#: Names of the reference's ``obs`` that a later slice brings.
-_LATER = {name: "item 19 (fleet trace federation)"
-          for name in ("merge_traces", "write_merged_trace")}
-_LATER.update({name: "item 19 (reliability SLOs)"
-               for name in ("SLOSpec", "SLOSet", "SLOError")})
 
 __all__ = [
     "Telemetry", "NULL", "current", "span", "count", "instant",
@@ -46,16 +41,7 @@ __all__ = [
     "Heartbeat", "Console",
     "CampaignMetrics", "Histogram", "Ring", "MetricsServer",
     "atomic_write_json",
-    "CampaignProfiler",
+    "CampaignProfiler", "merge_traces", "write_merged_trace",
     "ConvergenceTracker", "StopWhen", "StopWhenError", "wilson_interval",
-    "FlightRecorder",
+    "FlightRecorder", "SLOSpec", "SLOSet", "SLOError",
 ]
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"coast_tpu_torch.obs.{name} is not ported yet; see ROADMAP "
-            f"Queue A {_LATER[name]}")
-    raise AttributeError(
-        f"module 'coast_tpu_torch.obs' has no attribute {name!r}")

@@ -142,6 +142,9 @@ class Console:
         res_line = self._resilience_line()
         if res_line:
             lines.append(res_line)
+        slo_line = self._slo_line()
+        if slo_line:
+            lines.append(slo_line)
         return "\n".join(lines)
 
     def _half_width(self, k: float, n: float) -> float:
@@ -201,6 +204,16 @@ class Console:
             return None
         return "  resilience: " + " ".join(
             f"{k}={v}" for k, v in sorted(hot.items()))
+
+    def _slo_line(self) -> Optional[str]:
+        """Live reliability-SLO verdict (worst burning objective plus
+        its remaining error budget) when the hub carries an SLO set."""
+        status = getattr(self.metrics, "slo_status", None)
+        if self.metrics is None or status is None:
+            return None
+        from coast_tpu_torch.obs.slo import status_line
+        frag = status_line(status())
+        return f"  {frag}" if frag else None
 
     # -- the Heartbeat-compatible surface ------------------------------------
     def update(self, done: int, counts: Optional[Mapping[str, int]] = None,

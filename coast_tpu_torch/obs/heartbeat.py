@@ -110,6 +110,17 @@ class Heartbeat:
         return [f"up={format_rate(up_rate)}",
                 f"down={format_rate(down_rate)}"]
 
+    def _slo_part(self) -> list:
+        """Live SLO status from the hub (worst burning objective plus
+        its remaining budget); empty when the hub carries no SLO set or
+        nothing was evaluated yet."""
+        status = getattr(self.metrics, "slo_status", None)
+        if self.metrics is None or status is None:
+            return []
+        from coast_tpu_torch.obs.slo import status_line
+        frag = status_line(status())
+        return [frag] if frag else []
+
     def update(self, done: int, counts: Optional[Dict[str, int]] = None,
                force: bool = False) -> Optional[str]:
         """Report progress if the interval elapsed (or ``force``).
@@ -133,6 +144,7 @@ class Heartbeat:
             parts.extend(f"{k}={counts[k]}" for k in _COUNT_KEYS
                          if counts.get(k))
         parts.extend(self._transfer_parts(now))
+        parts.extend(self._slo_part())
         line = " ".join(parts)
         self.emitted += 1
         self._emit(line)

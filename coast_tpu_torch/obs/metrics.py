@@ -10,9 +10,8 @@ console (:mod:`coast_tpu_torch.obs.console`) all read coherent snapshots from
 it.  Keeping a long accelerator run efficient is a *host-side
 monitoring* problem: throughput and failure counters have to be visible
 while the run is still spending money.  (The port's copy of
-``coast_tpu/obs/metrics.py``: the same snapshot keys, Prometheus names
-and status file.  Reliability SLOs, the reference's ``slo=``, are ROADMAP
-Queue A item 19 and refused here.)
+``coast_tpu/obs/metrics.py``: the same snapshot keys, Prometheus names,
+status file and live SLO verdicts.)
 
 Everything is stdlib + numpy-free; the one accelerator touch (device
 memory watermark) reads ``torch.cuda.memory_allocated`` of an
@@ -167,12 +166,18 @@ class CampaignMetrics:
         self.status_path = status_path
         self.status_interval_s = float(status_interval_s)
         self.z = float(z)
-        # Reliability SLOs (the reference's obs/slo) come with ROADMAP
-        # Queue A item 19.
-        if slo is not None or slo_baseline:
-            raise NotImplementedError(
-                "CampaignMetrics(slo=...) is not ported yet; see ROADMAP "
-                "Queue A item 19 (reliability SLOs)")
+        # Reliability SLOs (obs/slo): a spec string or SLOSet; when set,
+        # every record_batch re-evaluates the error budgets over the
+        # cumulative evidence and snapshot()/prometheus()/the console
+        # expose the live verdicts.  ``slo_baseline`` feeds the mwtf
+        # objective ({"sdc_rate", "inj_per_sec"} of an unprotected run).
+        if isinstance(slo, str):
+            from coast_tpu_torch.obs.slo import SLOSet
+            slo = SLOSet.parse(slo)
+        self.slo_set = slo
+        self.slo_baseline = (dict(slo_baseline) if slo_baseline
+                             else None)
+        self.slo_report: Optional[Dict[str, object]] = None
         self.rings: Dict[str, Ring] = {
             name: Ring(ring_capacity) for name in _SERIES}
         self.state = "idle"
@@ -299,6 +304,7 @@ class CampaignMetrics:
             self.rings["sdc_rate"].append(now, sdc_rate)
             if mem is not None:
                 self.rings["device_memory_bytes"].append(now, mem)
+            self._refresh_slo_locked()
             self._updated_unix = time.time()
         self._maybe_write_status()
 
@@ -315,8 +321,35 @@ class CampaignMetrics:
                 stages = summary.get("stages")
                 if isinstance(stages, dict):
                     self.stages = {k: float(v) for k, v in stages.items()}
+            self._refresh_slo_locked()
             self._updated_unix = time.time()
         self._maybe_write_status(force=True)
+
+    def _refresh_slo_locked(self) -> None:
+        """Re-evaluate the attached SLO set over the cumulative evidence
+        (caller holds the lock; pure arithmetic, one pass per batch)."""
+        if self.slo_set is None:
+            return
+        from coast_tpu_torch.obs.slo import evaluate
+        elapsed = max(self._t_last_batch - self._t_start, 1e-9)
+        evidence = {
+            "counts": dict(self.counts),
+            "inj_per_sec": (self.done_rows / elapsed
+                            if self.done_rows else None),
+            "histograms": {k: h.snapshot()
+                           for k, h in self.histograms.items()},
+            "sdc_rate_recent": [v for _, v in
+                                self.rings["sdc_rate"].points()],
+        }
+        self.slo_report = evaluate(self.slo_set, evidence,
+                                   baseline=self.slo_baseline)
+
+    def slo_status(self) -> Optional[Dict[str, object]]:
+        """The latest live SLO evaluation (None when no SLO set is
+        attached or nothing has been recorded yet) -- the console /
+        heartbeat feed."""
+        with self._lock:
+            return self.slo_report
 
     # -- reader side ---------------------------------------------------------
     def _rates(self) -> Dict[str, Dict[str, float]]:
@@ -368,6 +401,9 @@ class CampaignMetrics:
                 doc["error"] = self.error
             if self.convergence is not None:
                 doc["convergence"] = self.convergence
+            if self.slo_report is not None:
+                from coast_tpu_torch.obs.slo import summary_block
+                doc["slo"] = summary_block(self.slo_report)
             return doc
 
     def prometheus(self) -> str:
@@ -486,6 +522,32 @@ class CampaignMetrics:
                        "gauge",
                        "High-water device bytes_in_use seen.",
                        [(labels, float(self.memory_watermark))])
+            if self.slo_report is not None:
+                rows = self.slo_report.get("objectives") or []
+                metric("coast_campaign_slo_burn_rate", "gauge",
+                       "Error-budget burn rate per SLO objective "
+                       "(1.0 = consuming budget exactly at the allowed "
+                       "pace).",
+                       [(f'{labels},objective="{_esc(r["objective"])}"',
+                         float(r["burn"]["long"]))
+                        for r in rows
+                        if (r.get("burn") or {}).get("long")
+                        is not None])
+                metric("coast_campaign_slo_budget_remaining_frac",
+                       "gauge",
+                       "Unconsumed error-budget fraction per SLO "
+                       "objective (negative = overspent).",
+                       [(f'{labels},objective="{_esc(r["objective"])}"',
+                         float(r["budget"]["remaining_frac"]))
+                        for r in rows
+                        if (r.get("budget") or {}).get("remaining_frac")
+                        is not None])
+                metric("coast_campaign_slo_verdict", "gauge",
+                       "Per-objective verdict (0=ok, 1=warn, 2=page).",
+                       [(f'{labels},objective="{_esc(r["objective"])}"',
+                         float(("ok", "warn",
+                                "page").index(r["verdict"])))
+                        for r in rows])
             return "\n".join(lines) + "\n"
 
     # -- status file ---------------------------------------------------------

@@ -12,17 +12,36 @@ reference's rules:
     gathers, scatters, concatenation, dtype conversion) counts zero.  The
     port's step has no traced loop: each captured trip is one branch that
     ran, and a trip count prices the loop (see below).
+  * Where the port spells a function with other operators than the
+    reference's primitive, the count is the primitive's, so that a
+    region's useful work does not depend on how it is lowered: the
+    uint32 emulation costs nothing (``& 0xFFFFFFFF`` of an int64 value,
+    and ``ops/u32``'s ``word``/``wide``; its shifts and compares count
+    one op a word); an index helper of ``ops/indexing`` costs its
+    negative wrap (three ops, as ``dynamic_slice``'s) while its clamp,
+    its fill/drop bounds test and select cost nothing, as inside
+    ``gather``/``scatter``; a two-sided ``clamp`` is ``jnp.clip``'s max
+    and min; ``%`` is ``jnp.remainder``'s rem and sign fix-up.  Helpers
+    declare their price with ``ops.voters.priced`` (the capture records
+    it on their nodes).
   * The capture runs on the host, where the grouped voters (K1) and the
     fused commit (K2) run their plain versions as ordinary aten
     operations, so their per-element work is counted element for element
     -- a fused program is never undercounted by a kernel body counted
     once.
-  * :func:`region_ops_per_run` is the USEFUL work of one fault-free run:
-    the widest of the bare step's first trips (one image) x
-    ``nominal_steps`` -- the MFU numerator.  :func:`program_ops_per_run`
-    counts the PROTECTED program's trips (lanes, voters, CFCSS, guards),
-    the widest of its distinct captured trips x ``steps``; their ratio is
-    :func:`flops_overhead`.
+  * :func:`region_ops_per_run` is the USEFUL work of one fault-free run,
+    a property of the region: the widest of the bare step's first trips
+    (one image) x ``nominal_steps`` -- the MFU numerator, equal to the
+    reference's wherever the two steps are the same function spelled
+    the same way (``tests/test_torch_profiler.py`` pins the others with
+    the construct that differs).  :func:`program_ops_per_run` counts the
+    port's PROTECTED engine (lanes, voters, CFCSS, guards), the widest of
+    its distinct captured trips x ``steps``; their ratio is
+    :func:`flops_overhead`.  The reference's fused engine cuts that ratio
+    by removing its unfused engine's dense full-state flip masks; the
+    port's unfused engine writes a flip once at its fire step and never
+    had those masks, so the port's fused cut is under 1 % (ROADMAP Queue
+    C, C5 (ii)).
   * :func:`mfu_block` combines those counts with the profiler's measured
     device-busy seconds into the ``summary()["mfu"]`` block, with the
     reference's keys: achieved ops/s, achieved MFU against a resolved
@@ -82,12 +101,43 @@ def _numel(shape) -> int:
     return int(math.prod(int(d) for d in shape))
 
 
-def _node_ops(node, shapes: Dict[int, Tuple[int, ...]]) -> float:
-    """Arithmetic ops of one captured node."""
+#: The uint32 word mask: on an int64 value it is the port's emulation of
+#: the reference's wrapping uint32 arithmetic, which costs nothing there.
+_MASK32 = 0xFFFFFFFF
+
+
+def _node_ops(node, trip) -> float:
+    """Arithmetic ops of one captured node of ``trip``."""
+    import torch
+
     from coast_tpu_torch.analysis.lint.capture import Ref
+    shapes = trip.shapes
     name = node.packet.rstrip("_") if node.packet.endswith("_") and \
         not node.packet.startswith("__") else node.packet
     out = _numel(node.out_shapes[0]) if node.out_shapes else 0
+    if node.price is not None:
+        # A ``voters.priced`` helper: its result at the reference's cost.
+        return node.price * out
+    if name in ("bitwise_and", "__and__") and len(node.args) == 2 and \
+            _MASK32 in node.args and any(
+                isinstance(a, Ref) and trip.dtypes.get(int(a))
+                == torch.int64 for a in node.args):
+        return 0.0
+    if name == "clamp" and len(node.args) > 2 and \
+            node.args[1] is not None and node.args[2] is not None:
+        # Both bounds: the reference's ``jnp.clip``, a max and a min.
+        return 2.0 * out
+    if name == "remainder":
+        # The reference's ``jnp.remainder``: the rem and its sign fix-up
+        # (7 ops an element), then on the divisor's elements its sign
+        # test and, for integers, the zero-divisor guard (a compare and a
+        # select).
+        div = node.args[1] if len(node.args) > 1 else None
+        div_n = _numel(shapes[int(div)]) if isinstance(div, Ref) else 1
+        first = node.args[0] if node.args else None
+        integer = (isinstance(first, Ref) and not trip.dtypes.get(
+            int(first), torch.int64).is_floating_point)
+        return 7.0 * out + (3.0 if integer else 1.0) * div_n
     if name in _PRODUCTS:
         li, _ri = _PRODUCTS[name]
         lhs = node.args[li] if len(node.args) > li else None
@@ -125,8 +175,7 @@ def count_graph_ops(trips, while_trip: int = 1) -> float:
         trips = [trips]
     widest = 0.0
     for trip in trips:
-        widest = max(widest, sum(_node_ops(n, trip.shapes)
-                                 for n in trip.nodes))
+        widest = max(widest, sum(_node_ops(n, trip) for n in trip.nodes))
     return widest * max(1, int(while_trip))
 
 
@@ -301,3 +350,49 @@ def mfu_block(prog, runs: int, device_busy_s: float, wall_s: float,
         out["roofline_mfu"] = None
         out["voter_bytes_share"] = None
     return out
+
+
+def ops_by_operator(trip) -> Dict[str, float]:
+    """Arithmetic ops of one captured trip, summed per aten overload
+    (operators that count nothing left out)."""
+    out: Dict[str, float] = {}
+    for node in trip.nodes:
+        ops = _node_ops(node, trip)
+        if ops:
+            out[node.op] = out.get(node.op, 0.0) + ops
+    return dict(sorted(out.items()))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m coast_tpu_torch.obs.roofline NAME...``: per registry
+    name, the useful and TMR program ops a run and the bare step's first
+    trip summed per operator, on the CPU capture."""
+    import argparse
+    import json
+
+    import torch
+
+    from coast_tpu_torch.analysis.lint.capture import capture_fn
+    from coast_tpu_torch.models import REGISTRY
+    from coast_tpu_torch.passes.strategies import TMR
+    parser = argparse.ArgumentParser(description=main.__doc__)
+    parser.add_argument("names", nargs="+", choices=sorted(REGISTRY),
+                        metavar="NAME")
+    args = parser.parse_args(argv)
+    for name in args.names:
+        region = REGISTRY[name]()
+        rows = {k: v.expand(1, *v.shape).clone()
+                for k, v in _image(region).items()}
+        with torch.no_grad():
+            trip = capture_fn(region.bound_step(), rows, 0)
+        print(json.dumps({
+            "name": name, "useful_ops_per_run": region_ops_per_run(region),
+            "program_ops_per_run": program_ops_per_run(
+                TMR(region, device="cpu")),
+            "first_trip_ops": ops_by_operator(trip)}))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

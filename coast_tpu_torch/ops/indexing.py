@@ -28,7 +28,12 @@ The fill value is the reference's: ``INT32_MIN`` for an int32 array,
 ``coast_tpu/ops/indexing.py``.  As there, each function tags its index
 ``coast:load_addr`` (a read) or ``coast:store_addr`` (a write) for the
 derived dataflow of ``passes/verification.py``: identities unless a lint
-capture records (``ops/voters.tag``).  Every function takes ``mat`` with a
+capture records (``ops/voters.tag``).  For the roofline's op count
+(``voters.priced``) a helper costs what the reference's primitive costs:
+the one negative wrap is traced as ops there (a compare, an add and a
+select), while the clamp into range, the fill/drop bounds test and its
+select happen inside ``dynamic_slice``/``gather``/``scatter`` and count
+nothing, so here too.  Every function takes ``mat`` with a
 leading row axis ``R`` and indexes its axis 1; ``i`` holds one index a row
 (int32 ``[R]``) or, for the ``take`` forms, a vector of them ``[R, K]``.
 """
@@ -37,15 +42,45 @@ from __future__ import annotations
 
 import torch
 
-from coast_tpu_torch.ops.voters import tag
+from coast_tpu_torch.ops.voters import priced, tag
 
 _LOAD, _STORE = "coast:load_addr", "coast:store_addr"
+
+
+@priced(0)
+def in_range(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Clamp into ``[0, n)``, the clamp inside the reference's
+    ``dynamic_slice``/``gather`` (no op of its own there)."""
+    return torch.clamp(i, 0, n - 1)
+
+
+@priced(0)
+def _bounded(ok: torch.Tensor, got: torch.Tensor,
+             other: torch.Tensor) -> torch.Tensor:
+    """``got`` where the index was in range (``ok``, broadcast), else
+    ``other`` (the fill word, or the old element of a dropped write):
+    inside the reference's gather/scatter mode."""
+    return torch.where(ok, got, other)
+
+
+@priced(0)
+def _in_bounds(c: torch.Tensor, n: int, ok=None) -> torch.Tensor:
+    """``c`` within ``[0, n)`` (and ``ok``): the bounds test of the
+    reference's fill/drop modes."""
+    return (c >= 0) & (c < n) if ok is None else ok & (c >= 0) & (c < n)
+
+
+@priced(0)
+def _flat_index(flat: torch.Tensor, c: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """Row-major index of one more axis (the scatter's own arithmetic)."""
+    return flat * n + torch.clamp(c, 0, n - 1)
 
 
 def clamp_index(i: torch.Tensor, n: int) -> torch.Tensor:
     """One negative wrap, then clamp into ``[0, n)``; int64 for indexing."""
     i = i.to(torch.int64)
-    return torch.clamp(torch.where(i < 0, i + n, i), 0, n - 1)
+    return in_range(torch.where(i < 0, i + n, i), n)
 
 
 def row_select(mat: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -67,7 +102,7 @@ def take_clip(mat: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     ``i`` is clamped into ``[0, n)``, a negative index reads element 0.
     ``i`` ``[R]`` gives ``[R, *mat.shape[2:]]``; ``[R, K]`` gives
     ``[R, K, *mat.shape[2:]]``."""
-    ic = torch.clamp(tag(i, _LOAD).to(torch.int64), 0, mat.shape[1] - 1)
+    ic = in_range(tag(i, _LOAD).to(torch.int64), mat.shape[1])
     return _gather(mat, ic)
 
 
@@ -79,12 +114,12 @@ def take_fill(mat: torch.Tensor, i: torch.Tensor,
     n = mat.shape[1]
     i = tag(i, _LOAD).to(torch.int64)
     i = torch.where(i < 0, i + n, i)
-    ok = (i >= 0) & (i < n)
-    got = _gather(mat, torch.clamp(i, 0, n - 1))
+    ok = _in_bounds(i, n)
+    got = _gather(mat, in_range(i, n))
     fill = torch.full((), -1 if unsigned else -2**31, dtype=mat.dtype,
                       device=mat.device)
-    return torch.where(ok.view(*ok.shape, *([1] * (got.dim() - ok.dim()))),
-                       got, fill)
+    return _bounded(ok.view(*ok.shape, *([1] * (got.dim() - ok.dim()))),
+                    got, fill)
 
 
 def update_drop(mat: torch.Tensor, i: torch.Tensor,
@@ -104,12 +139,12 @@ def update_drop(mat: torch.Tensor, i: torch.Tensor,
         n = mat.shape[1 + a]
         c = cols[:, a]
         c = torch.where(c < 0, c + n, c)
-        ok = ok & (c >= 0) & (c < n)
-        flat = flat * n + torch.clamp(c, 0, n - 1)
+        ok = _in_bounds(c, n, ok)
+        flat = _flat_index(flat, c, n)
     view = mat.reshape(mat.shape[0], -1, *mat.shape[1 + axes:])
     old = _gather(view, flat)
-    new = torch.where(ok.view(-1, *([1] * (old.dim() - 1))),
-                      value.to(mat.dtype).expand_as(old), old)
+    new = _bounded(ok.view(-1, *([1] * (old.dim() - 1))),
+                   value.to(mat.dtype).expand_as(old), old)
     out = view.clone()
     out[torch.arange(mat.shape[0], device=mat.device), flat] = new
     return out.view(mat.shape)

@@ -12,6 +12,11 @@ Shift counts follow XLA's rule for a count outside ``[0, 31]``: a
 logical right shift gives 0, an arithmetic right shift gives the sign
 fill.  A count may be a Python int or a tensor (then read as unsigned, so
 a negative count is out of range too).
+
+For the roofline's op count (``voters.priced``) each helper counts what
+the reference's uint32 operation counts: a shift or compare is one op a
+word, the int32/int64 reinterpretations (:func:`word`, :func:`wide`)
+none, as the reference's ``astype`` is a conversion.
 """
 
 from __future__ import annotations
@@ -20,12 +25,15 @@ from typing import Union
 
 import torch
 
+from coast_tpu_torch.ops.voters import priced
+
 Count = Union[int, torch.Tensor]
 
 MASK32 = 0xFFFFFFFF
 _SIGN = -2**31
 
 
+@priced(0)
 def word(x: torch.Tensor) -> torch.Tensor:
     """int64 -> the int32 tensor with the same low 32 bits.  The wrap is
     arithmetic, with no select, as the reference's ``astype`` is: the
@@ -33,6 +41,7 @@ def word(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2**31) & MASK32) - 2**31).to(torch.int32)
 
 
+@priced(0)
 def wide(x: torch.Tensor) -> torch.Tensor:
     """int32 word -> its unsigned value, in int64 ``[0, 2^32)``."""
     return x.to(torch.int64) & MASK32
@@ -49,6 +58,7 @@ def _count(n: torch.Tensor) -> torch.Tensor:
     return wide(n) if n.dtype == torch.int32 else n.to(torch.int64) & MASK32
 
 
+@priced(1)
 def lsr(x: torch.Tensor, n: Count) -> torch.Tensor:
     """Logical right shift (uint32 ``>>``)."""
     if isinstance(n, int):
@@ -63,6 +73,7 @@ def lsr(x: torch.Tensor, n: Count) -> torch.Tensor:
     return word(torch.where(n < 32, out, 0))
 
 
+@priced(1)
 def sar(x: torch.Tensor, n: Count) -> torch.Tensor:
     """Arithmetic right shift (int32 ``>>``); a count outside ``[0, 31]``
     gives the sign fill."""
@@ -79,11 +90,13 @@ def _flip(x):
     return x ^ _SIGN
 
 
+@priced(1)
 def ult(a, b) -> torch.Tensor:
     """Unsigned ``a < b`` (either side may be a Python int)."""
     return _flip(a) < _flip(b)
 
 
+@priced(1)
 def ule(a, b) -> torch.Tensor:
     return _flip(a) <= _flip(b)
 
@@ -98,6 +111,7 @@ def rotr(x: torch.Tensor, n: int) -> torch.Tensor:
     return lsr(x, n) | (x << (32 - n))
 
 
+@priced(1)
 def popcount(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each 32-bit word (``lax.population_count``), int32.
     Takes int32 words or int64 values in ``[0, 2^32)``."""

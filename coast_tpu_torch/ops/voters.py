@@ -30,6 +30,7 @@ collapses and voter coverage from what a trip really dispatched.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -47,6 +48,9 @@ CAPTURE = False
 #: Replica sets voted by the grouped voter wrappers (K1, K2 or their plain
 #: versions) since the last reset: the lint's voter-survival count.
 SITE_RECORDS = 0
+#: The recording capture while one records (``capture._Recorder``): the
+#: sink of :func:`priced` scopes.
+PRICE_HOOK = None
 #: A list while ``opt -dumpModule=hlo`` records a trip's dispatch stream:
 #: each grouped voter call appends ``(kernel, [site shapes])``.
 STREAM: Optional[list] = None
@@ -62,6 +66,28 @@ def tag(x: torch.Tensor, name: str) -> torch.Tensor:
             "a lint capture records CPU tensors only; this tag met a "
             f"tensor on {x.device}")
     return torch.ops.coast_lint.tag(x, name)
+
+
+def priced(per_element: float):
+    """Decorator: while a capture records, the operations a helper
+    dispatches count as ``per_element`` arithmetic ops per element of its
+    result (``obs/roofline``), whatever the port's spelling costs -- the
+    op count of the reference's own primitive for the same function (a
+    uint32 logical shift is one op, not the int64 shift and mask that
+    emulate it).  ``0`` prices the helper's work at nothing.  Outside a
+    capture it costs one test of a global."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            hook = PRICE_HOOK
+            if hook is None:
+                return fn(*args, **kwargs)
+            mark = hook.price_begin()
+            out = fn(*args, **kwargs)
+            hook.price_end(mark, per_element, out)
+            return out
+        return inner
+    return wrap
 
 
 def sync_tag(lanes: torch.Tensor, klass: str, leaf: str) -> torch.Tensor:

@@ -18,10 +18,15 @@ oracles, on the card (or the host with ``-d cpu``):
 
 Every oracle runs and reports; ``Success!`` (the harness driver oracle,
 ``coast_tpu_torch.testing.harness.run_drivers``) is printed only when all
-three hold.  The port's eager engine applies a fault with one scatter at
-its fire step and has no per-step select bookkeeping for the fused
-engine to remove, so on the port the op-count cut does not show: the
-driver prints both overheads and exits 1 (ROADMAP Queue C).
+three hold.  The overhead's numerator is the port's engine (its captured
+trips), its denominator the region's useful work by the reference's
+rules.  The reference's 2x cut comes from dropping its unfused engine's
+dense full-state flip masks; the port's unfused engine never had them
+(its flip is already one sparse write at the fire step), and what the
+fused engine does prune (done-cone votes, freeze pruning, packed
+latches) is under 1 % of a trip's ops.  So on the port the cut cannot
+show: the driver prints both overheads and exits 1 (ROADMAP Queue C,
+C5 (ii)); the floors stay the reference's.
 """
 
 from __future__ import annotations

@@ -49,16 +49,14 @@ class HarnessError(Exception):
 
 
 #: Drivers of subsystems the port does not have yet -> their ROADMAP item.
-#: (``profile_smoke`` and ``slo_smoke`` read ``obs/slo`` and the fleet
-#: queue's trace federation, both item 19.)
-LATER_DRIVERS = {"profile_smoke": "19", "slo_smoke": "19",
-                 "serve_smoke": "19", "fleet_smoke": "19", "ci_smoke": "19"}
+LATER_DRIVERS = {"serve_smoke": "19d", "ci_smoke": "19c"}
 
 #: The drivers the port has (``coast_tpu_torch/testing/<name>.py``).
 PORTED_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                   "equiv_smoke", "train_smoke", "sparse_smoke",
                   "stencil_smoke", "propagation_smoke", "fused_smoke",
-                  "obs_live_smoke", "fuzz")
+                  "obs_live_smoke", "slo_smoke", "fleet_smoke",
+                  "profile_smoke", "fuzz")
 
 _FAST_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                  "equiv_smoke", "obs_live_smoke", "train_smoke",

@@ -611,9 +611,12 @@ def test_unported_runner_features_name_their_item(kw):
         assert hub.snapshot()["done_rows"] == 32
         assert (res.profile is not None) == ("profile" in kw)
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item"):
-            CampaignRunner(prog, **kw)
+        # Item 19a landed: slo= attaches an SLO set to a hub the runner
+        # makes, and the campaign lands the verdicts in its summary.
+        runner = CampaignRunner(prog, **kw)
+        res = runner.run(32, seed=0, batch_size=16)
+        assert runner.metrics.slo_set.spec() == "sdc_rate<=0.1"
+        assert res.summary()["slo"]["spec"] == "sdc_rate<=0.1"
     # Items 17b and 17c landed: run_delta with its static budget reaches
     # run_delta's own checks (an equivalence partition is needed).
     with pytest.raises(ValueError, match="equiv=True"):

@@ -104,9 +104,16 @@ def test_failure_state_and_slo_refusal():
     hub.campaign_finished(error="Boom: x")
     snap = hub.snapshot()
     assert snap["state"] == "failed" and "Boom" in snap["error"]
-    for kw in ({"slo": "sdc<0.1"}, {"slo_baseline": {"sdc_rate": 0.1}}):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            obs.CampaignMetrics(**kw)
+    # Item 19a landed: a malformed spec is refused as the reference
+    # refuses it, and a well-formed one evaluates on every batch.
+    from coast_tpu.obs import CampaignMetrics as JMetrics
+    for cls in (obs.CampaignMetrics, JMetrics):
+        with pytest.raises(ValueError, match="bad SLO objective"):
+            cls(slo="sdc<0.1")
+    hub = obs.CampaignMetrics(slo="sdc_rate<=0.1",
+                              slo_baseline={"sdc_rate": 0.1})
+    assert hub.slo_baseline == {"sdc_rate": 0.1}
+    assert hub.slo_status() is None
 
 
 def test_runner_feeds_the_hub_as_the_reference_does():

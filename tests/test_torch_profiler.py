@@ -133,40 +133,91 @@ def test_train_phase_split_equals_the_reference():
             == jroofline.phase_split(JREG[name]())
 
 
-# Models the counts are held on (each a second or less on the CPU).
-MODELS = ("trivial", "helloWorld", "simpleTMR", "matrixMultiply", "crc16",
-          "crazyCF", "simd", "nestedCalls")
+# Every registry name: the counts are held against the live reference.
+MODELS = tuple(sorted(REGISTRY))
 
-_STEP = ("the port's step is another aten program than the reference's "
-         "jaxpr: its row reads and writes are gathers and scatters (data "
-         "movement, 0) where the reference's are dense one-hot selects "
-         "(one op an element), and its uint32 words widen to int64 and "
-         "mask where the reference's wrap for free")
-# model -> (the port's useful ops a run, why).
+# Constructs of a step that the reference counts otherwise, by model (the
+# useful count prices the port's indexing helpers, its uint32 emulation,
+# ``torch.clamp`` and ``%`` by the reference's rules, obs/roofline.py).
+_STRIDED = ("the reference's strided slices (x[0::2]) lower to gathers "
+            "whose index arithmetic it counts, a mul and an add an element; "
+            "the port's strided views count nothing")
+_ARGMAX = ("the reference picks its case or task with argmax, one op an "
+           "input element; the port selects with where")
+_DF64 = ("the port's soft-float carries a 64-bit significand in one int64 "
+         "word (models/chstone/df64.py) where the reference's carries two "
+         "uint32 halves and counts the ops of each")
+_TRAIN = ("the port's products and sums are elementwise in a fixed order "
+          "(train/mlp._mm) where the reference's are dot_general and "
+          "reduce_sum, and its loss clips with one-sided clamps")
+_GATED = ("the reference gates its receive phase on the traced step count "
+          "(t % 2, a select of every leaf); the port's step branches on t "
+          "in Python and each trip runs one branch")
+_TABLES = ("the port's table reads wrap their index once "
+           "(indexing.lookup: lt, add, select) where the reference reads "
+           "with jnp.take(mode='clip') or a static index")
+
+
+def _spelled(delta: str) -> str:
+    return ("the port's step spells the same function with other "
+            f"operations (per trip, port minus reference: {delta})")
+
+
+# model -> (the port's useful ops a run, why it differs).
 PINNED_REGION = {
-    "helloWorld": (168.0, _STEP),
-    "simpleTMR": (128.0, _STEP),
-    "matrixMultiply": (6840.0, _STEP),
-    "crc16": (234.0, _STEP),
-    "crazyCF": (4128.0, _STEP),
-    "simd": (7232.0, _STEP),
-    "nestedCalls": (672.0, _STEP),
+    "aes": (76472.0, _spelled("xor +368, and +64, ne +32, shift_left "
+                              "+32, lt -32, add -32")),
+    "cache_test": (110592.0, _spelled("its i // 1024 and i % 1024 floor "
+                                      "division and modulo, and its "
+                                      "drop-mode writes")),
+    "chstone_adpcm": (104600.0, _spelled("mul -70, add -70, clips -8")),
+    "chstone_blowfish": (3313930.0, _TABLES),
+    "chstone_dfadd": (40256.0, _DF64),
+    "chstone_dfdiv": (42560.0, _DF64),
+    "chstone_dfmul": (28544.0, _DF64),
+    "chstone_dfsin": (788400.0, _DF64),
+    "chstone_gsm": (836664.0, _spelled("its saturating adds: add -16, "
+                                       "clips -17")),
+    "chstone_jpeg": (1213420.0, _spelled("argmax +32 and any +32 for "
+                                         "its Huffman decode, select "
+                                         "-219, add -189, lt -158")),
+    "chstone_mips": (172913.0, _ARGMAX),
+    "chstone_motion": (13760.0, _spelled("shift_right -8, select -4, "
+                                         "and its % 2")),
+    "chstone_sha": (387258.0, _spelled("its byte packing: select +13, "
+                                       "and +1, and its floor division")),
+    "quicksort": (10813520.0, _STRIDED),
+    "rtos_app": (2544.0, _ARGMAX),
+    "rtos_kUser": (13380.0, _ARGMAX),
+    "rtos_mm": (10752.0, _ARGMAX),
+    "schedule2": (156544.0, _spelled("clips -8, lt +3, select +3, "
+                                     "add +2, eq -1")),
+    "stencil": (6156.0, _GATED),
+    "train_mlp": (197424.0, _TRAIN),
+    "train_mlp_adam": (234432.0, _TRAIN),
 }
 _PROG = ("the reference counts prog.run's jaxpr: the while loop's body with "
          "its per-step dense fault-injection selects over every leaf and "
          "its cond, the init broadcast and the final check; the port's "
          "engine applies a fault with one scatter at its fire step, and the "
          "count is its widest captured trip x nominal_steps")
-# model -> (the port's TMR program ops a run, why).
+# model -> the port's TMR program ops a run (every one pinned by _PROG).
 PINNED_PROGRAM = {
-    "trivial": (31.0, _PROG),
-    "helloWorld": (2124.0, _PROG),
-    "simpleTMR": (1376.0, _PROG),
-    "matrixMultiply": (33570.0, _PROG),
-    "crc16": (1105.0, _PROG),
-    "crazyCF": (16128.0, _PROG),
-    "simd": (31872.0, _PROG),
-    "nestedCalls": (7632.0, _PROG),
+    "aes": 236038.0, "cache_test": 25614336.0, "chstone_adpcm": 526100.0,
+    "chstone_blowfish": 31956590.0, "chstone_dfadd": 188800.0,
+    "chstone_dfdiv": 195712.0, "chstone_dfmul": 153664.0,
+    "chstone_dfsin": 2598120.0, "chstone_gsm": 3322597.0,
+    "chstone_jpeg": 7907900.0, "chstone_mips": 1024036.0,
+    "chstone_motion": 78592.0, "chstone_sha": 1190928.0, "crazyCF": 15840.0,
+    "crc16": 1066.0, "helloWorld": 1836.0, "matrixMultiply": 27198.0,
+    "matrixMultiply1024": 13042192144.0,
+    "matrixMultiply1024b512": 12966693316.0,
+    "matrixMultiply256": 211159312.0, "nestedCalls": 6840.0,
+    "quicksort": 43295840.0, "rtos_app": 53376.0, "rtos_kUser": 140520.0,
+    "rtos_mm": 107952.0, "scalarize": 20592.0, "schedule2": 680832.0,
+    "sha256": 161251.0, "simd": 28800.0, "simpleTMR": 1472.0,
+    "stencil": 32352.0, "towersOfHanoi": 423488.0, "train_mlp": 769356.0,
+    "train_mlp_adam": 962676.0, "trivial": 31.0, "whetstone": 12416.0,
 }
 
 
@@ -196,7 +247,7 @@ def test_program_ops_against_the_live_reference(model, jaxpr_attr):
     prog = TMR(REGISTRY[model](), device="cpu")
     got = roofline.program_ops_per_run(prog)
     held(got, jroofline.program_ops_per_run(coast_tpu.TMR(JREG[model]())),
-         PINNED_PROGRAM.get(model))
+         (PINNED_PROGRAM[model], _PROG))
     useful = roofline.region_ops_per_run(prog.region)
     assert roofline.flops_overhead(prog) == got / useful
 
@@ -207,14 +258,49 @@ def test_count_rules():
     def step(s, t):
         a = s["a"]
         prod = a @ s["b"]                           # 2mnk
-        return {"a": (prod + 1).clamp(0, 9),        # 2 elementwise
+        # add 6; a two-sided clamp is the reference's jnp.clip: max, min
+        return {"a": (prod + 1).clamp(0, 9),
                 "b": s["b"].sum(dim=0, keepdim=True).expand(3, 3)
                 + s["b"].transpose(0, 1)}           # reduce 9, add 9
     state = {"a": torch.ones(2, 3), "b": torch.ones(3, 3)}
     trip = capture_fn(step, state)
-    assert roofline.count_graph_ops(trip) == 2 * 3 * 6 + 6 + 6 + 9 + 9
+    assert roofline.count_graph_ops(trip) == 2 * 3 * 6 + 6 + 12 + 9 + 9
     assert roofline.count_graph_ops([trip, trip], while_trip=4) \
         == 4 * roofline.count_graph_ops(trip)
+
+
+def test_reference_rules_for_the_port_spellings():
+    """The uint32 emulation, the indexing helpers and ``%`` count what the
+    reference's primitives count."""
+    from coast_tpu_torch.analysis.lint.capture import capture_fn
+    from coast_tpu_torch.ops import indexing, u32
+
+    def step(s, t):
+        w = s["w"]
+        wide = w.to(torch.int64) & 0xFFFFFFFF       # emulation: 0
+        return {"w": u32.word(wide * 3),            # mul 4, word 0
+                "s": u32.lsr(w, 3),                 # one shift a word: 4
+                "r": indexing.row_select(s["m"], s["i"]),   # the wrap: 3
+                "t": indexing.take_clip(s["m"], s["i"]),    # clip: 0
+                "q": wide % 7,                      # jnp.remainder: 7x4+3
+                "c": s["i"].clamp(min=0)}           # one-sided: 1
+    state = {"w": torch.ones(1, 4, dtype=torch.int32),
+             "m": torch.ones(1, 5, 2, dtype=torch.int32),
+             "i": torch.tensor([7], dtype=torch.int32)}
+    trip = capture_fn(step, state)
+    assert roofline.count_graph_ops(trip) == 4 + 4 + 3 + 0 + 31 + 1
+    assert {n.price for n in trip.nodes} == {None, 0.0, 1.0}
+
+
+def test_roofline_cli_by_operator(capsys):
+    assert roofline.main(["matrixMultiply"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert (doc["useful_ops_per_run"], doc["program_ops_per_run"]) \
+        == (4716.0, PINNED_PROGRAM["matrixMultiply"])
+    assert doc["first_trip_ops"] == {
+        "aten.add.Tensor": 3.0, "aten.eq.Scalar": 1.0, "aten.lt.Scalar": 2.0,
+        "aten.mul.Tensor": 81.0, "aten.sum.dim_IntList": 81.0,
+        "aten.where.self": 94.0}
 
 
 def test_fused_program_counts_the_commits_element_for_element():

@@ -255,7 +255,7 @@ def test_unported_features_refuse_with_roadmap_item():
         generate(MemoryMap(prog), 4, 0, 18, model=FaultModel.multibit(2),
                  equiv=part)
     # Item 18 landed: telemetry, the metrics hub and the profiler are
-    # runner options; only the reliability SLOs (item 19) still refuse.
+    # runner options; item 19a landed: so are the reliability SLOs.
     from coast_tpu_torch import obs
     from coast_tpu_torch.inject.campaign import CampaignRunner
     hub = obs.CampaignMetrics()
@@ -263,10 +263,13 @@ def test_unported_features_refuse_with_roadmap_item():
                             profile=True)
     res = runner.run(8, seed=0, batch_size=8)
     assert hub.done_rows == 8 and res.summary()["profile"]["rows"] == 8
-    for key in ("slo", "slo_baseline"):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            CampaignRunner(prog, **{key: "sdc<0.1"})
-    with pytest.raises(NotImplementedError, match="item 19"):
+    runner = CampaignRunner(prog, slo="sdc_rate<=0.5;min=4",
+                            slo_baseline={"sdc_rate": 0.5})
+    res = runner.run(8, seed=0, batch_size=8)
+    assert res.slo["spec"] == "sdc_rate<=0.5;min=4"
+    assert runner.metrics.slo_baseline == {"sdc_rate": 0.5}
+    with pytest.raises(obs.SLOError):
+        CampaignRunner(prog, slo="sdc<0.1")
+    with pytest.raises(obs.SLOError):
         obs.CampaignMetrics(slo="sdc<0.1")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        obs.SLOSet
+    assert obs.SLOSet.parse("sdc_rate<=0.5").spec() == "sdc_rate<=0.5"

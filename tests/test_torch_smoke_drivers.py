@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 DRIVERS = ["resume_smoke", "stream_smoke", "faultmodel_smoke",
            "equiv_smoke", "train_smoke", "sparse_smoke", "stencil_smoke",
-           "propagation_smoke", "obs_live_smoke", "fused_smoke"]
+           "propagation_smoke", "obs_live_smoke", "fused_smoke",
+           "slo_smoke", "fleet_smoke", "profile_smoke"]
 # fused_smoke's op-count oracle does not hold on the port (ROADMAP Queue
 # C): test_fused_smoke_reports_the_op_count_finding holds what it prints.
 SUCCEEDING = [d for d in DRIVERS if d != "fused_smoke"]

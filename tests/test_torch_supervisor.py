@@ -261,7 +261,7 @@ def test_journal_resume_across_packages(case, killed_by, tmp_path, capsys):
 
 UNPORTED = [
     (["--static-budget"], "needs --delta-from AND --stop-when"),
-    (["--slo", "sdc<0.1"], "item 19"),
+    (["--slo", "sdc<0.1"], "bad --slo spec"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
     (["-f", "prog.c"], "item 17"),
 ]
@@ -271,6 +271,17 @@ UNPORTED = [
                          ids=[" ".join(a) for a, _ in UNPORTED])
 def test_unported_flag_refused_with_its_item(extra, why, capsys):
     argv = ["-f", "matrixMultiply", "-t", "4", "-q", "-d", "cpu", *extra]
+    if extra[0] == "--slo":
+        # Item 19a landed: the flag is ported, and a malformed spec is
+        # refused (exit 1) with the reference's message.
+        assert supervisor.main(argv) == 1
+        err = capsys.readouterr().err
+        assert why in err
+        from coast_tpu.inject import supervisor as jsup
+        assert jsup.main(argv) == 1
+        assert capsys.readouterr().err.strip().splitlines()[-1] \
+            == err.strip().splitlines()[-1]
+        return
     with pytest.raises(SystemExit) as exc:
         supervisor.main(argv)
     if extra == ["--static-budget"]:
