@@ -261,6 +261,29 @@ Phases, in order; any failure exits non-zero:
      fleet ``/metrics`` serving rates while the workers run, and the
      federated trace; (b) ``profile_smoke -d cuda`` and ``fleet_smoke -d
      cuda`` (a process of its own beside the fleet);
+ 33. the protection-regression CI: (a) ``python -m coast_tpu_torch ci
+     check --workers 2 --device cuda`` of the committed
+     ``artifacts/ci_baseline.json`` as one process (its two fleet workers
+     on cuda:0), started at the phase's start: exit 0, every row of the
+     four targets re-injected (13, 13, 535, 546; the baseline's section
+     fingerprints are the reference's) and each target's counts equal to
+     the baseline's; (b) ``ci_smoke -d cuda`` meanwhile (a two-target
+     baseline, a no-op check re-injecting nothing, the weakened TMR build
+     drifting while the DWC target stays consistent);
+ 34. continuous-protection serving: (a) ``ServeEngine`` on
+     matrixMultiply1024, batch 32, half the rows injection lanes, TMR and
+     DWC: both isolation proofs hold (the prover's seconds printed), a
+     10-request stream and a 32-request burst all served ``success`` with
+     the digest of a fault-free ``run_batch``, no lane leak, each lane's
+     codes equal to ``run_batch`` of the same schedule rows, the 10-request
+     stream byte-identical with injection lanes off; requests/s, p99
+     request latency and injection inj/s printed; (b) ``python -m
+     coast_tpu_torch serve matrixMultiply --device cuda`` as a process,
+     started at the phase's start: 8 ``POST /v1/infer``, ``/status`` and
+     ``/metrics``, SIGKILL'd once its DWC journal holds a batch, restarted
+     on the same journals (run meanwhile with (a)), its injection codes
+     equal to an uninterrupted in-process run; (c) ``serve_smoke -d
+     cuda``;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -270,12 +293,13 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-32, K2 those of phases 7b, 9-12, 14-17, 19-23 and
+9-12, 14-17 and 19-34, K2 those of phases 7b, 9-12, 14-17, 19-23 and
 25-31 (each
 phase's counts set to 0 just before it and read just after; a supervisor
-process and a fleet worker report their own at exit).  It imports nothing
-of JAX or of the coast_tpu package.  ``launches_phase_28`` to
-``launches_phase_32`` are those phases' shares.
+process, a fleet or ci worker and a serve process report their own at
+exit, a SIGKILL'd one nothing).  It imports nothing of JAX or of the
+coast_tpu package.  ``launches_phase_28`` to ``launches_phase_34`` are
+those phases' shares.
 """
 
 from __future__ import annotations
@@ -1298,10 +1322,15 @@ def finish_cli(proc: subprocess.Popen, what: str, expect_ok: bool = True,
         fail(f"{what}: the supervisor exited {proc.returncode}: "
              f"{err.strip()[-3000:]}")
     dicts = [ln for ln in out.splitlines() if ln.startswith("{")]
+    summary = None
+    if dicts:
+        try:                       # a JSON line (the serve CLI's summary)
+            summary = json.loads(dicts[-1])
+        except ValueError:         # the supervisor's printed dict
+            summary = ast.literal_eval(re.sub(r"(?<=: )inf\b", "1e999",
+                                              dicts[-1]))
     return {**report, "rc": proc.returncode, "out": out, "err": err,
-            "summary": (ast.literal_eval(re.sub(r"(?<=: )inf\b", "1e999",
-                                                dicts[-1]))
-                        if dicts else None)}
+            "summary": summary}
 
 
 def run_cli(argv, board: str, what: str, env=None, **kw) -> dict:
@@ -3773,8 +3802,8 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
     full = {"benchmarks": [e for e in harness.FULL["benchmarks"]
                            if e["path"] in ("matrixMultiply", "crc16")],
             "OPT_PASSES": harness.FULL["OPT_PASSES"]}
-    # The drivers of the slices up to 29 (phases 30c, 31d and 32b run the
-    # later ones).
+    # The drivers of the slices up to 29 (phases 30c, 31d, 32b, 33b and
+    # 34c run the later ones).
     drivers = {"drivers": [d for d in harness.FAST["drivers"]
                            if d["module"] in harness.PORTED_DRIVERS
                            and d["module"] not in LATER_PHASE_DRIVERS]}
@@ -3804,10 +3833,11 @@ def lifted_phase(card: str, TMR, DWC, REGISTRY, CampaignRunner, hv,
     return tuple(launches)
 
 
-# The smoke drivers phases 30c, 31d and 32b run (phase 29e runs the
-# others).
+# The smoke drivers phases 30c, 31d, 32b, 33b and 34c run (phase 29e runs
+# the others).
 LATER_PHASE_DRIVERS = ("fused_smoke", "obs_live_smoke", "slo_smoke",
-                       "fleet_smoke", "profile_smoke")
+                       "fleet_smoke", "profile_smoke", "ci_smoke",
+                       "serve_smoke")
 
 
 def http_get(url: str) -> str:
@@ -4263,6 +4293,316 @@ def fleet_phase(work: Path, card: str, CampaignRunner, hv, hc) -> tuple:
     return tuple(launches)
 
 
+# -- phase 33: the protection-regression CI ---------------------------------
+
+# The committed baseline's rows (its equivalence representatives): every
+# one is re-injected, since its section fingerprints are the reference's.
+CI_ROWS = {"crc16|-DWC|memory|s7": 13, "crc16|-TMR|memory|s7": 13,
+           "matrixMultiply|-DWC|memory|s7": 535,
+           "matrixMultiply|-TMR|memory|s7": 546}
+
+
+def ci_phase(work: Path, card: str, hv, hc) -> tuple:
+    """Phase 33: the protection-regression CI on the card (see the module
+    docstring).  Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+    from coast_tpu_torch.ci.baseline import load_baseline
+    from coast_tpu_torch.testing import ci_smoke
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    # (a) `ci check` of the committed baseline as one process, started
+    # first, with its two fleet workers on cuda:0.
+    committed = ROOT / "artifacts" / "ci_baseline.json"
+    refreshed = work / "phase33_refreshed.json"
+    report_path = work / "phase33_report.json"
+    check = start_module("coast_tpu_torch", [
+        "ci", "check", "--baseline", str(committed), "--out",
+        str(refreshed), "--workers", "2", "--device", "cuda",
+        "--queue", str(work / "phase33_queue"),
+        "--report-json", str(report_path)])
+    # (b) The driver, in this process meanwhile.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ci_smoke.main(["-d", "cuda"])
+    out = buf.getvalue().splitlines()
+    if rc != 0 or out[-1:] != ["Success!"]:
+        fail(f"phase 33b: ci_smoke -d cuda failed:\n{buf.getvalue()}")
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    log(f"phase 33b: ci_smoke -d cuda: Success! in "
+        f"{time.perf_counter() - t0:.1f} s ({out[-2]}); K1 {hv.LAUNCHES}, "
+        f"K2 {hc.LAUNCHES} [{card}]")
+    hv.LAUNCHES = hc.LAUNCHES = 0
+
+    run = finish_cli(check, "phase 33a: ci check")
+    k1w, k2w, reports = worker_launches(run["err"])
+    launches[0] += k1w + run["k1"]
+    launches[1] += k2w + run["k2"]
+    base = load_baseline(str(committed))["targets"]
+    report = json.loads(report_path.read_text())
+    got = {t["target"]: t for t in report["targets"]}
+    if report["verdict"] != "pass" or set(got) != set(CI_ROWS):
+        fail(f"phase 33a: ci check reported {report['verdict']} on "
+             f"{sorted(got)}")
+    for tid, rows in CI_ROWS.items():
+        t = got[tid]
+        if (t["reinjected_rows"], t["reused_rows"], t["dropped_rows"]) \
+                != (rows, 0, 0) or t["counts"] != base[tid]["counts"]:
+            fail(f"phase 33a: {tid} re-injected {t['reinjected_rows']} "
+                 f"(reused {t['reused_rows']}) with {t['counts']}; the "
+                 f"baseline holds {rows} rows and {base[tid]['counts']}")
+    if set(load_baseline(str(refreshed))["targets"]) != set(CI_ROWS):
+        fail("phase 33a: the refreshed baseline lacks targets")
+    log(f"phase 33a: python -m coast_tpu_torch ci check --workers 2 "
+        f"--device cuda of artifacts/ci_baseline.json: exit 0, PASS; "
+        f"re-injected {[got[t]['reinjected_rows'] for t in CI_ROWS]} rows, "
+        f"reused 0, counts = the baseline's on all 4 targets; campaign "
+        f"seconds {[got[t]['seconds'] for t in CI_ROWS]}; {reports} "
+        f"workers reported K1 {k1w}, K2 {k2w} [{card}]")
+    log(f"phase 33: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0:
+        fail(f"phase 33 launched K1 {launches[0]} times")
+    return tuple(launches)
+
+
+# -- phase 34: continuous-protection serving ---------------------------------
+
+def serve_burst(engine, payloads, strategies=(None,)) -> tuple:
+    """Submit ``payloads`` at once (SLA 30 s; strategy ``strategies[i %
+    len]``, None for the engine's choice); returns (responses, per-request
+    latencies in seconds, wall seconds).  Completion is polled every
+    millisecond, so a latency is exact to about 1 ms."""
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, sla_s=30.0,
+                          strategy=strategies[i % len(strategies)])
+            for i, p in enumerate(payloads)]
+    lat = {}
+    while len(lat) < len(reqs):
+        if time.perf_counter() - t0 > 120 or engine.error:
+            fail(f"phase 34: requests stalled ({engine.error})")
+        for req in reqs:
+            if req.rid not in lat and req.done.is_set():
+                lat[req.rid] = time.perf_counter() - t0
+        time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    bad = [(r.rid, r.error) for r in reqs if r.response is None]
+    if bad:
+        fail(f"phase 34: requests not served: {bad}")
+    return [r.response for r in reqs], sorted(lat.values()), wall
+
+
+def serve_argv(jdir: Path, port: int, throttle: float) -> list:
+    return ["serve", "matrixMultiply", "--port", str(port), "--device",
+            "cuda", "--journal-dir", str(jdir), "--batch-size", "16",
+            "--inject-share", "0.5", "--seed", "5", "--inject-n",
+            str(SERVE_N), "--idle-throttle", str(throttle),
+            "--duration", "300"]
+
+
+# Phase 34b's standing campaign: 1024 rows a strategy, 8 a dispatch.
+SERVE_N = 1024
+
+
+def serve_phase(work: Path, card: str, hv, hc) -> tuple:
+    """Phase 34: continuous-protection serving on the card (see the module
+    docstring).  Returns the (K1, K2) launches."""
+    import contextlib
+    import io
+    import urllib.request
+    from coast_tpu_torch.analysis.propagation import prove_isolation
+    from coast_tpu_torch.inject.campaign import run_classified
+    from coast_tpu_torch.serve import ServeEngine
+    from coast_tpu_torch.serve.engine import response_digest
+    from coast_tpu_torch.testing import serve_smoke
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    # (b) The serving process, started first; a throttled standing
+    # campaign keeps its injection lanes running while it is probed.
+    jdir = work / "phase34_serve"
+    port = free_port()
+    first = start_module("coast_tpu_torch", serve_argv(jdir, port, 0.1))
+    # The uninterrupted run its codes are held to, in this process
+    # meanwhile.
+    t0 = time.perf_counter()
+    with ServeEngine("matrixMultiply", batch_size=16, inject_share=0.5,
+                     seed=5, inject_n=SERVE_N,
+                     journal_dir=str(work / "phase34_fresh"),
+                     device="cuda") as engine:
+        if not engine.drain_injection(timeout_s=120.0):
+            fail(f"phase 34b: the in-process run never drained "
+                 f"({engine.error})")
+        fresh = {s: engine.lane_codes(s) for s in ("DWC", "TMR")}
+    fresh_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{port}"
+    deadline = time.time() + 120
+    while True:
+        try:
+            http_get(url + "/healthz")
+            break
+        except OSError:
+            if first.poll() is not None or time.time() > deadline:
+                fail(f"phase 34b: the serve process never answered "
+                     f"(exit {first.poll()})")
+            time.sleep(0.1)
+    answers = []
+    for i in range(8):
+        req = urllib.request.Request(
+            url + "/v1/infer", data=json.dumps(
+                {"payload": f"http-{i}", "sla_s": 30.0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            answers.append(json.loads(resp.read()))
+    status = json.loads(http_get(url + "/status"))
+    prom = http_get(url + "/metrics")
+    dwc_journal = jdir / "serve-DWC.journal"
+    while count_batches(dwc_journal) < 1:
+        if first.poll() is not None:
+            fail("phase 34b: the serve process died before journaling")
+        time.sleep(0.02)
+    os.killpg(first.pid, signal.SIGKILL)
+    first.communicate()
+    at_kill = {s: sum(r["n"] for r in journal_records(
+        jdir / f"serve-{s}.journal") if r["kind"] == "batch")
+        for s in ("DWC", "TMR")}
+    if (any(a["class"] != "success" for a in answers)
+            or status.get("format") != "coast-serve-status"
+            or status["serving"]["requests"]["served"] < 8
+            or "coast_serve_served_total" not in prom
+            or "coast_serve_lane_leak_violations_total 0" not in prom):
+        fail(f"phase 34b: answers {answers}, status "
+             f"{status.get('serving')}")
+    if not 0 < at_kill["DWC"] < SERVE_N:
+        fail(f"phase 34b: the kill landed at {at_kill} of {SERVE_N} rows")
+    # The restart on the same directory, unthrottled; (a) runs meanwhile.
+    second = start_module("coast_tpu_torch",
+                          serve_argv(jdir, free_port(), 0.0))
+
+    # (a) Full width: matrixMultiply1024, both strategies.
+    t0 = time.perf_counter()
+    big = ServeEngine("matrixMultiply1024", batch_size=32, inject_share=0.5,
+                      seed=11, inject_n=256,
+                      journal_dir=str(work / "phase34_big"), device="cuda")
+    build_s = time.perf_counter() - t0
+    prover_s = {}
+    for s, lane in big._lanes.items():
+        t1 = time.perf_counter()
+        proof = prove_isolation(lane.prog, strategy=s)
+        prover_s[s] = round(time.perf_counter() - t1, 3)
+        if not (lane.proof.holds and proof.holds) or proof.vacuous:
+            fail(f"phase 34a: the {s} proof does not hold: "
+                 f"{proof.format()}")
+    with big:
+        t0 = time.perf_counter()
+        stream_on, _, _ = serve_burst(
+            big, [f"req-{i:03d}" for i in range(10)])
+        burst, lat, wall = serve_burst(
+            big, [f"burst-{i:03d}" for i in range(32)], ("DWC", "TMR"))
+        if not big.drain_injection(timeout_s=300.0):
+            fail(f"phase 34a: injection never drained ({big.error})")
+        inject_s = time.perf_counter() - t0
+        doc = big.summary()
+        codes = {s: big.lane_codes(s) for s in big._lanes}
+    if any(r["class"] != "success" for r in burst + stream_on):
+        fail(f"phase 34a: responses {burst}")
+    srv = doc["serving"]
+    if srv["lane_leak"]["violations"] or not srv["lane_leak"]["checks"]:
+        fail(f"phase 34a: lane leak {srv['lane_leak']}")
+    for s, lane in big._lanes.items():
+        clean = response_digest(lane.prog.run_batch(batch=1)["output"])
+        used = {r["digest"] for r in burst + stream_on
+                if r["strategy"] == s}
+        if used != {int(clean[0])}:
+            fail(f"phase 34a: {s} digests {sorted(used)} differ from the "
+                 f"fault-free run's {int(clean[0])}")
+        want = np.concatenate([
+            run_classified(lane.prog, lane.sched.slice(
+                lo, lo + 128).device_arrays())["code"].cpu().numpy()
+            for lo in range(0, 256, 128)])
+        if not np.array_equal(codes[s], want):
+            fail(f"phase 34a: {s} lane codes differ from run_batch of "
+                 f"the same rows")
+    with ServeEngine("matrixMultiply1024", batch_size=32, inject_share=0.0,
+                     seed=11, inject_n=256, device="cuda") as off:
+        stream_off, _, _ = serve_burst(
+            off, [f"req-{i:03d}" for i in range(10)])
+    if json.dumps(stream_on, sort_keys=True) \
+            != json.dumps(stream_off, sort_keys=True):
+        fail("phase 34a: the stream differs with injection lanes off")
+    p99 = lat[min(len(lat) - 1, int(np.ceil(0.99 * len(lat))) - 1)]
+    k1, k2 = hv.LAUNCHES, hc.LAUNCHES
+    launches[0] += k1
+    launches[1] += k2
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    log(f"phase 34a: ServeEngine matrixMultiply1024 batch 32, "
+        f"inject_share 0.5, 256 injections a strategy: built with both "
+        f"proofs HOLDING in {build_s:.2f} s (prover {prover_s} s); 32 "
+        f"requests served, all success, mix {srv['strategy_mix']}, "
+        f"{len(burst) / wall:.3f} requests/s, p99 latency {p99:.4f} s "
+        f"(max {lat[-1]:.4f} s); injection lanes "
+        f"{srv['inject']['lanes_done']} at "
+        f"{srv['inject']['lanes_done'] / inject_s:.2f} inj/s (the 10- and "
+        f"32-request streams and the drain, {inject_s:.2f} s), counts "
+        f"{doc['counts']}; digests = the fault-free run_batch's; lane "
+        f"codes = run_batch of the same schedule rows; lane leaks 0 of "
+        f"{srv['lane_leak']['checks']}; the 10-request stream "
+        f"byte-identical with inject_share 0.0; K1 {k1}, K2 {k2} [{card}]")
+
+    # (b) continued: the restarted process finishes the standing
+    # campaigns; SIGTERM ends it cleanly.
+    deadline = time.time() + 180
+    while any(sum(r["n"] for r in journal_records(
+            jdir / f"serve-{s}.journal") if r["kind"] == "batch") < SERVE_N
+            for s in ("DWC", "TMR")):
+        if second.poll() is not None or time.time() > deadline:
+            fail(f"phase 34b: the restarted process did not finish "
+                 f"(exit {second.poll()})")
+        time.sleep(0.1)
+    second.send_signal(signal.SIGTERM)
+    run = finish_cli(second, "phase 34b: serve restart")
+    launches[0] += run["k1"]
+    launches[1] += run["k2"]
+    for s in ("DWC", "TMR"):
+        got = np.concatenate([np.asarray(r["codes"], np.int32)
+                              for r in journal_records(
+                                  jdir / f"serve-{s}.journal")
+                              if r["kind"] == "batch"])
+        if not np.array_equal(got, fresh[s]):
+            fail(f"phase 34b: {s} codes after the kill and restart differ "
+                 f"from the uninterrupted run")
+    log(f"phase 34b: python -m coast_tpu_torch serve matrixMultiply "
+        f"--device cuda: 8 POST /v1/infer all success, /status "
+        f"coast-serve-status, /metrics coast_serve_*; SIGKILL'd at "
+        f"{at_kill} of {SERVE_N} rows, restarted on the same journals: "
+        f"{2 * SERVE_N} injection codes = the uninterrupted in-process "
+        f"run ({fresh_s:.1f} s); the restart reported K1 {run['k1']}, K2 "
+        f"{run['k2']} [{card}]")
+
+    # (c) The driver.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_smoke.main(["-d", "cuda"])
+    out = buf.getvalue().splitlines()
+    if rc != 0 or out[-1:] != ["Success!"]:
+        fail(f"phase 34c: serve_smoke -d cuda failed:\n{buf.getvalue()}")
+    launches[0] += hv.LAUNCHES
+    launches[1] += hc.LAUNCHES
+    log(f"phase 34c: serve_smoke -d cuda: Success! in "
+        f"{time.perf_counter() - t0:.1f} s ({out[0]}); K1 {hv.LAUNCHES}, "
+        f"K2 {hc.LAUNCHES} [{card}]")
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    log(f"phase 34: {time.perf_counter() - t_phase:.1f} s, K1 "
+        f"{launches[0]}, K2 {launches[1]} launches [{card}]")
+    if launches[0] <= 0:
+        fail(f"phase 34 launched K1 {launches[0]} times")
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -4512,6 +4852,14 @@ def main() -> None:
     phase32 = fleet_phase(work, card, CampaignRunner, hv, hc)
     new_launches.append(phase32)
     lap("phase 32")
+    # 33. The protection-regression CI.
+    phase33 = ci_phase(work, card, hv, hc)
+    new_launches.append(phase33)
+    lap("phase 33")
+    # 34. Continuous-protection serving.
+    phase34 = serve_phase(work, card, hv, hc)
+    new_launches.append(phase34)
+    lap("phase 34")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -4536,6 +4884,8 @@ def main() -> None:
         "launches_phase_30": phase30[0],
         "launches_phase_31": phase31[0],
         "launches_phase_32": phase32[0],
+        "launches_phase_33": phase33[0],
+        "launches_phase_34": phase34[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -4554,6 +4904,8 @@ def main() -> None:
         "launches_phase_30": phase30[1],
         "launches_phase_31": phase31[1],
         "launches_phase_32": phase32[1],
+        "launches_phase_33": phase33[1],
+        "launches_phase_34": phase34[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

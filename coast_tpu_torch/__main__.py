@@ -11,20 +11,14 @@ to know the module layout (the reference's verbs, in its order):
     python -m coast_tpu_torch analysis ...  # log analysis (alias)
     python -m coast_tpu_torch opt ...       # protect + run one program
 
-``ci`` and ``serve`` are not ported yet: they exit 2 naming ROADMAP
-Queue A items 19c and 19d.  The others forward to their module CLIs
-unchanged, which run on the card unless given ``-d cpu`` /
-``--device cpu``.
+Each verb forwards to its module CLI unchanged, which runs on the card
+unless given ``-d cpu`` / ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import sys
 from typing import List, Optional
-
-#: Verbs of the reference whose subsystem a later slice ports.
-LATER_VERBS = {"ci": "19c (protection-regression CI)",
-               "serve": "19d (continuous-protection serving)"}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -33,16 +27,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__.strip(), file=sys.stderr)
         return 0 if argv else 2
     verb, rest = argv[0], argv[1:]
-    if verb in LATER_VERBS:
-        print(f"Error, verb {verb!r} is not ported yet; see ROADMAP "
-              f"Queue A item {LATER_VERBS[verb]}", file=sys.stderr)
-        return 2
+    if verb == "ci":
+        from coast_tpu_torch.ci.__main__ import main as ci_main
+        return ci_main(rest)
     if verb == "profile":
         from coast_tpu_torch.obs.profile_cli import main as profile_main
         return profile_main(rest)
     if verb == "slo":
         from coast_tpu_torch.obs.slo_cli import main as slo_main
         return slo_main(rest)
+    if verb == "serve":
+        from coast_tpu_torch.serve.front import main as serve_main
+        return serve_main(rest)
     if verb == "fleet":
         from coast_tpu_torch.fleet.supervisor import main as fleet_main
         return fleet_main(rest)

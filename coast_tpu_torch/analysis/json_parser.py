@@ -759,7 +759,7 @@ def class_comparison(base: Summary, new: Summary,
                      z: float = 1.96) -> Dict[str, object]:
     """Per-class Wilson-interval comparison of two summaries: the
     distribution-drift half of :func:`compare_runs` and the verdict
-    kernel of the protection-regression CI (ROADMAP Queue A item 19).
+    kernel of the protection-regression CI (:mod:`coast_tpu_torch.ci`).
 
     Weight-aware by construction: a Summary's counts/n are over
     EFFECTIVE injections (equivalence-reduced logs multiply class

@@ -59,12 +59,19 @@ class CompileCache:
     queue's shared ``cache/`` directory.  Programs are built on
     ``device`` (the card unless the caller passes ``"cpu"``)."""
 
-    def __init__(self, root: str, device=device_mod.DEFAULT):
+    def __init__(self, root: str, device=device_mod.DEFAULT,
+                 program_hook=None):
+        """``program_hook(prog)`` is applied (in place) to every freshly
+        built protected program before any runner/key is derived from
+        it -- the seam the protection-regression CI's tests and smoke
+        driver use to seed a weakened build (e.g. dropping a commit
+        vote) into an otherwise stock worker.  None in production."""
         self.root = str(root)
         os.makedirs(os.path.join(self.root, "keys"), exist_ok=True)
         self.device = device_mod.resolve(device)
         self.counters: Dict[str, int] = {name: 0 for name in EVENTS}
         self.last_event: Optional[str] = None
+        self.program_hook = program_hook
         self._runners: Dict[str, Tuple[object, str]] = {}
         self._programs: Dict[Tuple[str, str, str], Tuple[object, str]] = {}
         # The persistent layer is the on-disk native build, there on any
@@ -122,9 +129,12 @@ class CompileCache:
         if memo_key not in self._programs:
             from coast_tpu_torch.inject.supervisor import build_program
             try:
-                self._programs[memo_key] = build_program(
+                prog, strategy = build_program(
                     benchmark, opt_passes, str(self.device),
                     placement=placement)
+                if self.program_hook is not None:
+                    self.program_hook(prog)
+                self._programs[memo_key] = (prog, strategy)
             except SystemExit as e:
                 # build_program is a CLI helper: it reports to stderr and
                 # exits.  A fleet worker must fail the ITEM, not itself.

@@ -10,7 +10,7 @@ under either package.  Two encodings exist on disk:
     placed by the runner at their historical header positions);
   * ``to_item()`` emits the fleet queue-item dict (``fault_model`` always
     present, ``stop_when`` an explicit null, ``delta_from`` only when
-    set).  The fleet itself is ROADMAP Queue A item 19.
+    set), which the fleet (:mod:`coast_tpu_torch.fleet`) enqueues.
 
 ``from_item`` / ``from_header`` invert the two encodings.
 """

@@ -21,8 +21,8 @@ The config format is the reference's, unchanged:
         args: []
 
 Where the port has no counterpart yet the harness refuses, naming the
-ROADMAP item: a ``.c`` benchmark (the restricted-C lifter, item 17d) and
-the drivers of unported subsystems (items 18 and 19).  PyYAML is imported
+ROADMAP item: a ``.c`` benchmark (the restricted-C lifter, item 17d).
+Every driver of ``fast.yml`` has its port.  PyYAML is imported
 only by :func:`main`: the card's machine may lack it, and ``FAST`` /
 ``FULL`` hold ``unittest/cfg/fast.yml`` and ``full.yml`` as dicts.
 """
@@ -48,15 +48,12 @@ class HarnessError(Exception):
     pass
 
 
-#: Drivers of subsystems the port does not have yet -> their ROADMAP item.
-LATER_DRIVERS = {"serve_smoke": "19d", "ci_smoke": "19c"}
-
 #: The drivers the port has (``coast_tpu_torch/testing/<name>.py``).
 PORTED_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                   "equiv_smoke", "train_smoke", "sparse_smoke",
                   "stencil_smoke", "propagation_smoke", "fused_smoke",
                   "obs_live_smoke", "slo_smoke", "fleet_smoke",
-                  "profile_smoke", "fuzz")
+                  "profile_smoke", "ci_smoke", "serve_smoke", "fuzz")
 
 _FAST_DRIVERS = ("resume_smoke", "stream_smoke", "faultmodel_smoke",
                  "equiv_smoke", "obs_live_smoke", "train_smoke",
@@ -190,11 +187,9 @@ def run_drivers(cfg: dict, quiet: bool = False, device: str = "cuda") -> int:
     driver runs."""
     import importlib
     for drv in cfg.get("drivers", ()):
-        name = drv["module"]
-        if name in LATER_DRIVERS:
-            raise HarnessError(
-                f"driver {name} is not ported yet; see ROADMAP Queue A "
-                f"item {LATER_DRIVERS[name]}")
+        if drv["module"] not in PORTED_DRIVERS:
+            raise HarnessError(f"no driver named {drv['module']!r}; the "
+                               f"drivers are {', '.join(PORTED_DRIVERS)}")
     ran = 0
     for drv in cfg.get("drivers", ()):
         name = drv["module"]
