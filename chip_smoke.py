@@ -7,7 +7,8 @@ Run it with one visible CUDA card, from any directory:
 
 Phases, in order; any failure exits non-zero:
 
-  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  1. the card's name and power limit (nvidia-smi), the Python, torch and
+     CUDA versions;
   2. build every kernel from coast_tpu_torch/csrc with nvcc (sm_90a);
   3. K1 (the vote kernel) against its plain PyTorch version on the card:
      seeded replica sets, n in {2, 3}, int32 and float32 with +-0 and NaN,
@@ -71,10 +72,10 @@ Phases, in order; any failure exits non-zero:
      each run a process of its own, working files under ``build/``),
      killed and resumed: matrixMultiply TMR dense with a streamed ndjson
      log, and crc16 DWC fused sparse multibit(k=4) with a json log,
-     262,144 injections at batch 4096, each once uninterrupted and once
-     killed with SIGKILL after 8 journaled batches, then ``--resume``:
+     32,768 injections at batch 4096, each once uninterrupted and once
+     killed with SIGKILL after 4 journaled batches, then ``--resume``:
      the same summary counts and per-injection log lines, and exactly
-     64 batch records;
+     8 batch records;
  15. out-of-memory degradation: matrixMultiply1024 TMR, 256 injections at
      batch 2048 (too large for the card), ``--max-retries 3``: a real
      CUDA out-of-memory error halves the batch until it fits, the journal
@@ -95,8 +96,8 @@ Phases, in order; any failure exits non-zero:
      formatter and the native encoder on the host: each time, the same
      bytes;
  19. the BASELINE regions (run before phase 18): aes, sha256, quicksort
-     and the CHStone suite under TMR, and quicksort under DWC, 2048
-     injections at batch 2048, seed 1, unfused and fused: fused = unfused
+     and the CHStone suite under TMR, and quicksort under DWC, 1024
+     injections at batch 1024, seed 1, unfused and fused: fused = unfused
      on every row, K1 and K2 launched exactly their per-trip counts (a
      CPU twin counts one trip's and one boundary's calls) times the loop
      trips, and the first 64 rows rerun on the CPU equal on every
@@ -117,8 +118,8 @@ Phases, in order; any failure exits non-zero:
      per-trip count a loop trip; 16 rows against the CPU outside the f32
      exemption); matrixMultiply, crc16, chstone_mips and crazyCF under
      TMR+CFCSS as phase 19 (4096 injections at 4096, unfused and fused, K1/K2
-     launches a trip, 256 rows against the CPU); a ``sections=["cfcss"]``
-     campaign on matrixMultiply: due_abort > 0, no SDC, 256 rows against
+     launches a trip, 64 rows against the CPU); a ``sections=["cfcss"]``
+     campaign on matrixMultiply: due_abort > 0, no SDC, 64 rows against
      the CPU;
  22. function scope and scheduling (run before phase 18): nestedCalls
      under each of the seven scope classes, TMR and DWC, and rtos_app
@@ -133,7 +134,7 @@ Phases, in order; any failure exits non-zero:
      lists plus ``rtos/kernel.config``), TMR and DWC: fault-free rows
      clean unfused and fused; 8,192 injections at batch 4096, seed 42,
      as phase 19 (fused = unfused, sparse = dense, K1/K2 launches a trip,
-     256 rows against the CPU), each with DUE_STACK_OVERFLOW and
+     64 rows against the CPU), each with DUE_STACK_OVERFLOW and
      DUE_ASSERT rows, its counts rolled up over ``rtos_sections``; the
      reference's recorded canonical campaign
      (``artifacts/rtos_campaign.json``, read as data) rerun on the card
@@ -284,6 +285,22 @@ Phases, in order; any failure exits non-zero:
      on the same journals (run meanwhile with (a)), its injection codes
      equal to an uninterrupted in-process run; (c) ``serve_smoke -d
      cuda``;
+ 35. the restricted-C front end (``frontend.lift_c``): (a) the pycparser
+     and gcc versions; (b) ``tests/c_sources/{mm9,crc16,gcd}.c`` lifted
+     on the card: gcc's printed words (``-O1 -fwrapv -funsigned-char``)
+     equal the lifted fault-free run's last output words and the oracle
+     (models/mm.py's XOR and 0 errors, models/crc16.py's CRC, the gcds of
+     gcd.c's arrays); TMR and DWC, 4096 injections at 4096, seed 1,
+     unfused and ``-fuseStep``: fused = unfused on every row, K1 and K2
+     launched exactly their per-trip counts times the trips, the first
+     512 rows rerun on the CPU equal on every column; inj/s, trips and
+     torch operators a trip; (c) ``python -m coast_tpu_torch.opt -TMR
+     -countErrors mm9.c`` and a supervisor campaign on crc16.c whose
+     reference-format log names the source on line 1, processes started
+     at the phase's start; (d) ``python -m coast_tpu_torch.testing.c_fuzz
+     -n 20 -d cuda -j 4`` (gcc against the lifted run on the card),
+     started at the phase's start, prints ``Success!``; each worker's
+     start-up and its seeds' gcc, lift and run seconds are logged;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
@@ -293,13 +310,18 @@ It prints the kernel table as one JSON line before the last (``ms``,
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-34, K2 those of phases 7b, 9-12, 14-17, 19-23 and
-25-31 (each
+9-12, 14-17 and 19-35, K2 those of phases 7b, 9-12, 14-17, 19-23,
+25-31 and 35 (each
 phase's counts set to 0 just before it and read just after; a supervisor
 process, a fleet or ci worker and a serve process report their own at
 exit, a SIGKILL'd one nothing).  It imports nothing of JAX or of the
-coast_tpu package.  ``launches_phase_28`` to ``launches_phase_34`` are
+coast_tpu package.  ``launches_phase_28`` to ``launches_phase_35`` are
 those phases' shares.
+
+No process outlives the script: it is the child subreaper of all it
+starts, names on stderr after each phase any process left there that it
+did not start itself, and kills and reaps every one at its exit, on a
+failure, on SIGTERM and at its own limit of 1,190 s.
 """
 
 from __future__ import annotations
@@ -327,9 +349,16 @@ sys.path.insert(0, str(ROOT))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 
 
-# Every process the script starts.  fail() and the script's exit kill
-# those still running (and what they started), so none outlives the script.
+# Every process the script starts.  The script is the child subreaper of
+# all that runs under it (become_subreaper), so a process whose parent
+# ends first -- multiprocessing's resource tracker behind c_fuzz's worker
+# pool, what a killed supervisor or fleet worker left -- is handed to the
+# script rather than to init.  fail() and the script's exit kill and reap
+# every child still there, so none outlives the script.
 CHILDREN: list = []
+PR_SET_CHILD_SUBREAPER = 36
+# The script's own time limit, a little short of the 1,200 s it is given.
+DEADLINE_S = 1190
 
 
 def spawn(argv, **kw) -> subprocess.Popen:
@@ -340,14 +369,75 @@ def spawn(argv, **kw) -> subprocess.Popen:
     return proc
 
 
+def become_subreaper() -> None:
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail("prctl(PR_SET_CHILD_SUBREAPER) failed: "
+             f"{os.strerror(ctypes.get_errno())}")
+
+
+def own_children() -> dict:
+    """pid -> (state, command line) of every process, running or not yet
+    reaped, whose parent is this script."""
+    me = str(os.getpid())
+    found = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                comm, rest = fh.read().split("(", 1)[1].rsplit(")", 1)
+            fields = rest.split()
+            if fields[1] != me:
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # A zombie has no command line left: its name stands in.
+        found[int(entry)] = (fields[0], cmd.strip()[:300] or f"[{comm}]")
+    return found
+
+
+def name_strays(where: str) -> None:
+    """Name on stderr each child of the script that it did not start
+    through :func:`spawn` and that is still there after ``where``: an
+    orphan handed to it, or a process a phase did not wait for."""
+    known = {proc.pid for proc in CHILDREN}
+    for pid, (state, cmd) in sorted(own_children().items()):
+        if pid not in known:
+            print(f"chip_smoke: after {where}: process {pid} (state "
+                  f"{state}) is left: {cmd}", file=sys.stderr, flush=True)
+
+
 def stop_children() -> None:
+    # Kill each running child's session, then kill and reap every child
+    # of the script (those, what was handed to it or never waited for),
+    # and then what they leave in turn.  Reaped with waitpid, not
+    # Popen.wait, which a signal handler cannot call while the main
+    # thread is inside it.
     for proc in CHILDREN:
         if proc.poll() is None:
             try:
                 os.killpg(proc.pid, signal.SIGKILL)
             except ProcessLookupError:
                 pass
-            proc.wait()
+    for _ in range(100):
+        left = own_children()
+        if not left:
+            return
+        for pid, (state, cmd) in sorted(left.items()):
+            print(f"chip_smoke: stopping process {pid} (state {state}): "
+                  f"{cmd}", file=sys.stderr, flush=True)
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            try:
+                os.waitpid(pid, 0)
+            except ChildProcessError:
+                pass
 
 
 atexit.register(stop_children)
@@ -2058,9 +2148,9 @@ def cfcss_regions(board: str, card: str, TMR, REGISTRY, CampaignRunner, hv,
     per-trip count (a CPU twin's) a loop trip plus the boundary a batch,
     and the first 16 rows equal the CPU's outside the f32 exemption.  Then
     the integer regions under TMR+CFCSS through ``region_cases`` (unfused
-    and fused, K1/K2 launches, 256 rows against the CPU), and a
+    and fused, K1/K2 launches, ``cpu_rows`` rows against the CPU), and a
     ``sections=["cfcss"]`` campaign on matrixMultiply: detected or
-    harmless, never an SDC, its first 256 rows equal the CPU's.  Returns
+    harmless, never an SDC, its first ``cpu_rows`` rows equal the CPU's.  Returns
     the (K1, K2) launches."""
     device = "cpu" if board == "cpu" else "cuda"
     t_phase = time.perf_counter()
@@ -2283,8 +2373,8 @@ def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
     """Phase 23: rtos_mm and rtos_kUser under the canonical config, TMR
     and DWC: fault-free rows clean, unfused and fused; then ``n``
     injections at ``batch``, seed ``seed``, through ``region_cases``
-    (fused = unfused, sparse = dense, K1/K2 launches a trip, 256 rows
-    against the CPU), each with DUE_STACK_OVERFLOW and DUE_ASSERT rows and
+    (fused = unfused, sparse = dense, K1/K2 launches a trip, ``cpu_rows``
+    rows against the CPU), each with DUE_STACK_OVERFLOW and DUE_ASSERT rows and
     its counts rolled up over ``rtos_sections``; the reference's recorded
     canonical campaign (``artifacts/rtos_campaign.json``: rtos_mm TMR,
     2,048 rows at 256, seed 42) rerun on the card, its counts equal; then
@@ -4603,6 +4693,195 @@ def serve_phase(work: Path, card: str, hv, hc) -> tuple:
     return tuple(launches)
 
 
+# Phase 35: the restricted-C front end on the card (ROADMAP item 17d, part
+# 2): three sources of tests/c_sources and the fuzz tier.
+C_SOURCES = ("mm9", "crc16", "gcd")
+
+
+def c_oracle(name: str, path: Path) -> list:
+    """The words a fault-free run of source ``name`` prints last, from the
+    port's models (mm9: the XOR and 0 errors, crc16: the CRC) or, for
+    gcd, from the arrays of its source."""
+    import math
+    if name == "mm9":
+        from coast_tpu_torch.models import mm
+        return [mm.make_region().meta["golden_xor"], 0]
+    if name == "crc16":
+        from coast_tpu_torch.models import crc16
+        return [crc16.GOLDEN]
+    text = path.read_text()
+    arrays = []
+    for key in ("a_in[N] = {", "b_in[N] = {"):
+        body = text.split(key, 1)[1].split("}", 1)[0]
+        arrays.append([int(w.rstrip("u"))
+                       for w in body.replace(",", " ").split()])
+    gs = [math.gcd(x, y) for x, y in zip(*arrays)]
+    x = 0
+    for g in gs:
+        x ^= g
+    return [x, sum(gs) & 0xFFFFFFFF]
+
+
+def gcc_prints(path: Path, work: Path) -> list:
+    exe = work / (path.stem + ".bin")
+    got = subprocess.run(["gcc", "-O1", "-fwrapv", "-funsigned-char", "-w",
+                          "-o", str(exe), str(path)], capture_output=True,
+                         text=True, timeout=120)
+    if got.returncode != 0:
+        fail(f"gcc could not build {path.name}: {got.stderr.strip()}")
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         timeout=60)
+    return [int(w) for w in out.stdout.split() if w.lstrip("-").isdigit()]
+
+
+def c_frontend_phase(work: Path, card: str, TMR, DWC, CampaignRunner, hv,
+                     hc, fs, n: int = 4096, cpu_rows: int = 512) -> tuple:
+    """Phase 35: (a) the pycparser and gcc versions; (b) each source of
+    ``tests/c_sources`` lifted on the card (``lift_c``): gcc's printed
+    words equal the lifted fault-free output's last words and the oracle;
+    TMR and DWC, ``n`` rows at ``n``, unfused and ``-fuseStep``: fused =
+    unfused on every row, K1/K2 launches exactly their per-trip counts,
+    the first ``cpu_rows`` rows equal a CPU rerun; (c) ``opt -TMR
+    mm9.c`` and a supervisor campaign on crc16.c whose reference-format
+    log names the source on line 1, as processes started at the phase's
+    start; (d) ``c_fuzz -n 20 -d cuda -j 4``, started with them, prints
+    Success!, and each worker's start-up and seconds of gcc, lift and
+    run are logged.  Returns the (K1, K2) launches."""
+    import pycparser
+
+    from coast_tpu_torch.frontend import lift_c
+    gcc = subprocess.run(["gcc", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    if gcc.returncode != 0:
+        fail("gcc is not on this machine")
+    log(f"pycparser {pycparser.__version__}; "
+        f"{gcc.stdout.splitlines()[0]} [{card}]")
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    src = {name: ROOT / "tests" / "c_sources" / f"{name}.c"
+           for name in C_SOURCES}
+    sup_dir = work / "c_crc16"
+    sup_dir.mkdir()
+    procs = {
+        "opt": spawn([sys.executable, "-m", "coast_tpu_torch.opt", "-TMR",
+                      "-countErrors", str(src["mm9"])], cwd=ROOT, env=env,
+                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                     text=True),
+        "fuzz": spawn([sys.executable, "-m",
+                       "coast_tpu_torch.testing.c_fuzz", "-n", "20", "-d",
+                       "cuda", "-j", "4"], cwd=ROOT, env=env,
+                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                      text=True),
+        "supervisor": start_cli(["-f", str(src["crc16"]), "-t", str(n),
+                                 "--batch-size", str(n), "--seed", "1",
+                                 "--log-format", "reference", "-l",
+                                 str(sup_dir)], "gpu"),
+    }
+    launches = [0, 0]
+    for name, path in src.items():
+        t0 = time.perf_counter()
+        region = lift_c(name, [str(path)])
+        lifted_s = time.perf_counter() - t0
+        final = region.run_unprotected("cuda")
+        words = region.output({k: v.unsqueeze(0) for k, v in final.items()}
+                              )[0].cpu().numpy().view(np.uint32)
+        want = c_oracle(name, path)
+        printed = gcc_prints(path, work)
+        got = [int(w) for w in words[-len(want):]]
+        if printed != want or got != want:
+            fail(f"{name}.c: gcc prints {printed}, the lifted run on the "
+                 f"card {got}, the oracle {want}")
+        log(f"{name}.c: lifted in {lifted_s:.1f} s ({len(region.spec)} "
+            f"leaves, {region.nominal_steps} steps), prints {got} = gcc's "
+            f"= the oracle [{card}]")
+        for strat in (TMR, DWC):
+            label = f"{name}.c {strat.__name__}"
+            results = {}
+            for fused in (False, True):
+                prog = strat(region, fuse_step=fused)
+                trip, boundary, ops = sync_launches(prog, hv, fs)
+                trips = count_trips(prog)
+                hv.LAUNCHES = hc.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = CampaignRunner(prog, strategy_name=strat.__name__).run(
+                    n, seed=1, batch_size=n)
+                wall = time.perf_counter() - t0
+                got_l = (hv.LAUNCHES, hc.LAUNCHES)
+                want_l = (trip[0] * trips[0] + boundary, trip[1] * trips[0])
+                if got_l != want_l:
+                    fail(f"{label} fused={fused}: K1/K2 launches {got_l}, "
+                         f"not {want_l}")
+                if strat is TMR and fused and got_l[1] <= 0:
+                    fail(f"{label} -fuseStep launched K2 no time")
+                if got_l[0] <= 0 and not fused:
+                    fail(f"{label} launched K1 no time")
+                launches[0] += got_l[0]
+                launches[1] += got_l[1]
+                results[fused] = res
+                log(f"{label}{' -fuseStep' if fused else ''}: {res.counts} "
+                    f"{res.injections_per_sec:.1f} inj/s ({wall:.2f} s wall),"
+                    f" {trips[0]} trips of {ops} torch ops, K1 {got_l[0]}, "
+                    f"K2 {got_l[1]} [{card}]")
+            why = records_differ(results[False], results[True])
+            if why:
+                fail(f"{label}: fused and unfused records differ: {why}")
+            dense = results[False]
+            sub = dense.schedule.slice(0, cpu_rows)
+            t0 = time.perf_counter()
+            cpu = CampaignRunner(strat(region, device="cpu")).run_schedule(
+                sub, batch_size=cpu_rows)
+            cpu_s = time.perf_counter() - t0
+            for col in COLUMNS:
+                bad = getattr(dense, col)[:cpu_rows] != getattr(cpu, col)
+                if bad.any():
+                    fail(f"{label}: {col} differs between the card and the "
+                         f"CPU on rows {np.flatnonzero(bad)[:10].tolist()}")
+            log(f"{label}: fused = unfused on every row, the first "
+                f"{cpu_rows} rows equal the CPU's ({cpu_s:.1f} s) [{card}]")
+
+    out, err = procs["opt"].communicate(timeout=600)
+    if procs["opt"].returncode != 0 or "E: 0" not in out:
+        fail(f"opt -TMR mm9.c exited {procs['opt'].returncode}: "
+             f"{out.strip()[-500:]} {err.strip()[-1500:]}")
+    log(f"python -m coast_tpu_torch.opt -TMR -countErrors mm9.c: "
+        f"{out.strip().splitlines()[-1]} [{card}]")
+    cli = finish_cli(procs["supervisor"], "supervisor -f crc16.c")
+    launches[0] += cli["k1"]
+    launches[1] += cli["k2"]
+    log_path = sup_dir / "crc16_TMR_memory.json"
+    with open(log_path) as fh:
+        line1 = fh.readline().strip()
+        rows = json.load(fh)
+    if line1 != os.path.realpath(src["crc16"]) or len(rows) != n:
+        fail(f"supervisor -f crc16.c: line 1 {line1!r}, {len(rows)} rows")
+    log(f"supervisor -f crc16.c -t {n}: {cli['summary']['injections']} "
+        f"injections, line 1 of the reference-format log names the "
+        f"source, K1 {cli['k1']} [{card}]")
+    out, err = procs["fuzz"].communicate(timeout=600)
+    if procs["fuzz"].returncode != 0 or \
+            out.strip().splitlines()[-1:] != ["Success!"]:
+        fail(f"c_fuzz -n 20 -d cuda -j 4 exited {procs['fuzz'].returncode}: "
+             f"{out.strip()[-500:]} {err.strip()[-1500:]}")
+    log(f"python -m coast_tpu_torch.testing.c_fuzz -n 20 -d cuda -j 4: "
+        f"Success!, read {time.perf_counter() - t_phase:.1f} s into the "
+        f"phase [{card}]")
+    sums = {}
+    for line in err.splitlines():
+        m = re.match(r"worker (\d+) seed \d+: gcc ([\d.]+) s, lift "
+                     r"([\d.]+) s, run ([\d.]+) s$", line)
+        if m:
+            acc = sums.setdefault(m.group(1), [0.0, 0.0, 0.0])
+            for j in range(3):
+                acc[j] += float(m.group(j + 2))
+    for line in err.splitlines():
+        m = re.match(r"worker (\d+): started", line)
+        if m:
+            g, li, r = sums.get(m.group(1), (0.0, 0.0, 0.0))
+            log(f"  c_fuzz {line}; its seeds: gcc {g:.2f} s, lift "
+                f"{li:.2f} s, run {r:.2f} s [{card}]")
+    return tuple(launches)
+
+
 def main() -> None:
     try:
         import torch
@@ -4632,6 +4911,13 @@ def main() -> None:
     if "jax" in sys.modules or any(m.startswith("coast_tpu.")
                                    for m in sys.modules):
         fail("the port pulled in jax or the coast_tpu package")
+    become_subreaper()
+    # A run cut from outside (SIGTERM) or past its 1,200 s limit stops
+    # its children itself rather than leave them running.
+    signal.signal(signal.SIGTERM, lambda *_: fail("terminated (SIGTERM)"))
+    signal.signal(signal.SIGALRM,
+                  lambda *_: fail(f"still running after {DEADLINE_S} s"))
+    signal.alarm(DEADLINE_S)
 
     # 1. Card and versions.
     smi = subprocess.run(
@@ -4641,8 +4927,8 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+        f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_start = t_lap = time.perf_counter()
 
     def lap(what: str) -> None:
@@ -4651,6 +4937,7 @@ def main() -> None:
         nonlocal t_lap
         now = time.perf_counter()
         log(f"wall {what}: {now - t_lap:.1f} s [{card}]")
+        name_strays(what)
         t_lap = now
 
     # 2. Build.
@@ -4776,7 +5063,10 @@ def main() -> None:
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cli_launches, first = kill_resume(work, "gpu", card)
+    # 32,768 injections, an eighth of the earlier 262,144: phase 35
+    # needed the time (8 batches a campaign still hold the kill at
+    # batch 4).
+    cli_launches, first = kill_resume(work, "gpu", card, n=32768, kill_at=4)
     new_launches += [
         cli_launches,
         oom_degrade(work, "gpu", card, torch, TMR, REGISTRY, CampaignRunner,
@@ -4787,28 +5077,33 @@ def main() -> None:
     lap("phases 14-17")
     # 19. The BASELINE regions: aes, sha256, quicksort and the CHStone
     # suite.
-    # Its CPU reruns cover 64 rows a case: the script's time limit.
+    # Its CPU reruns cover 64 rows a case, and its campaigns 1,024
+    # injections (2,048 until phase 35 took the time): the script's limit.
     new_launches.append(baseline_regions(
         work, "gpu", card, torch, TMR, DWC, REGISTRY, CampaignRunner, hv, hc,
-        fs, cpu_rows=64))
+        fs, n=1024, cpu_rows=64))
     lap("phase 19")
     # 20. The rest of the registry: the corpus, the float regions and
-    # towersOfHanoi with -protectStack.
+    # towersOfHanoi with -protectStack.  Phases 20-23 rerun 64 rows a
+    # case on the CPU (256 until phase 35 needed the time).
     new_launches.append(corpus_regions(
-        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs,
+        cpu_rows=64))
     lap("phase 20")
     # 21. BASELINE config 5: CFCSS stacked with TMR.
     new_launches.append(cfcss_regions(
         "gpu", card, TMR, REGISTRY, CampaignRunner, hv, hc, fs,
-        order_sensitive))
+        order_sensitive, cpu_rows=64))
     lap("phase 21")
     # 22. Function scope, segmented scheduling and the CFCSS CLI.
     new_launches.append(scope_regions(
-        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs,
+        cpu_rows=64))
     lap("phase 22")
     # 23. The preemptive RTOS kernel targets with their guards.
     new_launches.append(rtos_kernel_targets(
-        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs))
+        work, "gpu", card, TMR, DWC, REGISTRY, CampaignRunner, hv, hc, fs,
+        cpu_rows=64))
     lap("phase 23")
     # 24. The protected training step.
     new_launches.append(train_regions(
@@ -4860,6 +5155,11 @@ def main() -> None:
     phase34 = serve_phase(work, card, hv, hc)
     new_launches.append(phase34)
     lap("phase 34")
+    # 35. The restricted-C front end: three C sources and the fuzz tier.
+    phase35 = c_frontend_phase(work, card, TMR, DWC, CampaignRunner, hv, hc,
+                               fs)
+    new_launches.append(phase35)
+    lap("phase 35")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -4886,6 +5186,7 @@ def main() -> None:
         "launches_phase_32": phase32[0],
         "launches_phase_33": phase33[0],
         "launches_phase_34": phase34[0],
+        "launches_phase_35": phase35[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -4906,6 +5207,7 @@ def main() -> None:
         "launches_phase_32": phase32[1],
         "launches_phase_33": phase33[1],
         "launches_phase_34": phase34[1],
+        "launches_phase_35": phase35[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

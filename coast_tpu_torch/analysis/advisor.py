@@ -385,12 +385,16 @@ def main(argv=None) -> int:
     # Name validation first, so an internal KeyError inside a valid
     # model's make_region() surfaces as itself.
     if not args.benchmark.endswith(".c") and args.benchmark not in REGISTRY:
-        ap.error(f"unknown benchmark: {args.benchmark!r}")
+        ap.error(f"unknown benchmark: {args.benchmark!r} (or pass a .c "
+                 "source path)")
+    from coast_tpu_torch.frontend import LiftError
     try:
-        region = resolve_region(args.benchmark)
-    except NotImplementedError as e:
+        region = resolve_region(args.benchmark, device=args.device)
+    except FileNotFoundError as e:
+        ap.error(f"file {e.args[0]} does not exist")
+    except LiftError as e:
         print(f"ERROR: {e}", file=sys.stderr)
-        return 2
+        return 1
 
     adv = advise(region, budget=args.e,
                  target_harm=args.t, seed=args.seed,

@@ -65,6 +65,12 @@ def _register() -> None:
     lib = torch.library.Library("coast_lint", "DEF")
     lib.define("tag(Tensor x, str name) -> Tensor")
     lib.impl("tag", lambda x, name: x.clone(), "CPU")
+    # Under vmap (a lifted step's replay) the tag marks the batched
+    # value as it is.
+    torch.library.register_vmap(
+        "coast_lint::tag",
+        lambda info, in_dims, x, name: (torch.ops.coast_lint.tag(x, name),
+                                        in_dims[0]), lib=lib)
     _LIB = lib
 
 

@@ -47,6 +47,7 @@ COAST.h ``__xMR`` / ``__NO_xMR`` macros.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -58,6 +59,7 @@ from coast_tpu_torch.ir.graph import BlockGraph, pick
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_REG, KIND_RO,
                                        FnNamespace, LeafSpec, Region, State,
                                        rows)
+from coast_tpu_torch.ops import voters
 from coast_tpu_torch.ops.indexing import row_select, row_update
 from coast_tpu_torch.passes.verification import analyze_step, reads_of
 
@@ -268,11 +270,13 @@ _HEAVY_OPS = ("mm", "bmm", "matmul", "addmm", "addmv", "baddbmm", "mv",
               "msort", "topk", "_fft_r2c", "_fft_c2r", "_fft_c2c")
 
 
-def _epilogue_is_heavy(ops) -> bool:
+def _epilogue_is_heavy(ops, eqns: Optional[int] = None) -> bool:
     """Epilogues with real work (a heavy operator, or enough operations to
     carry a cross-section) run as a final stepped transition inside the
-    injection window; trivial ones stay in output()."""
-    if len(ops) > 24:
+    injection window; trivial ones stay in output().  ``eqns``, where the
+    recorded code gave it, is the reference's equation count of the
+    piece, which its rule weighs in place of the aten operations."""
+    if (len(ops) if eqns is None else eqns) > 24:
         return True
     return any(op.packet in _HEAVY_OPS for op in ops)
 
@@ -416,6 +420,7 @@ class _Lifted:
         literal = tape.literal
         env = set(arg_vids) | {v for op in self.prologue for v in op.outs}
         env |= {v for v, t in tape.consts.items() if v not in literal}
+        fixed = tape.fixed
         produced_after = {v for seg in self.segments for op in seg
                           for v in op.outs}
         for lp in self.loops:
@@ -426,7 +431,7 @@ class _Lifted:
         seen = set()
 
         def visit(v):
-            if v is None or v in literal or v in seen:
+            if v is None or v in literal or v in fixed or v in seen:
                 return
             seen.add(v)
             if v in env and v not in produced_after:
@@ -442,8 +447,18 @@ class _Lifted:
         for v in self.out_vids:
             visit(v)
         self.g_map: Dict[int, str] = {}
+        # Interlude values later phases read (``m<i>`` leaves; a
+        # multi-phase build fills it in).
+        self.mm_map: Dict[int, str] = {}
         self.baked: Dict[int, torch.Tensor] = {v: tape.val[v]
                                                for v in literal}
+        self.baked.update(fixed)
+        # The reference's equation count of each piece after a loop, where
+        # the recorded code said (the C front end).
+        self.seg_eqns = [sum(n for at, n in tape.eqns
+                             if bounds[p] <= at < bounds[p + 1])
+                         if tape.eqns else None
+                         for p in range(len(self.loops))]
         for v in needed:
             if tape.dtype[v] in _32BIT:
                 self.g_map[v] = f"g{len(self.g_map)}"
@@ -467,6 +482,21 @@ class _Lifted:
                     self.arg_leaves.setdefault(index[v], leaf)
         self.out_words = sum(int(np.prod(o.shape, dtype=np.int64))
                              for o in out_leaves)
+
+    def leaf_values(self) -> Dict[str, torch.Tensor]:
+        """Each state leaf that holds a recorded value, with the tensor
+        it was made from (its first value)."""
+        out = {leaf: self.tape.val[v] for v, leaf in self.g_map.items()}
+        out.update({leaf: self.tape.val[v]
+                    for v, leaf in self.mm_map.items()})
+        for lp, ph in zip(self.loops, self.phases):
+            out.update(zip(ph.leaf_names_by_position(), lp.in_objs))
+            p = ph.prefix
+            if lp.prim == "scan":
+                ys = lp.out_vids[lp.n_carry:]
+                out.update({f"{p}y{j}": self.tape.val[v]
+                            for j, v in enumerate(ys)})
+        return out
 
     def program(self, ops, state_vids: Dict[int, str],
                 outs: List[Optional[int]]) -> "_Segment":
@@ -511,6 +541,7 @@ def lift_fn(name: str,
             max_steps: Optional[int] = None,
             step_cap: int = 1 << 16,
             meta: Optional[dict] = None,
+            unsigned_of: Optional[Callable[[torch.Tensor], bool]] = None,
             device=device_mod.DEFAULT) -> Region:
     """Derive a Region from a whole function.
 
@@ -528,7 +559,9 @@ def lift_fn(name: str,
     multi-loop regions prefix phase leaves ``p<N>_`` and add ``_phase``
     and ``m<i>`` leaves for interlude values later phases read.
     ``meta["arg_leaves"]`` maps each flat argument index to the leaf it
-    became, where it has one."""
+    became, where it has one.  ``unsigned_of(tensor)`` (the C front end's)
+    says which recorded values the reference holds as uint32: each leaf
+    made from one gets ``LeafSpec.unsigned``, as does ``_outbuf``."""
     flat_args, args_td = loops.flatten(tuple(example_args))
     flat_args = [_to_tensor(x) for x in flat_args]
     rec = loops.Recording()
@@ -547,6 +580,14 @@ def lift_fn(name: str,
     region = build(name, lifted, annotations, default_xmr, max_steps,
                    step_cap, meta, device)
     _check_replay(region, out_leaves)
+    if unsigned_of is not None:
+        for leaf, t in lifted.leaf_values().items():
+            if leaf in region.spec and unsigned_of(t):
+                region.spec[leaf] = dataclasses.replace(region.spec[leaf],
+                                                        unsigned=True)
+        if "_outbuf" in region.spec:
+            region.spec["_outbuf"] = dataclasses.replace(
+                region.spec["_outbuf"], unsigned=True)
     return region
 
 
@@ -613,7 +654,7 @@ def _lift_fn_single(name, lifted: _Lifted, annotations, default_xmr,
                    for k, v in lifted.g_vals.items()})
         return st
 
-    if _epilogue_is_heavy(lifted.segments[0]):
+    if _epilogue_is_heavy(lifted.segments[0], lifted.seg_eqns[0]):
         # The epilogue runs as ONE extra stepped transition writing the
         # flattened output image into ``_outbuf`` -- inside the injection
         # window (the reference's exitMarker final memory image).  Both
@@ -706,9 +747,10 @@ def _lift_fn_multi(name, lifted: _Lifted, annotations, default_xmr,
                     mm_map[v] = f"m{len(mm_map)}"
                     m_producer[v] = p
 
+    lifted.mm_map = mm_map
     annotations = _force_ro_g_leaves(lifted.g_vals, annotations)
     later_in = [lp.in_vals for lp in lps]
-    stepped_epi = _epilogue_is_heavy(segments[m - 1])
+    stepped_epi = _epilogue_is_heavy(segments[m - 1], lifted.seg_eqns[m - 1])
 
     def state_vids(upto: int) -> Dict[int, str]:
         sv = dict(lifted.g_map)
@@ -765,12 +807,25 @@ def _lift_fn_multi(name, lifted: _Lifted, annotations, default_xmr,
     def step(st, t):
         batch, dev = _batch(st), _device_of(st)
         ph = torch.clamp(st["_phase"], 0, m - 1)
+        # The phases some row is in, in one host read: another phase's
+        # work would be selected away (a capture records every phase, as
+        # the reference's switch under vmap computes every branch).
+        live = ([True] * m if voters.CAPTURE else
+                (torch.bincount(ph.reshape(-1), minlength=m) > 0).tolist())
         out: Dict[str, torch.Tensor] = {}
         for p in range(m):
+            if not live[p]:
+                continue
             br = _select(phases[p].phase_done(st, batch, dev),
                          transition(p, st, batch, dev),
                          phases[p].iter_step(st, batch, dev), st)
-            out = _select(ph == p, br, out, st)
+            # A leaf phase p leaves alone keeps ``out``'s value: rows in
+            # phase p hold the base value there already.
+            in_p = ph == p
+            for k, v in br.items():
+                prev = out.get(k, st[k])
+                out[k] = v if v is prev else torch.where(rows(in_p, v), v,
+                                                         prev)
         return out
 
     def done(st):

@@ -14,13 +14,25 @@ program:
     input and output values), the code the lifted step replays;
   * the loop's body (and a ``while``'s condition) is recorded once on a
     tape of its own, over fresh copies of its carries and its first
-    scanned row, then the loop runs eagerly to its end (so the function
-    goes on with real values);
+    scanned row, then the recorded body is replayed on one row to the
+    loop's end (so the function goes on with real values, and its
+    Python runs once however many trips the loop takes);
   * the tensors the body reads that are neither a carry nor a scanned
     input are its captures: ``jax.lax`` closure-converts them into the
     loop's leading ``consts``, in first-use order, and so does this
     module.  A 0-d tensor made outside the function is a literal (JAX
     inlines scalar constants), not a capture.
+
+A ``while_loop`` met while a body is recorded (a nested loop whose trip
+count is data) is one :class:`LoopOp` of that body's tape: its condition
+and body recorded on tapes of their own.  It cannot run under ``vmap``, so
+:meth:`Program.rows` cuts the body's operations at it: the straight runs
+go under ``vmap``, the loop runs over the explicit row axis with JAX's
+batched-``while`` rule (every row steps while any row's condition holds,
+one host read an iteration; a finished row keeps its carry).  A nested
+``scan`` is unrolled on the tape.  A recorded body is simplified for its
+replay: operations on constants alone are folded into constants, and an
+operation that repeats an earlier one reads the earlier one's value.
 
 The two forwarding rules of ``jax.lax`` are kept, because they decide the
 reference's leaf layout: a carry the body returns unchanged moves to the
@@ -34,11 +46,13 @@ A Python number in a carry becomes a 0-d int32 / float32 tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from coast_tpu_torch.ops import voters
 from coast_tpu_torch.ops.indexing import clamp_index
 
 # ---------------------------------------------------------------------------
@@ -47,9 +61,18 @@ from coast_tpu_torch.ops.indexing import clamp_index
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; ``treedef`` rebuilds the tree (:func:`unflatten`)."""
+    """``(leaves, treedef)``; ``treedef`` rebuilds the tree (:func:`unflatten`).
+
+    An object with ``tree_flatten()`` -> ``(children, aux)`` and a
+    classmethod ``tree_unflatten(aux, children)`` is a node, as a
+    registered pytree class is in JAX (the C front end's words and 64-bit
+    limb pairs)."""
     if tree is None:
         return [], None
+    if hasattr(tree, "tree_flatten") and not isinstance(tree, type):
+        children, aux = tree.tree_flatten()
+        leaves, d = flatten(tuple(children))
+        return leaves, ("node", type(tree), aux, d)
     if isinstance(tree, (tuple, list)):
         leaves, defs = [], []
         for x in tree:
@@ -73,6 +96,9 @@ def unflatten(treedef, leaves: List[Any]):
         return None
     if treedef == "leaf":
         return leaves[0]
+    if treedef[0] == "node":
+        _, cls, aux, d = treedef
+        return cls.tree_unflatten(aux, unflatten(d, leaves))
     kind, defs = treedef
     out, at = [], 0
     if kind is dict:
@@ -133,6 +159,96 @@ class Op:
     where: List[tuple]
 
 
+@dataclasses.dataclass
+class LoopOp(Op):
+    """A data-dependent ``while_loop`` met while a loop body was being
+    recorded: one operation of that body's tape.  ``ins`` are the
+    condition's captures (``n_cond``), the body's captures (``n_body``)
+    and the carries; ``outs`` the final carries.  ``cond`` and ``body``
+    are :class:`Program` over (captures, carries).  It cannot run under
+    ``vmap`` (its trip count is data): :meth:`Program.rows` runs it over
+    the explicit row axis, as JAX runs a batched ``while``."""
+
+    cond: Any = None
+    body: Any = None
+    n_cond: int = 0
+    n_body: int = 0
+
+    def run_rows(self, vals: List[torch.Tensor], batch: int,
+                 device: torch.device) -> List[torch.Tensor]:
+        """JAX's batched ``while``: every row steps while any row's
+        condition holds; a row whose condition failed keeps its carry."""
+        cc = vals[:self.n_cond]
+        bc = vals[self.n_cond:self.n_cond + self.n_body]
+        carry = list(vals[self.n_cond + self.n_body:])
+        (active,) = self.cond.rows(cc + carry, batch, device)
+        while bool(active.any()):
+            # The condition decides the trip count: a branch predicate of
+            # the step, as the reference's dataflow reads a while.
+            voters.tag(active, "coast:branch_pred")
+            new = self.body.rows(bc + carry, batch, device)
+            carry = [select_rows(active, n, c) for n, c in zip(new, carry)]
+            (active,) = self.cond.rows(cc + carry, batch, device)
+        return carry
+
+
+def select_rows(pred: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``a`` where ``pred`` holds (one flag a leading row, or a 0-d flag),
+    else ``b``.  Integer words take a bitwise select, so the dataflow
+    reads it as data through the mask (the branch role is a separate
+    tag), not as one more ``where`` joined with the program's own."""
+    m = pred.reshape(tuple(pred.shape) + (1,) * (a.dim() - pred.dim()))
+    if a.dtype in (torch.int32, torch.int64):
+        return b ^ ((a ^ b) & -m.to(a.dtype))
+    return torch.where(m, a, b)
+
+
+def mark(x: torch.Tensor, name: str) -> None:
+    """Record a lint tag of ``x`` on the tape recording now: the replay
+    calls ``voters.tag`` (an identity unless a lint capture records), so
+    a captured step shows ``x`` in the role ``name``."""
+    rec = _ACTIVE
+    if rec is None:
+        return
+    tape = rec.tape if rec.depth == 0 else rec.recording_tape()
+    if tape is None or tape.paused:
+        return
+    vid = tape.value_of(x)
+    tape.ops.append(Op(func=functools.partial(_tag_value, name=name),
+                       packet="coast_tag", args=(Ref(vid),), kwargs={},
+                       ins=[vid], outs=[], where=[]))
+
+
+def unliteral(t: torch.Tensor) -> None:
+    """``t``, just made by an operation on the tape recording now, is a
+    traced value, not a literal, even when all it read were literals: as
+    an equation's output is in a jaxpr (the C front end's arrays, whose
+    constants alone are concrete)."""
+    rec = _ACTIVE
+    if rec is None:
+        return
+    tape = rec.tape if rec.depth == 0 else rec.recording_tape()
+    if tape is None or tape.paused:
+        return
+    vid = tape.known(t)
+    if vid is not None and vid not in tape.consts:
+        tape.literal.discard(vid)
+
+
+def count_eqns(n: int) -> None:
+    """Note that the code recorded next is ``n`` equations of the
+    reference's jaxpr (read where the lift weighs an epilogue)."""
+    rec = _ACTIVE
+    if rec is None or rec.depth or rec.tape.paused or not n:
+        return
+    rec.tape.eqns.append((len(rec.tape.ops), n))
+
+
+def _tag_value(x: torch.Tensor, name: str) -> None:
+    voters.tag(x, name)
+
+
 class Tape(TorchDispatchMode):
     """Records every dispatched operation as an :class:`Op`.
 
@@ -152,6 +268,14 @@ class Tape(TorchDispatchMode):
         # Values JAX would hold as literals: 0-d tensors made outside the
         # function, and 0-d results of operations on literals alone.
         self.literal: set = set()
+        # A loop's result for a carry it hands back unchanged whose input
+        # was a literal: a value of its own (as the loop's output is in
+        # the reference), whose constant value the replay bakes.
+        self.fixed: Dict[int, torch.Tensor] = {}
+        # (op position, equations): the reference's equation count of the
+        # code recorded from that position (the C front end's arrays say
+        # what each of their operations is in the reference's jaxpr).
+        self.eqns: List[Tuple[int, int]] = []
         self.paused = False
         self._scalar: Optional[Tuple[int, int]] = None
         self._ids: Dict[int, int] = {}
@@ -332,13 +456,59 @@ class Program:
     values ``outputs``.  :meth:`rows` runs it over a leading row axis."""
 
     def __init__(self, ops: List[Op], inputs: List[int],
-                 outputs: List[int], baked: Dict[int, torch.Tensor]):
-        self.ops = ops
+                 outputs: List[int], baked: Dict[int, torch.Tensor],
+                 vals: Optional[Dict[int, torch.Tensor]] = None):
         self.inputs = list(inputs)
         self.outputs = list(outputs)
-        self.baked = baked
+        self.baked = dict(baked)
+        self.ops = ops if vals is None else self._fold(ops, vals)
         self._on: Dict[str, Dict[int, torch.Tensor]] = {}
 
+    def _fold(self, ops: List[Op], vals: Dict[int, torch.Tensor]
+              ) -> List[Op]:
+        """``ops`` simplified for the replay, with the same values:
+
+          * an op that reads constants alone is dropped, its recorded
+            value (``vals``) a constant: every row computes the same
+            value there (a nested static loop's counter, the index
+            arithmetic it feeds, a factory tensor);
+          * an op that repeats an earlier one (same operator, same
+            operands) is dropped, its values read from the earlier one's
+            (a nested loop unrolled on the tape recomputes the same index
+            of an outer carry at every trip).
+
+        Neither touches an op that writes in place, reads a value read
+        as a Python index, or is a loop; nor an op whose value a later op
+        writes in place."""
+        written = {_sub_id(op, key) for op in ops for kind, key in op.where
+                   if kind == "w"}
+        const = set(self.baked)
+        alias: Dict[int, int] = {}
+        seen: Dict[tuple, List[int]] = {}
+        kept = []
+        for op in ops:
+            if alias:
+                op = _renamed(op, alias)
+            pure = (not isinstance(op, LoopOp) and op.outs
+                    and op.packet != "_local_scalar_dense"
+                    and not any(k == "w" for k, _ in op.where)
+                    and not any(isinstance(a, ScalarRef) for a in op.args)
+                    and not any(v in written for v in op.outs))
+            if pure and all(v in const for v in op.ins) \
+                    and all(v in vals for v in op.outs):
+                for v in op.outs:
+                    self.baked[v] = vals[v]
+                    const.add(v)
+                continue
+            key = _op_key(op) if pure and op.ins else None
+            if key is not None and key in seen:
+                alias.update(zip(op.outs, seen[key]))
+                continue
+            if key is not None:
+                seen[key] = op.outs
+            kept.append(op)
+        self.outputs = [alias.get(v, v) for v in self.outputs]
+        return kept
     def _consts(self, device: torch.device) -> Dict[int, torch.Tensor]:
         key = str(device)
         if key not in self._on:
@@ -352,21 +522,134 @@ class Program:
         input itself (identity survives, as a jaxpr passthrough does)."""
         consts = self._consts(device)
         direct = {v: x for v, x in zip(self.inputs, values)}
-
-        def one(*xs):
-            env = dict(consts)
-            env.update(zip(self.inputs, xs))
-            replay(self.ops, env, device)
-            return tuple(env[v] for v in self.outputs)
-
-        if values:
-            got = torch.func.vmap(one)(*values)
+        if any(isinstance(op, LoopOp) for op in self.ops):
+            got = self._split_rows(values, batch, device, consts)
         else:
-            got = tuple(x.expand(batch, *x.shape) for x in one())
+            got = _vmapped(self.ops, self.inputs, values, self.outputs,
+                           consts, batch, device)
         out = []
         for v, g in zip(self.outputs, got):
             out.append(direct[v] if v in direct else g.contiguous())
         return out
+
+    def _split_rows(self, values, batch, device, consts):
+        """The ops in runs cut at each :class:`LoopOp`: a straight run
+        under ``vmap`` (it hands on every value a later piece reads), a
+        loop over the explicit row axis.  ``env`` holds row-batched
+        values; a constant a loop reads is expanded to the rows."""
+        if not hasattr(self, "_plan"):
+            self._plan = _split_plan(self.ops, self.outputs)
+        env = dict(zip(self.inputs, values))
+        for kind, ops, keep in self._plan:
+            if kind == "loop":
+                (op,) = ops
+                vals = []
+                for v in op.ins:
+                    x = env[v] if v in env else consts[v]
+                    if v not in env:
+                        x = x.expand(batch, *x.shape).contiguous()
+                    vals.append(x)
+                env.update(zip(op.outs, op.run_rows(vals, batch, device)))
+                continue
+            reads = [v for v in _reads_of(ops) if v in env]
+            env.update(zip(keep, _vmapped(ops, reads, [env[v] for v in reads],
+                                          keep, consts, batch, device)))
+        return [env[v] if v in env else
+                consts[v].expand(batch, *consts[v].shape)
+                for v in self.outputs]
+
+
+def _sub_id(op: Op, key) -> Optional[int]:
+    """The value id an op's argument ``key`` (position or name) holds."""
+    arg = op.args[key] if isinstance(key, int) else op.kwargs.get(key)
+    return int(arg) if isinstance(arg, Ref) else None
+
+
+def _renamed(op: Op, alias: Dict[int, int]) -> Op:
+    """``op`` reading ``alias[v]`` in place of each aliased value ``v``."""
+
+    def sub(x):
+        if isinstance(x, Ref) and int(x) in alias:
+            return type(x)(alias[int(x)])
+        if isinstance(x, (list, tuple)):
+            return type(x)(sub(a) for a in x)
+        return x
+
+    return dataclasses.replace(
+        op, args=tuple(sub(a) for a in op.args),
+        kwargs={k: sub(v) for k, v in op.kwargs.items()},
+        ins=[alias.get(v, v) for v in op.ins])
+
+
+def _op_key(op: Op) -> Optional[tuple]:
+    """A hashable key of an operation and its operands, or None."""
+
+    def frozen(x):
+        if isinstance(x, Ref):
+            return ("%", int(x))
+        if isinstance(x, (list, tuple)):
+            return tuple(frozen(a) for a in x)
+        if isinstance(x, torch.Tensor):
+            raise TypeError
+        return x
+
+    try:
+        key = (op.func, frozen(op.args),
+               tuple(sorted((k, frozen(v)) for k, v in op.kwargs.items())))
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _reads_of(ops: List[Op]) -> List[int]:
+    """The values ``ops`` read that they do not make, in first-read order."""
+    made, reads = set(), []
+    for op in ops:
+        for v in op.ins:
+            if v not in made and v not in reads:
+                reads.append(v)
+        made.update(op.outs)
+    return reads
+
+
+def _split_plan(ops: List[Op], outputs: List[int]):
+    """``[(kind, ops, keep)]``: runs of straight ops and single loops, each
+    straight run with the values it makes that a later piece or the
+    outputs read."""
+    pieces: List[Tuple[str, List[Op]]] = []
+    for op in ops:
+        if isinstance(op, LoopOp):
+            pieces.append(("loop", [op]))
+        elif pieces and pieces[-1][0] == "ops":
+            pieces[-1][1].append(op)
+        else:
+            pieces.append(("ops", [op]))
+    plan = []
+    later = set(outputs)
+    for kind, run in reversed(pieces):
+        made = [v for op in run for v in op.outs]
+        keep = [v for v in made if v in later] if kind == "ops" else []
+        plan.append((kind, run, keep))
+        for op in run:
+            later.update(op.ins)
+    return plan[::-1]
+
+
+def _vmapped(ops, inputs, values, outputs, consts, batch, device):
+    """``ops`` over a leading row axis of ``values`` (one per input)."""
+    if not outputs:
+        return ()
+
+    def one(*xs):
+        env = dict(consts)
+        env.update(zip(inputs, xs))
+        replay(ops, env, device)
+        return tuple(env[v] for v in outputs)
+
+    if values:
+        return torch.func.vmap(one)(*values)
+    return tuple(x.expand(batch, *x.shape) for x in one())
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +683,8 @@ class LoopRecord:
     ys_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = \
         dataclasses.field(default_factory=list)
     at_op: int = 0
+    # The input tensors themselves (``in_vals`` holds copies).
+    in_objs: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
 class Recording:
@@ -409,6 +694,13 @@ class Recording:
         self.tape = Tape()
         self.loops: List[LoopRecord] = []
         self.depth = 0
+        # The body tape being recorded, innermost last; None while a loop
+        # runs eagerly for its results (nothing records then).
+        self.tapes: List[Optional[Tape]] = []
+
+    def recording_tape(self) -> Optional[Tape]:
+        """The body tape a loop met now belongs on (depth > 0)."""
+        return self.tapes[-1] if self.tapes else None
 
     def __enter__(self):
         global _ACTIVE
@@ -452,9 +744,11 @@ class Recording:
         with torch.no_grad(), tape:
             in_vids = [tape.bind_input(c) for c in copies]
             self.depth += 1
+            self.tapes.append(tape)
             try:
                 out = fn(*trees)
             finally:
+                self.tapes.pop()
                 self.depth -= 1
             tape.close()
             leaves, td = flatten(out)
@@ -476,14 +770,27 @@ class Recording:
                 caps.append((vid, mv, t))
         return caps, baked
 
+    def _unchanged(self, t: torch.Tensor, vid: Optional[int]
+                   ) -> torch.Tensor:
+        """A loop's result for a carry its body hands back unchanged: the
+        input itself, or for a literal input a value of its own (the
+        reference's loop output is a traced value that a later loop
+        captures), baked as a constant where the lift replays it."""
+        if vid is not None:
+            return t
+        out = t.clone()
+        self.tape.fixed[self.tape.fresh(out)] = out
+        return out
+
     def _distinct(self, t: torch.Tensor) -> torch.Tensor:
         """``t``, or a copy when the main tape already holds it (a loop
         output is a new value)."""
         return t.clone() if self.tape.known(t) is not None else t
 
     def scan(self, f, init, xs, length, reverse):
-        """A depth-0 ``scan``: its phase recorded, its results computed
-        eagerly; the main tape records nothing meanwhile."""
+        """A depth-0 ``scan``: its phase recorded, its results from
+        replays of the recorded body; the main tape records nothing
+        meanwhile."""
         self.tape.close()
         self.tape.paused = True
         try:
@@ -532,22 +839,18 @@ class Recording:
         move = [carry_out[j] == c_in[j] for j in range(n_carry)]
         ys_fwd = [x_in.index(v) if v in x_in else None for v in ys_out]
 
-        # The loop runs eagerly (nothing recorded) for its results.
+        # The loop's results: the recorded body replayed one row a trip.
+        prog = Program(tape.ops, list(b_in[:n_carry])
+                       + [bv for bv, _, _ in caps] + list(x_in),
+                       list(b_out_vids), baked, tape.val)
         c = list(carry_leaves)
         ys_rows: List[List[torch.Tensor]] = [[] for _ in ys_out]
-        self.depth += 1
-        try:
-            order = range(length - 1, -1, -1) if reverse else range(length)
-            for i in order:
-                x = unflatten(xs_td, [xl[i] for xl in xs_leaves])
-                out = f(unflatten(carry_td, c), x)
-                leaves, _ = flatten(out)
-                leaves = [as_word(v) for v in leaves]
-                c = leaves[:n_carry]
-                for j, y in enumerate(leaves[n_carry:]):
-                    ys_rows[j].append(y)
-        finally:
-            self.depth -= 1
+        for i in (range(length - 1, -1, -1) if reverse else range(length)):
+            outs = _one_row(prog, c + [t for _, _, t in caps]
+                            + [xl[i] for xl in xs_leaves])
+            c = outs[:n_carry]
+            for j, y in enumerate(outs[n_carry:]):
+                ys_rows[j].append(y)
         ys_shapes = [(tuple(b_out[n_carry + j].shape),
                       b_out[n_carry + j].dtype) for j in range(len(ys_out))]
         ys = []
@@ -560,8 +863,8 @@ class Recording:
                       else torch.zeros((0, *shape), dtype=dtype))
         finals = []
         for j in range(n_carry):
-            finals.append(carry_leaves[j] if move[j]
-                          else self._distinct(c[j]))
+            finals.append(self._unchanged(carry_leaves[j], carry_in[j])
+                          if move[j] else self._distinct(c[j]))
 
         # jax.lax's layout: moved carries first among the consts.
         moved = [j for j in range(n_carry) if move[j]]
@@ -575,7 +878,7 @@ class Recording:
         prog_in = ([c_in[j] for j in moved] + [bv for bv, _, _ in cap_in]
                    + [c_in[j] for j in kept] + list(x_in))
         prog_out = [carry_out[j] for j in kept] + [ys_out[j] for j in ys_kept]
-        body = Program(tape.ops, prog_in, prog_out, baked)
+        body = Program(tape.ops, prog_in, prog_out, baked, tape.val)
         out_vids = ([main.fresh(finals[j]) for j in kept]
                     + [main.fresh(self._distinct(ys[j])) for j in ys_kept])
         # Re-read the kept outputs as the fresh objects just bound.
@@ -585,7 +888,7 @@ class Recording:
         for n, j in enumerate(ys_kept):
             ys[j] = kept_objs[len(kept) + n]
         self.loops.append(LoopRecord(
-            prim="scan", in_vids=in_vids,
+            prim="scan", in_vids=in_vids, in_objs=list(in_vals),
             in_vals=[x.clone() for x in in_vals], out_vids=out_vids,
             body=body, n_consts=len(moved) + len(cap_in),
             n_carry=len(kept), n_xs=len(xs_leaves), length=length,
@@ -613,16 +916,15 @@ class Recording:
         cond_reads = live_inputs(ctape.ops, c_out_vids)
         move = [b_out_vids[j] == b_in[j] and c_in[j] not in cond_reads
                 for j in range(n_carry)]
-        c = unflatten(carry_td, list(carry_leaves))
-        self.depth += 1
-        try:
-            while bool(as_word(flatten(cond_fn(c))[0][0])):
-                c = body_fn(c)
-        finally:
-            self.depth -= 1
-        c = [as_word(v) for v in flatten(c)[0]]
-        finals = [carry_leaves[j] if move[j] else self._distinct(c[j])
-                  for j in range(n_carry)]
+        c = _replay_while(
+            Program(ctape.ops, [bv for bv, _, _ in c_caps] + c_in,
+                    c_out_vids[:1], c_baked, ctape.val),
+            Program(btape.ops, [bv for bv, _, _ in b_caps] + b_in,
+                    b_out_vids, b_baked, btape.val),
+            [t for _, _, t in c_caps], [t for _, _, t in b_caps],
+            list(carry_leaves))
+        finals = [self._unchanged(carry_leaves[j], carry_in[j]) if move[j]
+                  else self._distinct(c[j]) for j in range(n_carry)]
         moved = [j for j in range(n_carry) if move[j]]
         kept = [j for j in range(n_carry) if not move[j]]
         in_vids = ([mv for _, mv, _ in c_caps]
@@ -635,20 +937,101 @@ class Recording:
         body = Program(btape.ops,
                        [b_in[j] for j in moved] + [bv for bv, _, _ in b_caps]
                        + [b_in[j] for j in kept],
-                       [b_out_vids[j] for j in kept], b_baked)
+                       [b_out_vids[j] for j in kept], b_baked, btape.val)
         cond = Program(ctape.ops,
                        [bv for bv, _, _ in c_caps] + [c_in[j] for j in kept],
-                       c_out_vids[:1], c_baked)
+                       c_out_vids[:1], c_baked, ctape.val)
         out_vids = [main.fresh(finals[j]) for j in kept]
         for n, j in enumerate(kept):
             finals[j] = main.val[out_vids[n]]
         self.loops.append(LoopRecord(
-            prim="while", in_vids=in_vids,
+            prim="while", in_vids=in_vids, in_objs=list(in_vals),
             in_vals=[x.clone() for x in in_vals],
             out_vids=out_vids, body=body, cond=cond, cn=len(c_caps),
             bn=len(moved) + len(b_caps), n_carry=len(kept),
             at_op=len(main.ops)))
         return unflatten(carry_td, finals)
+
+
+    def _run_eagerly(self, cond_fn, body_fn, val):
+        """A ``while`` run to its end on real values, nothing recorded."""
+        self.depth += 1
+        self.tapes.append(None)
+        try:
+            while bool(as_word(flatten(cond_fn(val))[0][0])):
+                val = body_fn(val)
+        finally:
+            self.tapes.pop()
+            self.depth -= 1
+        return val
+
+    # -- a data-dependent while inside a recorded body ------------------
+    def nested_while(self, outer: Tape, cond_fn, body_fn, init):
+        """Record a ``while_loop`` met while ``outer`` (a body tape) is
+        recording as one :class:`LoopOp` of ``outer``: its condition and
+        body on tapes of their own, their captures read from ``outer`` in
+        first-use order (the condition's, then the body's, as JAX traces
+        them), then the loop run eagerly for its results."""
+        outer.close()
+        outer.paused = True
+        try:
+            carry_leaves, carry_td = flatten(init)
+            carry_leaves = [as_word(c) for c in carry_leaves]
+            init = unflatten(carry_td, carry_leaves)
+            n_carry = len(carry_leaves)
+            ctape, c_in, _, _, c_out = self._body_tape(cond_fn, [init])
+            btape, b_in, _, _, b_out = self._body_tape(body_fn, [init])
+            if len(b_out) != n_carry:
+                raise TypeError("while_loop body must return the carry")
+            progs, caps = [], []
+            for tape, t_in, t_out in ((ctape, c_in, c_out[:1]),
+                                      (btape, b_in, b_out)):
+                own, baked = [], {}
+                for vid in sorted(tape.consts):
+                    t = tape.consts[vid]
+                    ov = outer.known(t)
+                    if ov is None and t.dim() == 0:
+                        baked[vid] = t
+                        continue
+                    ov = outer.value_of(t) if ov is None else ov
+                    if ov in outer.literal:
+                        baked[vid] = outer.val[ov]
+                        continue
+                    own.append((vid, ov))
+                progs.append(Program(tape.ops, [v for v, _ in own] + t_in,
+                                     t_out, baked, tape.val))
+                caps.append([ov for _, ov in own])
+            carry_in = [outer.value_of(c) for c in carry_leaves]
+            final = self._run_eagerly(cond_fn, body_fn, init)
+            final = [as_word(v) for v in flatten(final)[0]]
+            final = [x.clone() if outer.known(x) is not None else x
+                     for x in final]
+        finally:
+            outer.paused = False
+        outs = [outer.fresh(x) for x in final]
+        ins = caps[0] + caps[1] + carry_in
+        outer.ops.append(LoopOp(
+            func=None, packet="while", args=(), kwargs={}, ins=ins,
+            outs=outs, where=[("r", k) for k in range(len(outs))],
+            cond=progs[0], body=progs[1], n_cond=len(caps[0]),
+            n_body=len(caps[1])))
+        return unflatten(carry_td, final)
+
+
+def _one_row(prog: Program, vals: List[torch.Tensor]
+             ) -> List[torch.Tensor]:
+    """``prog`` over one row of ``vals`` (no row axis in or out)."""
+    outs = prog.rows([v.unsqueeze(0) for v in vals], 1,
+                     torch.device("cpu"))
+    return [o[0] for o in outs]
+
+
+def _replay_while(cond: Program, body: Program, cond_caps, body_caps,
+                  carry: List[torch.Tensor]) -> List[torch.Tensor]:
+    """A recorded ``while`` run to its end on one row."""
+    while bool(_one_row(cond, cond_caps + carry)[0]):
+        carry = _one_row(body, body_caps + carry)
+    return carry
 
 
 def _scan_length(xs_leaves, length) -> int:
@@ -714,7 +1097,11 @@ def while_loop(cond_fun: Callable, body_fun: Callable, init_val):
     rec = _recording()
     if rec is not None:
         return rec.while_loop(cond_fun, body_fun, init_val)
+    rec = _ACTIVE
+    tape = rec.recording_tape() if rec is not None else None
+    if tape is not None and not tape.paused:
+        return rec.nested_while(tape, cond_fun, body_fun, init_val)
     val = init_val
-    while bool(cond_fun(val)):
+    while bool(as_word(flatten(cond_fun(val))[0][0])):
         val = body_fun(val)
     return val

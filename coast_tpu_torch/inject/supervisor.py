@@ -419,19 +419,25 @@ def build_program(bench: str, opt_passes: str, device: str,
     ``compute`` goes to the benchmark's factory, and a benchmark without
     the knob is refused.  A benchmark or flag the port does not have yet
     exits 2 with its ROADMAP item."""
+    from coast_tpu_torch.frontend import LiftError
     from coast_tpu_torch.interface.config import ConfigError
     from coast_tpu_torch.models import resolve_region
     from coast_tpu_torch.opt import UsageError, build_overrides, parse_argv
     from coast_tpu_torch.passes.strategies import DWC, TMR, unprotected
     try:
         # Only the sharded halo-exchange benchmark takes the knob: passing
-        # the default to every factory would hide "no such knob".
+        # the default to every factory would hide "no such knob".  A .c
+        # path is lifted (the reference's -f takes the program by file).
         if placement != "compute":
-            region = resolve_region(bench, placement=placement)
+            region = resolve_region(bench, device=device,
+                                    placement=placement)
         else:
-            region = resolve_region(bench)
-    except KeyError:
+            region = resolve_region(bench, device=device)
+    except (FileNotFoundError, KeyError):
         print(f"Error, file {bench} does not exist!", file=sys.stderr)
+        sys.exit(-1)
+    except LiftError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
         sys.exit(-1)
     except TypeError:
         print(f"Error, benchmark {bench} has no --placement knob (voter "
@@ -584,9 +590,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     log_dir = args.log_dir or "."
     log_path = os.path.join(
         log_dir, f"{prog.region.name}_{strategy}_{args.section}.json")
+    # A lifted C program's guest-executable line is its source file.
+    src_paths = prog.region.meta.get("source_paths")
+    exec_path = (src_paths[0] if args.log_format == "reference"
+                 and src_paths else None)
     stream = None
     if args.stream_logs:
-        stream = logs.StreamLogWriter(log_path, mmap, fmt=args.log_format)
+        stream = logs.StreamLogWriter(log_path, mmap, fmt=args.log_format,
+                                      exec_path=exec_path)
 
     # Live progress: the TTY dashboard (--console) or the one-line
     # heartbeat (--heartbeat); the last beat is re-emitted in the
@@ -709,7 +720,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                       "columnar": logs.write_columnar,
                       "reference": logs.write_reference_json
                       }[args.log_format]
-            writer(res, mmap, log_path)
+            if exec_path is not None:
+                writer(res, mmap, log_path, exec_path=exec_path)
+            else:
+                writer(res, mmap, log_path)
         print(f"wrote {log_path}")
     return 0
 

@@ -7,6 +7,7 @@ import importlib.util
 import os
 from typing import Callable, Dict
 
+from coast_tpu_torch import device as device_mod
 from coast_tpu_torch.ir.region import Region
 
 
@@ -75,16 +76,47 @@ CHSTONE = ("chstone_mips", "chstone_sha", "chstone_adpcm",
 UNPORTED: Dict[str, str] = {}
 
 
-def resolve_region(arg: str, **kw) -> Region:
-    """The program argument of the CLIs: a registry name.  Raises KeyError
-    for a name neither package knows, NotImplementedError (naming the
-    ROADMAP item) for a restricted-C ``.c`` source, which the port does not
-    have yet.  ``**kw`` goes to the name's factory (the stencil's
-    ``placement``); a factory without the knob raises TypeError."""
+def c_source_paths(arg: str):
+    """Split a '+'-joined C-source argument (multi-translation-unit
+    programs: the reference links aes.c with TI_aes_128.c) and validate
+    existence; FileNotFoundError names the first missing file.  The ONE
+    place the '+' convention is interpreted: the CLIs and the harness
+    all route here."""
+    paths = arg.split("+")
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(missing[0])
+    return paths
+
+
+def resolve_region(arg: str, device=None, **kw) -> Region:
+    """The program argument of the CLIs: a registry name or a restricted-C
+    ``.c`` source path (``+``-joined for several translation units), as
+    the reference's tools take the program by file.  Raises
+    FileNotFoundError for a missing .c path, KeyError for an unknown
+    name, LiftError (``CLiftError``) for a source outside the subset.
+    ``device`` is where a C program's lift measures a while phase (the
+    card unless ``"cpu"``).  ``**kw`` goes to the name's factory (the
+    stencil's ``placement``); a factory without the knob raises
+    TypeError, and a C source takes none."""
     if arg.endswith(".c"):
-        raise NotImplementedError(
-            f"{arg}: C-source programs need the restricted-C lifter, "
-            "ROADMAP Queue A item 17d")
+        if kw:
+            raise TypeError(
+                f"factory arguments {sorted(kw)} do not apply to "
+                "C-source programs")
+        paths = c_source_paths(arg)
+        from coast_tpu_torch.frontend import lift_c
+        # Single-TU programs name after the file; multi-TU programs
+        # after their common directory (gsm's add.c+gsm.c+lpc.c is
+        # "gsm", not "add").
+        if len(paths) == 1:
+            name = os.path.splitext(os.path.basename(paths[0]))[0]
+        else:
+            name = os.path.basename(os.path.dirname(
+                os.path.abspath(paths[0]))) or "program"
+        return lift_c(name, paths,
+                      device=device_mod.DEFAULT if device is None
+                      else device)
     if arg in UNPORTED:
         raise NotImplementedError(
             f"benchmark {arg!r} is not ported yet; see ROADMAP Queue A "

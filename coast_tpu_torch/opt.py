@@ -176,12 +176,21 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     except UsageError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 2
-    from coast_tpu_torch.models import REGISTRY, UNPORTED
-    if len(positional) != 1 or positional[0] not in {**REGISTRY,
-                                                     **UNPORTED}:
+    from coast_tpu_torch.models import REGISTRY, UNPORTED, c_source_paths
+    is_c_source = len(positional) == 1 and positional[0].endswith(".c")
+    if is_c_source:
+        try:
+            c_source_paths(positional[0])
+        except FileNotFoundError as e:
+            print(f"ERROR: file {e.args[0]} does not exist",
+                  file=sys.stderr)
+            return 2
+    if not is_c_source and (len(positional) != 1 or positional[0] not in
+                            {**REGISTRY, **UNPORTED}):
         print("usage: python -m coast_tpu_torch.opt [-TMR|-DWC] [flags] "
-              f"<benchmark>\n{_DUMP_HELP}\n"
-              f"benchmarks: {', '.join(sorted(REGISTRY))}",
+              f"<benchmark | program.c>\n{_DUMP_HELP}\n"
+              f"benchmarks: {', '.join(sorted(REGISTRY))}\n"
+              "or a C source file (restricted subset)",
               file=sys.stderr)
         return 2
     dump = flags.get("dumpModule")
@@ -208,12 +217,17 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
 
+    from coast_tpu_torch.frontend import LiftError
     from coast_tpu_torch.models import resolve_region
     from coast_tpu_torch.passes.strategies import DWC, EDDI, TMR, unprotected
     from coast_tpu_torch.passes.verification import SoRViolation
     strategy = strategies[0] if strategies else None
     try:
-        region = resolve_region(positional[0])
+        region = resolve_region(positional[0], device=device)
+    except LiftError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    try:
         if strategy == "TMR":
             prog = TMR(region, device=device, **overrides)
         elif strategy == "DWC":

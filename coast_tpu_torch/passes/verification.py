@@ -158,6 +158,10 @@ def _trip_flow(trip, join_where: bool = False):
             load |= deps_of(node.ins[:1])
         elif tag == "coast:store_addr":
             store |= deps_of(node.ins[:1])
+        elif tag == "coast:branch_pred":
+            # A branch no where shows: an if of the C front end, the
+            # condition of a nested while (frontend/loops.py).
+            pred |= deps_of(node.ins[:1])
         if tag in ("coast:load_addr", "coast:store_addr") or any(
                 v in tagged for v in node.ins):
             tagged.update(node.outs)

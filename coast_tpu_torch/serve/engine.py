@@ -644,6 +644,7 @@ class ServeEngine:
         sl = slice(r, r + i)
         batch_out = {k: np.asarray(out[k][sl]) for k in
                      ("code", "errors", "corrected", "steps")}
+        advance = 0
         if lane.item is not None:
             lo = lane.item_cursor
             lane.item_counts += binc
@@ -664,14 +665,17 @@ class ServeEngine:
         else:
             lo = lane.cursor
             lane.counts += binc
-            lane.cursor += i
+            # The standing cursor moves last, once the hub holds this
+            # batch's counts: ``drain_injection`` reads the cursor, and a
+            # summary taken right after it must count the batch.
+            advance = i
             if lane.journal is not None:
                 lane.journal.append_batch(
                     lo, batch_out,
                     cls.counts_dict(lane.counts, train=lane.train),
                     {"dispatch": round(lane.dispatch_s, 6)})
         merged = np.zeros(cls.NUM_CLASSES, dtype=np.int64)
-        done = 0
+        done = advance
         for other in self._lanes.values():
             merged += other.counts + other.item_counts
             done += other.cursor + other.item_cursor
@@ -680,6 +684,7 @@ class ServeEngine:
             {"dispatch": round(sum(x.dispatch_s
                                    for x in self._lanes.values()), 6)},
             {}, profile={"device_s": dt, "gap_s": gap})
+        lane.cursor += advance
 
     # -- the loop ------------------------------------------------------------
     def start(self) -> "ServeEngine":

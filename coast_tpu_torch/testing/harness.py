@@ -20,8 +20,8 @@ The config format is the reference's, unchanged:
       - module: resume_smoke         # coast_tpu_torch.testing.<module>
         args: []
 
-Where the port has no counterpart yet the harness refuses, naming the
-ROADMAP item: a ``.c`` benchmark (the restricted-C lifter, item 17d).
+A ``.c`` benchmark path (``+``-joined for several translation units)
+runs through the restricted-C lifter, as ``opt ... file.c`` does.
 Every driver of ``fast.yml`` has its port.  PyYAML is imported
 only by :func:`main`: the card's machine may lack it, and ``FAST`` /
 ``FULL`` hold ``unittest/cfg/fast.yml`` and ``full.yml`` as dicts.
@@ -108,9 +108,15 @@ def expand_benchmarks(
         elif path in REGISTRY:
             names = [path]
         elif path.endswith(".c"):
-            raise HarnessError(
-                f"{path}: C-source benchmarks need the restricted-C "
-                "lifter, ROADMAP Queue A item 17d")
+            # C source paths ('+'-joined for multi-TU programs) run
+            # through the same ingestion path as `opt ... file.c`.
+            from coast_tpu_torch.models import c_source_paths
+            try:
+                c_source_paths(path)
+            except FileNotFoundError as e:
+                raise HarnessError(
+                    f"No benchmark source at {e.args[0]!r}") from e
+            names = [path]
         else:
             raise HarnessError(f"No benchmarks found at {path!r}")
         passes = entry.get("passes")

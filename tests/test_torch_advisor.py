@@ -225,7 +225,17 @@ def test_cli(tmp_path, capsys):
 
 
 def test_cli_refuses_c_sources_naming_item_17d(capsys):
-    assert main(["prog.c", "-d", "cpu"]) == 2
-    assert "item 17d" in capsys.readouterr().err
+    """A ``.c`` program that is not there: the reference's exit (2) and
+    message; an unknown name stays a usage error."""
+    from coast_tpu.analysis.advisor import main as jmain
+    with pytest.raises(SystemExit) as want:
+        jmain(["prog.c"])
+    want_err = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as got:
+        main(["prog.c", "-d", "cpu"])
+    got_err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert got.value.code == want.value.code == 2
+    assert got_err.split("error:")[1] == want_err.split("error:")[1]
+    assert "file prog.c does not exist" in got_err
     with pytest.raises(SystemExit):
         main(["nonesuch", "-d", "cpu"])

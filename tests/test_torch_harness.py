@@ -89,8 +89,18 @@ def test_passes_override_column():
 
 
 def test_c_entry_refused_naming_its_item():
-    with pytest.raises(HarnessError, match="item 17d"):
-        expand_benchmarks({"benchmarks": [{"path": "tests/mm/mm.c"}]})
+    """A ``.c`` entry whose source is not there: the reference's
+    HarnessError (a present one expands to itself, see
+    tests/test_torch_c_lifter.py)."""
+    from coast_tpu.testing.harness import HarnessError as JHarnessError
+    from coast_tpu.testing.harness import expand_benchmarks as jexpand
+    cfg = {"benchmarks": [{"path": "tests/mm/mm.c"}]}
+    with pytest.raises(JHarnessError) as want:
+        jexpand(cfg)
+    with pytest.raises(HarnessError) as got:
+        expand_benchmarks(cfg)
+    assert str(got.value) == str(want.value)
+    assert "No benchmark source at 'tests/mm/mm.c'" in str(got.value)
 
 
 @pytest.mark.parametrize("name", ["no_such_smoke"])

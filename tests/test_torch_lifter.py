@@ -702,14 +702,30 @@ def test_lift_step_rejects_nontermination():
     assert got == want and "did not terminate" in got
 
 
-def test_lift_c_refuses_naming_its_item():
+def test_lift_c_refuses_naming_its_item(tmp_path):
+    """A ``.c`` program the reference refuses, the port refuses alike: a
+    missing file (FileNotFoundError naming it) and a construct outside
+    the restricted-C subset (the same CLiftError and message)."""
+    pytest.importorskip("pycparser")
+    from coast_tpu.frontend import lift_c as jlift_c
+    from coast_tpu.models import resolve_region as jresolve_region
     from coast_tpu_torch.models import resolve_region
-    with pytest.raises(NotImplementedError) as want:
-        resolve_region("prog.c")
-    with pytest.raises(NotImplementedError) as got:
-        lift_c("prog.c")
+    with pytest.raises(FileNotFoundError) as want:
+        jresolve_region("prog.c")
+    with pytest.raises(FileNotFoundError) as got:
+        resolve_region("prog.c", device="cpu")
+    assert str(got.value) == str(want.value) == "prog.c"
+    src = tmp_path / "bad.c"
+    src.write_text("int x;\nint main() {\nagain: x += 1;\n"
+                   "    if (x < 10) goto again;\n    return 0;\n}\n")
+    with pytest.raises(Exception) as want:
+        jlift_c("bad", [str(src)])
+    with pytest.raises(Exception) as got:
+        lift_c("bad", [str(src)], device="cpu")
+    assert type(got.value).__name__ == type(want.value).__name__ \
+        == "CLiftError"
     assert str(got.value) == str(want.value)
-    assert "item 17d" in str(got.value)
+    assert "backward goto" in str(got.value)
 
 
 def test_frontend_all_is_the_reference():

@@ -263,7 +263,7 @@ UNPORTED = [
     (["--static-budget"], "needs --delta-from AND --stop-when"),
     (["--slo", "sdc<0.1"], "bad --slo spec"),
     (["-d", "tpu"], "coast_tpu.inject.supervisor"),
-    (["-f", "prog.c"], "item 17"),
+    (["-f", "prog.c"], "Error, file prog.c does not exist!"),
 ]
 
 
@@ -292,6 +292,18 @@ def test_unported_flag_refused_with_its_item(extra, why, capsys):
         with pytest.raises(SystemExit) as ref_exc:
             from coast_tpu.inject import supervisor as jsup
             jsup.parse_command_line(argv)
+        assert ref_exc.value.code == -1
+        assert capsys.readouterr().err.strip().splitlines()[-1] \
+            == err.strip().splitlines()[-1]
+        return
+    if extra[0] == "-f":
+        # Item 17d landed: a .c program is lifted, and a missing one is
+        # refused as the reference refuses it.
+        err = capsys.readouterr().err
+        assert exc.value.code == -1 and why in err
+        with pytest.raises(SystemExit) as ref_exc:
+            from coast_tpu.inject import supervisor as jsup
+            jsup.main(argv)
         assert ref_exc.value.code == -1
         assert capsys.readouterr().err.strip().splitlines()[-1] \
             == err.strip().splitlines()[-1]
