@@ -297,26 +297,61 @@ Phases, in order; any failure exits non-zero:
      torch operators a trip; (c) ``python -m coast_tpu_torch.opt -TMR
      -countErrors mm9.c`` and a supervisor campaign on crc16.c whose
      reference-format log names the source on line 1, processes started
-     at the phase's start; (d) ``python -m coast_tpu_torch.testing.c_fuzz
-     -n 20 -d cuda -j 4`` (gcc against the lifted run on the card),
-     started at the phase's start, prints ``Success!``; each worker's
-     start-up and its seeds' gcc, lift and run seconds are logged;
+     at the phase's start; (d) ``python -m
+     coast_tpu_torch.scripts.c_fuzz_sweep -n 20 -d cuda -j 4`` (gcc
+     against the lifted run on the card, ``c_fuzz -n 20 -j 4``'s seeds,
+     its record under ``build/``), started at the phase's start and read
+     in phase 36: seeds 0-19 recorded as passing, no failure; its seeds'
+     gcc, lift and run seconds are logged;
+ 36. the reliability studies of ``coast_tpu_torch/scripts``, each
+     study's ``main`` called in this process one after another, while
+     phase 35's sweep ends: (a)
+     matrixMultiply and crc16 under unprotected, DWC and TMR at 20,000
+     injections (one batch, seed 2026) on the card, their first 512 rows
+     rerun on the CPU (in worker processes) and their counts equal to
+     ``artifacts/mwtf_report.json``'s (read as data); ``mwtf_report`` on
+     matrixMultiply and crc16 at 20,000, unfused and with
+     ``--fuse-step``, whose counts equal those, then on
+     matrixMultiply1024 at 512 (batch 128); each row's MWTF, SDC and DUE
+     ratios and seconds a fault-free run printed (quicksort's report,
+     whose 20 timed fault-free runs of 2,320 trips a program take about
+     260 s, is left out); (b) ``mwtf_report
+     --model-sweep`` on matrixMultiply at 4096 (one batch): every series
+     monotone; (c) ``fidelity_study`` at budget 14,000, seed 7: C1-C4
+     pass, its section tables printed beside
+     ``artifacts/fidelity_study.json``'s; (d) ``classification_parity``
+     at 4096: matrixMultiply and crc16 bit-identical on the card and the
+     CPU, every differing matrixMultiply256 row named and inside the f32
+     exemption of phase 5; (e) ``train_campaign`` at 1,024 injections a
+     strategy (the reference's default 2,048 halved): its three bars
+     pass; (f) phase 35's sweep read, then run again on its record,
+     skipping every seed; ``zero_to_aha.sh -d cuda`` on
+     ``tests/c_sources/mm9.c`` with 512 injections (a chain of
+     processes, one host thread each, started after phase 15 so that its
+     lifts overlap phases 16-20) ends in exit 0;
  18. the device-only times of phases 3 and 7a (torch.profiler, 200 calls
      each), taken last: a profiler session leaves launch overhead behind
      that would slow the campaigns run after it.
+
+Phases 19-24 and 36 rerun their CPU rows in three worker processes,
+beside the card campaigns that follow; phases 20, 22, 23, 25 and 27
+start their supervisor processes at the phase's start, phase 17 its two
+after its runner campaigns: a process's start-up is host work that
+overlaps the card's.
 
 It prints the kernel table as one JSON line before the last (``ms``,
 ``plain_ms`` and ``bound_ms`` at the flagship shape, as before; every
 timed shape, grouped ones included, under ``shapes``) and
 ``{"ok": true, "device": {...}}`` as the last line.  The kernels'
 ``launches`` count every campaign that ran them: K1 those of phases 4,
-9-12, 14-17 and 19-35, K2 those of phases 7b, 9-12, 14-17, 19-23,
-25-31 and 35 (each
+9-12, 14-17 and 19-36, K2 those of phases 7b, 9-12, 14-17, 19-23,
+25-31, 35 and 36 (each
 phase's counts set to 0 just before it and read just after; a supervisor
-process, a fleet or ci worker and a serve process report their own at
-exit, a SIGKILL'd one nothing).  It imports nothing of JAX or of the
-coast_tpu package.  ``launches_phase_28`` to ``launches_phase_35`` are
-those phases' shares.
+process, a fleet or ci worker, a serve process and a study process
+report their own at exit, a SIGKILL'd one and the workflow's processes
+nothing).  It imports nothing of JAX or of the coast_tpu package.
+``launches_phase_28`` to ``launches_phase_36`` are those phases'
+shares.
 
 No process outlives the script: it is the child subreaper of all it
 starts, names on stderr after each phase any process left there that it
@@ -405,6 +440,12 @@ def name_strays(where: str) -> None:
     through :func:`spawn` and that is still there after ``where``: an
     orphan handed to it, or a process a phase did not wait for."""
     known = {proc.pid for proc in CHILDREN}
+    if "pool" in RERUNS:
+        # The CPU-rerun pool's workers and multiprocessing's resource
+        # tracker, which the pool started.
+        from multiprocessing import resource_tracker
+        known |= set(getattr(RERUNS["pool"], "_processes", None) or ())
+        known.add(getattr(resource_tracker._resource_tracker, "_pid", None))
     for pid, (state, cmd) in sorted(own_children().items()):
         if pid not in known:
             print(f"chip_smoke: after {where}: process {pid} (state "
@@ -1731,7 +1772,8 @@ def durability(work: Path, board: str, card: str, TMR, REGISTRY,
     (matrixMultiply TMR at ``batch``, seed 1), dense and sparse: through
     the runner with a journal and a streamed ndjson log, then through the
     supervisor CLI with ``--journal --stream-logs --log-format ndjson``
-    (which draws from its default section, memory).  The runner's counts
+    (which draws from its default section, memory; the dense and the
+    sparse process side by side).  The runner's counts
     equal phase 9's (``bare``), the CLI's dense counts its sparse counts;
     prints each rate beside phase 9's
     and the journal's and the log's bytes.  Returns the (K1, K2)
@@ -1742,6 +1784,7 @@ def durability(work: Path, board: str, card: str, TMR, REGISTRY,
     prog = TMR(REGISTRY["matrixMultiply"](), device=device)
     launches = [0, 0]
     cli_counts = {}
+    runs = {}
     for collect in ("dense", "sparse"):
         runner = CampaignRunner(prog, strategy_name="TMR", collect=collect)
         runner.run(batch, seed=0, batch_size=batch)     # warm-up, as phase 9
@@ -1763,15 +1806,49 @@ def durability(work: Path, board: str, card: str, TMR, REGISTRY,
         sizes = (journal.stat().st_size, path.stat().st_size)
         journal.unlink()
         path.unlink()
+        runs[collect] = (res, wall, runner_launches, sizes)
+    # The CLI's campaigns, dense and sparse side by side (a process's
+    # start-up is most of its wall).
+    procs = {}
+    for collect in ("dense", "sparse"):
         cli_dir = work / f"durable_cli_{collect}"
         cli_dir.mkdir()
         cli_journal = work / f"durable_cli_{collect}.ndjson"
-        t0 = time.perf_counter()
-        cli = run_cli(["-f", "matrixMultiply", "-O", "-TMR", "-t", str(n),
-                       "--batch-size", str(batch), "--seed", "1",
-                       "--collect", collect, "--journal", str(cli_journal),
-                       "--stream-logs", "--log-format", "ndjson", "-l",
-                       str(cli_dir)], board, f"durable {collect} 10^6 CLI")
+        procs[collect] = (time.perf_counter(), cli_dir, cli_journal, start_cli(
+            ["-f", "matrixMultiply", "-O", "-TMR", "-t", str(n),
+             "--batch-size", str(batch), "--seed", "1", "--collect", collect,
+             "--journal", str(cli_journal), "--stream-logs", "--log-format",
+             "ndjson", "-l", str(cli_dir)], board))
+    # Meanwhile the native encoder against the Python formatter on this
+    # machine's host: phase 9's dense 10^6 rows, one-shot, the same row
+    # bytes.
+    from coast_tpu_torch.inject import logs
+    res, mmap = bare["dense"], CampaignRunner(prog).mmap
+    ts = "2026-01-01 00:00:00.000000"
+    paths = {"python": work / "rows_py.json", "native": work / "rows.json"}
+    secs = {}
+    t0 = time.perf_counter()
+    logs._write_ndjson_py(res, mmap, ts, str(paths["python"]))
+    secs["python"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logs._write_ndjson_native(res, mmap, ts, str(paths["native"]))
+    secs["native"] = time.perf_counter() - t0
+    rows = {k: p.read_bytes().split(b"\n", 1)[1] for k, p in paths.items()}
+    if rows["python"] != rows["native"]:
+        fail("phase 17: the native encoder's rows differ from the Python "
+             "formatter's")
+    for p in paths.values():
+        p.unlink()
+    log(f"{res.n} dense rows to one ndjson log on the host: Python "
+        f"formatter {secs['python']:.2f} s ({res.n / secs['python']:.1f} "
+        f"rows/s), native encoder {secs['native']:.2f} s "
+        f"({res.n / secs['native']:.1f} rows/s), "
+        f"{secs['python'] / secs['native']:.1f}x; the same "
+        f"{len(rows['native'])} row bytes [{card}]")
+    for collect in ("dense", "sparse"):
+        res, wall, runner_launches, sizes = runs[collect]
+        t0, cli_dir, cli_journal, proc = procs[collect]
+        cli = finish_cli(proc, f"durable {collect} 10^6 CLI")
         cli_wall = time.perf_counter() - t0
         launches[0] += cli["k1"]
         launches[1] += cli["k2"]
@@ -1796,37 +1873,12 @@ def durability(work: Path, board: str, card: str, TMR, REGISTRY,
             f"overlap = share of the serialization that overlapped "
             f"dispatch); supervisor CLI "
             f"{cli['summary']['injections_per_sec']:.1f} inj/s in run "
-            f"({cli_wall:.2f} s process wall, stages "
+            f"({cli_wall:.2f} s process wall, dense and sparse side by "
+            f"side, stages "
             f"{cli['summary']['stages']}); journal {sizes[0]} B, log "
             f"{sizes[1]} B (CLI {cli_sizes[0]} B, {cli_sizes[1]} B); K1 "
             f"{runner_launches[0]} (runner) + {cli['k1']} (CLI), K2 "
             f"{runner_launches[1]} + {cli['k2']} launches [{card}]")
-
-    # The native encoder against the Python formatter on this machine's
-    # host: phase 9's dense 10^6 rows, one-shot, the same row bytes.
-    from coast_tpu_torch.inject import logs
-    res, mmap = bare["dense"], CampaignRunner(prog).mmap
-    ts = "2026-01-01 00:00:00.000000"
-    paths = {"python": work / "rows_py.json", "native": work / "rows.json"}
-    secs = {}
-    t0 = time.perf_counter()
-    logs._write_ndjson_py(res, mmap, ts, str(paths["python"]))
-    secs["python"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    logs._write_ndjson_native(res, mmap, ts, str(paths["native"]))
-    secs["native"] = time.perf_counter() - t0
-    rows = {k: p.read_bytes().split(b"\n", 1)[1] for k, p in paths.items()}
-    if rows["python"] != rows["native"]:
-        fail("phase 17: the native encoder's rows differ from the Python "
-             "formatter's")
-    for p in paths.values():
-        p.unlink()
-    log(f"{res.n} dense rows to one ndjson log on the host: Python "
-        f"formatter {secs['python']:.2f} s ({res.n / secs['python']:.1f} "
-        f"rows/s), native encoder {secs['native']:.2f} s "
-        f"({res.n / secs['native']:.1f} rows/s), "
-        f"{secs['python'] / secs['native']:.1f}x; the same "
-        f"{len(rows['native'])} row bytes [{card}]")
     return tuple(launches)
 
 
@@ -1893,6 +1945,47 @@ def case_label(name: str, strat, cfg: dict) -> str:
         for k, v in cfg.items() if v)])
 
 
+# Phases 19-24 rerun rows on the CPU in worker processes beside their card
+# campaigns (the host's cores are otherwise idle while a campaign drives
+# the card): ``cpu_rerun`` in the pool of ``rerun_pool()``, shut down
+# after phase 24.
+RERUNS: dict = {}
+
+
+def rerun_pool():
+    if "pool" not in RERUNS:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        RERUNS["pool"] = ProcessPoolExecutor(
+            max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    return RERUNS["pool"]
+
+
+def close_rerun_pool() -> None:
+    RERUNS.pop("pool").shutdown()
+    # The pool started multiprocessing's resource tracker, a child of this
+    # script that would otherwise wait for its exit; closing its pipe ends
+    # it (what ``ResourceTracker._stop`` does from Python 3.12.8 on).
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_fd", None) is not None:
+        os.close(tracker._fd)
+        os.waitpid(tracker._pid, 0)
+        tracker._fd = tracker._pid = None
+
+
+def cpu_rerun(name: str, strat, cfg: dict, sub, rows: int) -> dict:
+    """The rows of schedule ``sub`` on a CPU build of region ``name`` under
+    ``strat`` and ``cfg`` (plain voters and commit): column -> values."""
+    import torch
+    torch.set_num_threads(2)
+    from coast_tpu_torch.inject.campaign import CampaignRunner
+    from coast_tpu_torch.models import REGISTRY
+    prog = strat(REGISTRY[name](), device="cpu", **cfg)
+    res = CampaignRunner(prog).run_schedule(sub, batch_size=rows)
+    return {col: getattr(res, col) for col in COLUMNS}
+
+
 def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
                  n: int = 4096, cpu_rows: int = 256,
                  exempt=None, trip_log=None, batch: int = None,
@@ -1905,7 +1998,8 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
     per-trip count a loop trip plus the boundary group a batch, K2 (fused)
     exactly its per-trip count; with ``sparse``, a sparse campaign of the
     last engine equal to the dense one; the first ``cpu_rows`` rows rerun
-    on the CPU (plain voters and commit), equal on every column outside
+    on the CPU (plain voters and commit, in ``rerun_pool()``, read after
+    the last case), equal on every column outside
     ``exempt[name](leaf_order, leaf_id, bit)``.  Returns the (K1, K2)
     launches and {label: (inj/s, wall)}; ``trip_log`` (a dict), if given,
     gets each campaign's loop trips by (label, fused), ``dense_log`` each
@@ -1917,6 +2011,7 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
     batches = -(-n // batch)
     launches = [0, 0]
     rates = {}
+    reruns = []
     for name, strat, cfg in cases:
         region = REGISTRY[name]()
         label = case_label(name, strat, cfg)
@@ -1976,14 +2071,16 @@ def region_cases(board: str, card: str, cases, CampaignRunner, hv, hc, fs,
         if dense_log is not None:
             dense_log[label] = dense
         sub = dense.schedule.slice(0, cpu_rows)
-        cpu_prog = strat(region, device="cpu", **cfg)
-        cpu = CampaignRunner(cpu_prog).run_schedule(sub, batch_size=cpu_rows)
         skip = np.zeros(cpu_rows, bool)
         if name in exempt:
-            skip = exempt[name](cpu_prog.leaf_order, sub.leaf_id, sub.bit)
+            skip = exempt[name](prog.leaf_order, sub.leaf_id, sub.bit)
+        reruns.append((label, name, dense, skip, rerun_pool().submit(
+            cpu_rerun, name, strat, cfg, sub, cpu_rows)))
+    for label, name, dense, skip, rerun in reruns:
+        cpu = rerun.result()
         differ = np.zeros(cpu_rows, bool)
         for col in COLUMNS:
-            bad = getattr(dense, col)[:cpu_rows] != getattr(cpu, col)
+            bad = getattr(dense, col)[:cpu_rows] != cpu[col]
             differ |= bad
             if (bad & ~skip).any():
                 fail(f"{label}: {col} differs between card and CPU on rows "
@@ -2077,13 +2174,21 @@ def corpus_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     -noStoreDataSync``, through ``region_cases`` (whetstone's and
     scalarize's CPU comparison outside their models' ``order_sensitive``
     rows).  Then towersOfHanoi through the supervisor CLI with ``-TMR
-    -protectStack -s stack``: the runner's counts and log rows on the
-    frame stack.  Returns the (K1, K2) launches."""
+    -protectStack -s stack`` (started at the phase's start): the runner's
+    counts and log rows on the frame stack.  Returns the (K1, K2)
+    launches."""
     from coast_tpu_torch.inject import logs
     from coast_tpu_torch.inject.supervisor import section_filter
     from coast_tpu_torch.models import vector, whetstone
     device = "cpu" if board == "cpu" else "cuda"
     t_phase = time.perf_counter()
+    cli_dir = work / "hanoi_cli"
+    cli_dir.mkdir()
+    t0 = time.perf_counter()
+    cli_proc = start_cli(["-f", "towersOfHanoi", "-O", "-TMR -protectStack",
+                          "-s", "stack", "-t", str(n), "--batch-size",
+                          str(n), "--seed", "1", "--log-format", "ndjson",
+                          "-l", str(cli_dir)], board)
     cases = ([(name, TMR, {}) for name in CORPUS]
              + [("towersOfHanoi", DWC, {}), ("scalarize", DWC, {}),
                 ("towersOfHanoi", TMR, PROTECT_STACK)])
@@ -2107,13 +2212,7 @@ def corpus_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     ref_dir.mkdir()
     logs.write_ndjson(res, runner.mmap, str(ref_dir / "runner.json"))
     want_rows = log_content(ref_dir, "ndjson")[1]
-    cli_dir = work / "hanoi_cli"
-    cli_dir.mkdir()
-    t0 = time.perf_counter()
-    cli = run_cli(["-f", "towersOfHanoi", "-O", "-TMR -protectStack", "-s",
-                   "stack", "-t", str(n), "--batch-size", str(n), "--seed",
-                   "1", "--log-format", "ndjson", "-l", str(cli_dir)], board,
-                  "towersOfHanoi -TMR -protectStack -s stack CLI")
+    cli = finish_cli(cli_proc, "towersOfHanoi -TMR -protectStack -s stack CLI")
     wall = time.perf_counter() - t0
     counts = {k: cli["summary"][k] for k in res.counts}
     if counts != res.counts:
@@ -2129,7 +2228,8 @@ def corpus_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     log(f"towersOfHanoi -O '-TMR -protectStack' -s stack through the "
         f"supervisor CLI: {counts}, the runner's records, "
         f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, "
-        f"{wall:.2f} s process wall, K1 {cli['k1']} [{card}]")
+        f"read {wall:.2f} s after its start at the phase's, K1 "
+        f"{cli['k1']} [{card}]")
     log(json.dumps({"phase20_inj_per_s": {
         k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
         "card": card}))
@@ -2284,11 +2384,14 @@ def scope_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     trip; then ``-s`` (segmented) against ``-i`` on matrixMultiply and
     crc16 TMR, 4096 injections each: equal records; then
     ``-f matrixMultiply -O -TMR -CFCSS -s icache`` through the supervisor
-    CLI on the card and on the host: the same summary.  Returns the
-    (K1, K2) launches."""
+    CLI on the card and on the host (both started at the phase's start):
+    the same summary.  Returns the (K1, K2) launches."""
     from coast_tpu_torch.opt import build_overrides, parse_argv
     device = "cpu" if board == "cpu" else "cuda"
     t_phase = time.perf_counter()
+    argv = ["-f", "matrixMultiply", "-O", "-TMR", "-CFCSS", "-s", "icache",
+            "-t", str(n), "--batch-size", str(n), "--seed", "1", "-q"]
+    clis = {"card": start_cli(argv, board), "host": start_cli(argv, "cpu")}
     canonical = {k: v for k, v in build_overrides(
         parse_argv(RTOS_CL)[0]).items() if v and k in SCOPE_KEYS}
     cases = [("nestedCalls", strat, {**kw, "count_syncs": True})
@@ -2338,11 +2441,9 @@ def scope_regions(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
             f"{results[True].injections_per_sec:.1f} inj/s, {ops[True]} "
             f"torch ops a trip [{card}]")
 
-    argv = ["-f", "matrixMultiply", "-O", "-TMR", "-CFCSS", "-s", "icache",
-            "-t", str(n), "--batch-size", str(n), "--seed", "1", "-q"]
-    cli = run_cli(argv, board, "matrixMultiply -TMR -CFCSS -s icache CLI")
-    host = run_cli(argv, "cpu", "matrixMultiply -TMR -CFCSS -s icache CLI "
-                   "on the host")
+    cli = finish_cli(clis["card"], "matrixMultiply -TMR -CFCSS -s icache CLI")
+    host = finish_cli(clis["host"], "matrixMultiply -TMR -CFCSS -s icache "
+                      "CLI on the host")
     if steady(cli["summary"]) != steady(host["summary"]):
         fail(f"-TMR -CFCSS -s icache: the card's summary "
              f"{steady(cli['summary'])} differs from the host's "
@@ -2379,7 +2480,8 @@ def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
     canonical campaign (``artifacts/rtos_campaign.json``: rtos_mm TMR,
     2,048 rows at 256, seed 42) rerun on the card, its counts equal; then
     ``-f rtos_mm -O '-TMR <canonical>' -s stack`` through the supervisor
-    CLI against the runner.  Returns the (K1, K2) launches."""
+    CLI (started at the phase's start) against the runner.  Returns the
+    (K1, K2) launches."""
     from coast_tpu_torch.inject import classify as cls
     from coast_tpu_torch.inject import logs
     from coast_tpu_torch.inject.supervisor import section_filter
@@ -2387,6 +2489,16 @@ def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
     device = "cpu" if board == "cpu" else "cuda"
     t_phase = time.perf_counter()
     launches = [0, 0]
+    cli_name = "rtos_mm"
+    flags = " ".join(f"-{k}={','.join(v)}"
+                     for k, v in rc.CL_LISTS[cli_name].items())
+    opt = f"-TMR {flags} -configFile={ROOT / 'rtos' / 'kernel.config'}"
+    cli_dir = work / "rtos_cli"
+    cli_dir.mkdir()
+    cli_proc = start_cli(["-f", cli_name, "-O", opt, "-s", "stack", "-t",
+                          "4096", "--batch-size", "4096", "--seed",
+                          str(seed), "--log-format", "ndjson", "-l",
+                          str(cli_dir)], board)
     for name in RTOS_TARGETS:
         for strat in (TMR, DWC):
             for fused in (False, True):
@@ -2445,11 +2557,7 @@ def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
              "reference's recorded ones")
 
     # -s stack through the supervisor CLI.
-    name = "rtos_mm"
-    flags = " ".join(f"-{k}={','.join(v)}"
-                     for k, v in rc.CL_LISTS[name].items())
-    opt = f"-TMR {flags} -configFile={ROOT / 'rtos' / 'kernel.config'}"
-    prog = rc.canonical_prog(name, 3, device)
+    prog = rc.canonical_prog(cli_name, 3, device)
     runner = CampaignRunner(prog, sections=section_filter(prog, "stack"),
                             strategy_name="TMR")
     hv.LAUNCHES = hc.LAUNCHES = 0
@@ -2459,29 +2567,24 @@ def rtos_kernel_targets(work: Path, board: str, card: str, TMR, DWC,
     ref_dir.mkdir()
     logs.write_ndjson(res, runner.mmap, str(ref_dir / "runner.json"))
     want_rows = log_content(ref_dir, "ndjson")[1]
-    cli_dir = work / "rtos_cli"
-    cli_dir.mkdir()
-    t0 = time.perf_counter()
-    cli = run_cli(["-f", name, "-O", opt, "-s", "stack", "-t", "4096",
-                   "--batch-size", "4096", "--seed", str(seed),
-                   "--log-format", "ndjson", "-l", str(cli_dir)], board,
-                  f"{name} -TMR -s stack CLI")
-    wall = time.perf_counter() - t0
+    cli = finish_cli(cli_proc, f"{cli_name} -TMR -s stack CLI")
+    wall = time.perf_counter() - t_phase
     counts = {k: cli["summary"][k] for k in res.counts}
     if counts != res.counts:
-        fail(f"{name} -s stack CLI: counts {counts} differ from the "
+        fail(f"{cli_name} -s stack CLI: counts {counts} differ from the "
              f"runner's {res.counts}")
     if log_content(cli_dir, "ndjson")[1] != want_rows:
-        fail(f"{name} -s stack CLI: the per-injection log differs from the "
-             "runner's records")
+        fail(f"{cli_name} -s stack CLI: the per-injection log differs from "
+             "the runner's records")
     if cli["k1"] <= 0 or counts["due_stack_overflow"] <= 0:
-        fail(f"{name} -s stack CLI: K1 {cli['k1']}, counts {counts}")
+        fail(f"{cli_name} -s stack CLI: K1 {cli['k1']}, counts {counts}")
     launches[0] += cli["k1"]
     launches[1] += cli["k2"]
-    log(f"{name} -O '-TMR <canonical>' -s stack through the supervisor CLI: "
-        f"{counts}, the runner's records, "
-        f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, "
-        f"{wall:.2f} s process wall, K1 {cli['k1']} [{card}]")
+    log(f"{cli_name} -O '-TMR <canonical>' -s stack through the supervisor "
+        f"CLI: {counts}, the runner's records, "
+        f"{cli['summary']['injections_per_sec']:.1f} inj/s in run, read "
+        f"{wall:.2f} s after its start at the phase's, K1 {cli['k1']} "
+        f"[{card}]")
     log(f"phase 23: {time.perf_counter() - t_phase:.1f} s [{card}]")
     log(json.dumps({"phase23_inj_per_s": {
         k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
@@ -2613,8 +2716,8 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
     ``--mesh 1 -f stencil --placement link --fault-model link -s
     interconnect``: the runner's summary with its mesh block; ``--mesh 2``
     exits 1 on a one-card machine.  (e) a one-rank nccl worker prints the
-    one-device mesh's ``run_histogram`` counts.  Returns the (K1, K2)
-    launches."""
+    one-device mesh's ``run_histogram`` counts.  The processes of (d) and
+    (e) start at the phase's start.  Returns the (K1, K2) launches."""
     from coast_tpu_torch.inject import classify as cls
     from coast_tpu_torch.inject.schedule import FaultModel
     from coast_tpu_torch.inject.supervisor import section_filter
@@ -2626,6 +2729,20 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
     one = make_mesh(1, device=device)
     two = Mesh([torch.device(device, 0) if device == "cuda"
                 else torch.device("cpu")] * 2)
+    # (d)'s and (e)'s processes start here, beside (a)-(c).
+    argv = ["-f", "stencil", "--placement", "link", "--fault-model", "link",
+            "-s", "interconnect", "-t", str(n), "--batch-size", str(batch),
+            "-q"]
+    procs = {"mesh 1": start_cli([*argv, "--mesh", "1"], board)}
+    if board == "gpu" and torch.cuda.device_count() < 2:
+        procs["mesh 2"] = start_cli([*argv, "--mesh", "2"], board)
+    if board == "gpu":
+        procs["nccl"] = spawn(
+            [sys.executable, "-c", WORKER, "stencil", "--coordinator",
+             f"127.0.0.1:{free_port()}", "--num-processes", "1",
+             "--process-id", "0", "-e", str(n), "--seed", "21"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     # (a) Fault-free rows and the distributed executor.
     for placement in stencil.PLACEMENTS:
@@ -2758,9 +2875,6 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
             log(f"{label}: the first {cpu_rows} rows equal the CPU's")
 
     # (d) The supervisor CLI with --mesh and --placement.
-    argv = ["-f", "stencil", "--placement", "link", "--fault-model", "link",
-            "-s", "interconnect", "-t", str(n), "--batch-size", str(batch),
-            "-q"]
     prog = TMR(stencil.make_region("link"), device=device)
     hv.LAUNCHES = hc.LAUNCHES = 0
     want = CampaignRunner(prog, sections=section_filter(prog, "interconnect"),
@@ -2769,9 +2883,8 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
         n, seed=0, batch_size=batch).summary()
     launches[0] += hv.LAUNCHES
     launches[1] += hc.LAUNCHES
-    t0 = time.perf_counter()
-    cli = run_cli([*argv, "--mesh", "1"], board, "stencil --mesh 1 CLI")
-    wall = time.perf_counter() - t0
+    cli = finish_cli(procs["mesh 1"], "stencil --mesh 1 CLI")
+    wall = time.perf_counter() - t_phase
     launches[0] += cli["k1"]
     launches[1] += cli["k2"]
     if steady(cli["summary"]) != steady(want) or "mesh" not in want:
@@ -2780,11 +2893,11 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
     log(f"stencil --placement link --fault-model link -s interconnect "
         f"--mesh 1 through the supervisor CLI: the runner's summary "
         f"(mesh {want['mesh']}), {cli['summary']['injections_per_sec']:.1f}"
-        f" inj/s in run, {wall:.2f} s process wall, K1 {cli['k1']} K2 "
-        f"{cli['k2']} [{card}]")
-    if board == "gpu" and torch.cuda.device_count() < 2:
-        cli = run_cli([*argv, "--mesh", "2"], board, "stencil --mesh 2 CLI",
-                      expect_ok=False)
+        f" inj/s in run, read {wall:.2f} s after its start, K1 "
+        f"{cli['k1']} K2 {cli['k2']} [{card}]")
+    if "mesh 2" in procs:
+        cli = finish_cli(procs["mesh 2"], "stencil --mesh 2 CLI",
+                         expect_ok=False)
         if cli["rc"] != 1 or "wants more devices" not in cli["err"]:
             fail(f"--mesh 2 on a one-card machine exited {cli['rc']}: "
                  f"{cli['err'][-500:]}")
@@ -2800,15 +2913,9 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
                                                       batch_size=1024)
         launches[0] += hv.LAUNCHES
         launches[1] += hc.LAUNCHES
-        t0 = time.perf_counter()
-        proc = spawn(
-            [sys.executable, "-c", WORKER, "stencil", "--coordinator",
-             f"127.0.0.1:{free_port()}", "--num-processes", "1",
-             "--process-id", "0", "-e", str(n), "--seed", "21"],
-            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        worker = finish_cli(proc, "the one-rank nccl worker", timeout=300)
-        wall = time.perf_counter() - t0
+        worker = finish_cli(procs["nccl"], "the one-rank nccl worker",
+                            timeout=300)
+        wall = time.perf_counter() - t_phase
         launches[0] += worker["k1"]
         launches[1] += worker["k2"]
         line = next((ln for ln in worker["out"].splitlines()
@@ -2816,8 +2923,9 @@ def sharded_stencil(work: Path, board: str, card: str, torch, TMR, DWC,
         if (not line.startswith("[proc 0/1] devices=1 ")
                 or line.split("counts=", 1)[1] != str(want)):
             fail(f"the nccl worker printed {line!r}, want counts {want}")
-        log(f"one-rank nccl worker: {line}, = run_histogram; {wall:.2f} s "
-            f"process wall, K1 {worker['k1']} K2 {worker['k2']} [{card}]")
+        log(f"one-rank nccl worker: {line}, = run_histogram; read "
+            f"{wall:.2f} s after its start, K1 {worker['k1']} K2 "
+            f"{worker['k2']} [{card}]")
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s [{card}]")
     log(json.dumps({"phase25_inj_per_s": {
         k: [round(v[0], 1), round(v[1], 3)] for k, v in rates.items()},
@@ -3063,6 +3171,11 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
     device = "cuda" if board == "gpu" else "cpu"
     t_phase = time.perf_counter()
     launches = [0, 0]
+    argv = ["-f", "matrixMultiply", "-O", "-TMR", "--equiv", "-t", "16384",
+            "--seed", "2026", "--batch-size", "2048", "-q"]
+    cli_j = str(work / "cli_equiv.journal")
+    procs = {"card": start_cli([*argv, "--journal", cli_j], board),
+             "host": start_cli(argv, "cpu")}
 
     def count(label: str) -> tuple:
         got = (hv.LAUNCHES, hc.LAUNCHES)
@@ -3217,24 +3330,24 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
         f"in {delta.seconds:.3f} s; card fingerprints = host's; K1 "
         f"launches {k1} [{card}]")
 
-    # (e) The CLI.
-    argv = ["-f", "matrixMultiply", "-O", "-TMR", "--equiv", "-t", "16384",
-            "--seed", "2026", "--batch-size", "2048", "-q"]
-    cli_j = str(work / "cli_equiv.journal")
-    on_card = run_cli([*argv, "--journal", cli_j], board, "phase 27e card")
-    on_host = run_cli(argv, "cpu", "phase 27e host")
+    # (e) The CLI (its two --equiv processes started at the phase's start,
+    # the two that read the card's journal started together).
+    on_card = finish_cli(procs["card"], "phase 27e card")
+    on_host = finish_cli(procs["host"], "phase 27e host")
     if steady(on_card["summary"]) != steady(on_host["summary"]):
         fail(f"phase 27e: --equiv on the card {steady(on_card['summary'])} "
              f"differs from the host's {steady(on_host['summary'])}")
-    cli_delta = run_cli(["-f", "matrixMultiply", "-O", "-TMR", "-t", "16384",
-                         "--seed", "2026", "--batch-size", "2048", "-q",
-                         "--delta-from", cli_j], board, "phase 27e delta")
+    delta_proc = start_cli(["-f", "matrixMultiply", "-O", "-TMR", "-t",
+                            "16384", "--seed", "2026", "--batch-size", "2048",
+                            "-q", "--delta-from", cli_j], board)
+    budget = finish_cli(start_cli(["-f", "matrixMultiply", "-t", "8",
+                                   "--delta-from", cli_j, "--static-budget"],
+                                  board), "phase 27e static budget",
+                        expect_ok=False)
+    cli_delta = finish_cli(delta_proc, "phase 27e delta")
     if cli_delta["summary"]["delta"]["reinjected_rows"] != 0:
         fail(f"phase 27e: --delta-from re-injected "
              f"{cli_delta['summary']['delta']['reinjected_rows']} rows")
-    budget = run_cli(["-f", "matrixMultiply", "-t", "8", "--delta-from",
-                      cli_j, "--static-budget"],
-                     board, "phase 27e static budget", expect_ok=False)
     if budget["rc"] != 255 or "needs --delta-from AND --stop-when" \
             not in budget["err"]:
         fail(f"phase 27e: --static-budget without --stop-when exited "
@@ -3274,11 +3387,12 @@ def equiv_campaigns(work: Path, board: str, card: str, TMR, DWC, REGISTRY,
 
 # Runs ``python -m <module>`` as the supervisor wrapper does, reporting the
 # process's K1 and K2 launches at exit.
-def start_module(module: str, argv) -> subprocess.Popen:
+def start_module(module: str, argv, env=None) -> subprocess.Popen:
     return spawn(
         [sys.executable, "-c",
          SUPERVISOR.replace("coast_tpu_torch.inject.supervisor", module),
-         *argv], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+         *argv], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -4696,6 +4810,34 @@ def serve_phase(work: Path, card: str, hv, hc) -> tuple:
 # Phase 35: the restricted-C front end on the card (ROADMAP item 17d, part
 # 2): three sources of tests/c_sources and the fuzz tier.
 C_SOURCES = ("mm9", "crc16", "gcd")
+STUDIES = "coast_tpu_torch.scripts."
+SWEEP_SEED = re.compile(r"# seed (\d+): gcc ([\d.]+) s, lift ([\d.]+) s, "
+                        r"run ([\d.]+) s$")
+
+
+def sweep_argv(work: Path) -> list:
+    """The C-fuzz sweep of seeds 0-19 on the card in four workers, one
+    chunk, its record under ``work``: ``c_fuzz -n 20 -j 4``'s seeds."""
+    return [sys.executable, "-m", STUDIES + "c_fuzz_sweep", "--start", "0",
+            "-n", "20", "--chunk", "20", "-d", "cuda", "-j", "4", "--out",
+            str(work / "c_fuzz_sweep.json")]
+
+
+def sweep_record(work: Path, rc: int, out: str, err: str) -> dict:
+    """The sweep's record after a run that exited ``rc``: seeds 0-19 pass,
+    no failure, the printed summary equal to the record."""
+    with open(work / "c_fuzz_sweep.json") as fh:
+        record = json.load(fh)
+    printed = json.loads(out.strip().splitlines()[-1]) if out.strip() \
+        else None
+    if rc != 0 or record["ranges"] != [[0, 20]] or record["failures"] \
+            or record["n_pass"] != 20 or record["generator"] != \
+            "coast_tpu_torch/testing/c_fuzz.py" or printed != {
+                "envelope_sha": record["envelope_sha"], "n_pass": 20,
+                "n_fail": 0, "ranges": [[0, 20]]}:
+        fail(f"c_fuzz_sweep exited {rc}: {out.strip()[-500:]} "
+             f"{err.strip()[-1500:]}")
+    return record
 
 
 def c_oracle(name: str, path: Path) -> list:
@@ -4744,9 +4886,9 @@ def c_frontend_phase(work: Path, card: str, TMR, DWC, CampaignRunner, hv,
     the first ``cpu_rows`` rows equal a CPU rerun; (c) ``opt -TMR
     mm9.c`` and a supervisor campaign on crc16.c whose reference-format
     log names the source on line 1, as processes started at the phase's
-    start; (d) ``c_fuzz -n 20 -d cuda -j 4``, started with them, prints
-    Success!, and each worker's start-up and seconds of gcc, lift and
-    run are logged.  Returns the (K1, K2) launches."""
+    start; (d) the C-fuzz sweep of ``c_fuzz -n 20 -j 4``'s seeds
+    (``sweep_argv``), started with them and left running: phase 36 reads
+    it.  Returns the (K1, K2) launches and the sweep's process."""
     import pycparser
 
     from coast_tpu_torch.frontend import lift_c
@@ -4756,7 +4898,6 @@ def c_frontend_phase(work: Path, card: str, TMR, DWC, CampaignRunner, hv,
         fail("gcc is not on this machine")
     log(f"pycparser {pycparser.__version__}; "
         f"{gcc.stdout.splitlines()[0]} [{card}]")
-    t_phase = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     src = {name: ROOT / "tests" / "c_sources" / f"{name}.c"
            for name in C_SOURCES}
@@ -4767,9 +4908,7 @@ def c_frontend_phase(work: Path, card: str, TMR, DWC, CampaignRunner, hv,
                       "-countErrors", str(src["mm9"])], cwd=ROOT, env=env,
                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                      text=True),
-        "fuzz": spawn([sys.executable, "-m",
-                       "coast_tpu_torch.testing.c_fuzz", "-n", "20", "-d",
-                       "cuda", "-j", "4"], cwd=ROOT, env=env,
+        "fuzz": spawn(sweep_argv(work), cwd=ROOT, env=env,
                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                       text=True),
         "supervisor": start_cli(["-f", str(src["crc16"]), "-t", str(n),
@@ -4857,28 +4996,282 @@ def c_frontend_phase(work: Path, card: str, TMR, DWC, CampaignRunner, hv,
     log(f"supervisor -f crc16.c -t {n}: {cli['summary']['injections']} "
         f"injections, line 1 of the reference-format log names the "
         f"source, K1 {cli['k1']} [{card}]")
-    out, err = procs["fuzz"].communicate(timeout=600)
-    if procs["fuzz"].returncode != 0 or \
-            out.strip().splitlines()[-1:] != ["Success!"]:
-        fail(f"c_fuzz -n 20 -d cuda -j 4 exited {procs['fuzz'].returncode}: "
-             f"{out.strip()[-500:]} {err.strip()[-1500:]}")
-    log(f"python -m coast_tpu_torch.testing.c_fuzz -n 20 -d cuda -j 4: "
-        f"Success!, read {time.perf_counter() - t_phase:.1f} s into the "
-        f"phase [{card}]")
-    sums = {}
+    return tuple(launches), procs["fuzz"]
+
+
+def sweep_read(work: Path, card: str, proc: subprocess.Popen,
+               t_start: float) -> None:
+    """Phase 35's C-fuzz sweep: its record (seeds 0-19 pass, no failure)
+    and its seeds' gcc, lift and run seconds, summed over its workers."""
+    out, err = proc.communicate(timeout=600)
+    record = sweep_record(work, proc.returncode, out, err)
+    sums = [0.0, 0.0, 0.0]
     for line in err.splitlines():
-        m = re.match(r"worker (\d+) seed \d+: gcc ([\d.]+) s, lift "
-                     r"([\d.]+) s, run ([\d.]+) s$", line)
+        m = SWEEP_SEED.match(line)
         if m:
-            acc = sums.setdefault(m.group(1), [0.0, 0.0, 0.0])
             for j in range(3):
-                acc[j] += float(m.group(j + 2))
-    for line in err.splitlines():
-        m = re.match(r"worker (\d+): started", line)
-        if m:
-            g, li, r = sums.get(m.group(1), (0.0, 0.0, 0.0))
-            log(f"  c_fuzz {line}; its seeds: gcc {g:.2f} s, lift "
-                f"{li:.2f} s, run {r:.2f} s [{card}]")
+                sums[j] += float(m.group(j + 2))
+    log(f"35d: python -m coast_tpu_torch.scripts.c_fuzz_sweep -n 20 -d "
+        f"cuda -j 4: seeds {record['ranges']} pass, no failure, read "
+        f"{time.perf_counter() - t_start:.1f} s after its start; its seeds "
+        f"summed over its 4 workers: gcc {sums[0]:.2f} s, lift "
+        f"{sums[1]:.2f} s, run {sums[2]:.2f} s [{card}]")
+
+
+MWTF_N = 20000
+# The rows of each integer MWTF campaign on the card rerun on the CPU.
+STUDY_CPU_ROWS = {"matrixMultiply": 512, "crc16": 512}
+# train_campaign's injections a strategy: 1,024 of the reference's 2,048.
+TRAIN_N = 1024
+WORKFLOW = ROOT / "coast_tpu_torch" / "scripts" / "zero_to_aha.sh"
+
+
+def ratio(a: float, b: float) -> str:
+    if b == 0:
+        return "inf" if a > 0 else "1"
+    return f"{a / b:.4f}"
+
+
+def mwtf_rows(record: dict, card: str, label: str = "") -> None:
+    """One line a protected strategy: counts, MWTF, the SDC and DUE rates
+    against unprotected's, and each program's seconds a fault-free run."""
+    from coast_tpu_torch.inject import classify as cls
+    for name, row in record["benchmarks"].items():
+        camp = row["campaigns"]
+        base = camp["unprotected"]
+        n = sum(base.values())
+        sdc = {s: sum(c.get(k, 0) for k in cls.SDC_CLASSES)
+               for s, c in camp.items()}
+        due = {s: sum(c.get(k, 0) for k in cls.DUE_CLASSES)
+               for s, c in camp.items()}
+        log(f"36a {name}{label}: unprotected "
+            f"{ {k: v for k, v in base.items() if v} } of {n}, "
+            f"{row['seconds_per_run']['unprotected']} s a run; flops "
+            f"overhead {row.get('flops_overhead')} "
+            f"({row['flops_overhead_source']}) [{card}]")
+        for strat in camp:
+            if strat == "unprotected":
+                continue
+            vs = row[f"vs_unprotected_{strat}"]
+            log(f"36a {name}{label} {strat}: "
+                f"{ {k: v for k, v in camp[strat].items() if v} }, MWTF "
+                f"{vs['mwtf']}, SDC ratio "
+                f"{ratio(sdc[strat], sdc['unprotected'])}, DUE ratio "
+                f"{ratio(due[strat], due['unprotected'])}, "
+                f"runtime x{vs['runtime_x']}, "
+                f"{row['seconds_per_run'][strat]} s a run [{card}]")
+
+
+def study(module: str, out: Path, *argv, env=None) -> tuple:
+    """Run ``coast_tpu_torch.scripts.<module>``'s ``main`` in this process
+    with ``--out out`` (its printed lines go to ``out`` + ``.log``) ->
+    (its exit code, the (K1, K2) launches it made, its record, seconds)."""
+    import contextlib
+    import importlib
+    from coast_tpu_torch.ops import hopper_commit as hc
+    from coast_tpu_torch.ops import hopper_voters as hv
+    mod = importlib.import_module(STUDIES + module)
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    hv.LAUNCHES = hc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with open(f"{out}.log", "w") as fh, contextlib.redirect_stdout(fh), \
+                contextlib.redirect_stderr(fh):
+            rc = mod.main([str(a) for a in argv] + ["--out", str(out)])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(f"{out}.log") as fh:
+            fail(f"phase 36: {module} {list(argv)} exited {rc}: "
+                 f"{fh.read()[-2500:]}")
+    with open(out) as fh:
+        record = json.load(fh)
+    return rc, (hv.LAUNCHES, hc.LAUNCHES), record, seconds
+
+
+def start_workflow(work: Path) -> subprocess.Popen:
+    """``zero_to_aha.sh -d cuda`` on mm9.c with 512 injections: a chain of
+    processes (each lifts the source), one host thread each, its output
+    in ``work/zero_to_aha.{out,err}``."""
+    with open(work / "zero_to_aha.out", "w") as out, \
+            open(work / "zero_to_aha.err", "w") as err:
+        return spawn(["sh", str(WORKFLOW), "-d", "cuda",
+                      str(ROOT / "tests" / "c_sources" / "mm9.c"), "512"],
+                     cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT),
+                                    "OMP_NUM_THREADS": "1"},
+                     stdout=out, stderr=err)
+
+
+def studies_phase(work: Path, card: str, TMR, DWC, unprotected, REGISTRY,
+                  CampaignRunner, hv, hc, sweep, t_sweep: float,
+                  workflow: subprocess.Popen) -> tuple:
+    """Phase 36: the reliability studies of ``coast_tpu_torch/scripts`` on
+    the card.  This process calls each study's ``main`` one after another
+    and holds its record, and reruns the integer MWTF campaigns on the
+    card with their first rows on the CPU.  Then it reads phase 35's
+    C-fuzz sweep (``sweep``, started at ``t_sweep``), runs it again on
+    its record, and reads the workflow (``start_workflow``, started
+    after phase 15).  Returns the (K1, K2) launches."""
+    from coast_tpu_torch.inject import classify as cls
+    sdir = work / "studies"
+    sdir.mkdir()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    launches = [0, 0]
+    records = {}
+
+    def run(key, module, *argv, env=None):
+        _, got, records[key], seconds = study(module, sdir / f"{key}.json",
+                                              *argv, env=env)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        log(f"36: {' '.join(map(str, (module,) + argv))}: exit 0 in "
+            f"{seconds:.1f} s, K1 {got[0]}, K2 {got[1]} [{card}]")
+        return got
+
+    # (a) The integer MWTF campaigns on the card in this process, their
+    # first rows rerun on the CPU in worker processes while the studies
+    # run.
+    n = MWTF_N
+    cards, reruns = {}, []
+    for name, rows in STUDY_CPU_ROWS.items():
+        region = REGISTRY[name]()
+        for strat in (unprotected, DWC, TMR):
+            hv.LAUNCHES = hc.LAUNCHES = 0
+            res = CampaignRunner(strat(region),
+                                 strategy_name=strat.__name__).run(
+                n, seed=2026, batch_size=n)
+            launches[0] += hv.LAUNCHES
+            launches[1] += hc.LAUNCHES
+            if strat is not unprotected and hv.LAUNCHES <= 0:
+                fail(f"36a {name} {strat.__name__} launched K1 no time")
+            cards[name, strat.__name__] = res
+            reruns.append((name, strat.__name__, rows, rerun_pool().submit(
+                cpu_rerun, name, strat, {}, res.schedule.slice(0, rows),
+                rows)))
+    # The MWTF reports: their integer counts are this process's card
+    # campaigns of the same seed and the reference's recorded campaigns
+    # (seed-determined); the fused engine's the unfused one's.
+    run("mwtf", "mwtf_report", "--benchmarks", "mm,crc16", "-n", n,
+        "--batch", n)
+    if run("mwtf_fused", "mwtf_report", "--benchmarks", "mm,crc16", "-n", n,
+           "--batch", n, "--fuse-step")[1] <= 0:
+        fail("36a: the fused report launched K2 no time")
+    if run("mwtf_1024", "mwtf_report", "--benchmarks", "matrixMultiply1024",
+           "-n", 512, "--batch", 128)[0] <= 0:
+        fail("36a: the flagship's report launched K1 no time")
+    for key in ("mwtf", "mwtf_fused", "mwtf_1024"):
+        if records[key]["device"]["name"] + ", " + \
+                records[key]["device"]["power_limit"] != card:
+            fail(f"36a {key}: the record names {records[key]['device']}")
+    with open(ROOT / "artifacts" / "mwtf_report.json") as fh:
+        recorded = json.load(fh)["benchmarks"]
+    for (name, strat), res in cards.items():
+        want = recorded[name]["campaigns"][strat]
+        got = [res.counts] + [records[key]["benchmarks"][name]["campaigns"][
+            strat] for key in ("mwtf", "mwtf_fused")
+            if name in records[key]["benchmarks"]]
+        if any(c.get(k, 0) != want.get(k, 0) for c in got
+               for k in set(c) | set(want)):
+            fail(f"36a {name} {strat}: counts {got}, the record {want}")
+    mwtf_rows(records["mwtf"], card)
+    mwtf_rows(records["mwtf_fused"], card, " --fuse-step")
+    mwtf_rows(records["mwtf_1024"], card)
+
+    # (b) The fault-model sweep: every series monotone.
+    run("faultmodel", "mwtf_report", "--model-sweep", "--benchmarks", "mm",
+        "-n", 4096, "--batch", 4096)
+    for strat, fams in records["faultmodel"]["degradation"].items():
+        for fam, d in fams.items():
+            if not d["monotone_uncorrected"]:
+                fail(f"36b {strat} {fam}: not monotone: {d['series']}")
+            log(f"36b mm {strat} {fam}: uncorrected "
+                f"{[x['uncorrected'] for x in d['series']]} over "
+                f"{[x['model'] for x in d['series']]}, degradation "
+                f"x{d['degradation_x']} [{card}]")
+
+    # (c) The fidelity study: C1-C4 pass (its exit code); its tables beside
+    # the record's.
+    run("fidelity", "fidelity_study", env={"COAST_FIDELITY_BUDGET": "14000"})
+    fid = records["fidelity"]
+    with open(ROOT / "artifacts" / "fidelity_study.json") as fh:
+        fid_rec = json.load(fh)
+    for prog in ("unprotected", "TMR"):
+        for sec, row in fid["sections"][prog].items():
+            want = fid_rec["sections"][prog][sec]
+            keys = ("n",) + cls.CLASS_NAMES
+            log(f"36c {prog} {sec}: card "
+                f"{ {k: row[k] for k in keys if row[k]} }, recorded "
+                f"{ {k: want[k] for k in keys if want.get(k)} } [{card}]")
+    for check in fid["checks"]:
+        log(f"36c {check['name']}: pass, {check['detail']} [{card}]")
+
+    # (d) Classification parity (its exit code: no differing row outside
+    # the f32 exemption): bit for bit on the integer regions.
+    run("parity", "classification_parity", "-n", 4096)
+    par = records["parity"]
+    for name in ("matrixMultiply", "crc16"):
+        block = par["benchmarks"][name]
+        if not all(block[f]["identical"] for f in ("codes", "errors",
+                                                   "steps")):
+            fail(f"36d {name}: the card's columns differ from the CPU's: "
+                 f"{block}")
+    mm256 = par["benchmarks"]["matrixMultiply256"]
+    log(f"36d: codes, errors and steps of matrixMultiply and crc16 (4096 "
+        f"rows) bit-identical on the card and the CPU; matrixMultiply256 "
+        f"({mm256['codes']['n']} rows): exempt rows that differ "
+        f"{mm256['exempt_rows']}, other rows that differ "
+        f"{mm256['differing_rows']} [{card}]")
+
+    # (e) The training campaign's three bars (its exit code).
+    run("train", "train_campaign", "-n", TRAIN_N)
+    train = records["train"]
+    for strat, row in train["strategies"].items():
+        log(f"36e {strat}: {row['rates']}, flops x{row['flops_overhead']}"
+            f" [{card}]")
+    log(f"36e: differential bit-identical "
+        f"{train['differential']['fault_free_trajectory_bit_identical']} "
+        f"(Adam {train['differential']['adam_variant_bit_identical']}), "
+        f"{train['selective_vs_tmr']} [{card}]")
+
+    for name, strat, rows, rerun in reruns:
+        cpu = rerun.result()
+        for col in COLUMNS:
+            bad = getattr(cards[name, strat], col)[:rows] != cpu[col]
+            if bad.any():
+                fail(f"36a {name} {strat}: {col} differs between the card "
+                     f"and the CPU on rows "
+                     f"{np.flatnonzero(bad)[:10].tolist()}")
+    close_rerun_pool()
+    log(f"36a: the integer MWTF campaigns (20,000 rows, seed 2026) of the "
+        f"reports, unfused and fused, and of this process equal the counts "
+        f"of artifacts/mwtf_report.json, their first {STUDY_CPU_ROWS} rows "
+        f"the CPU's [{card}]")
+
+    # (f) Phase 35's sweep; run again on its record it skips every seed;
+    # the workflow ends in exit 0.
+    sweep_read(work, card, sweep, t_sweep)
+    resume = spawn(sweep_argv(work), cwd=ROOT, env=env,
+                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out, err = resume.communicate(timeout=600)
+    sweep_record(work, resume.returncode, out, err)
+    if any(SWEEP_SEED.match(line) for line in err.splitlines()):
+        fail(f"36f: the resumed sweep ran seeds again: {err}")
+    t0 = time.perf_counter()
+    workflow.wait(timeout=900)
+    out = (work / "zero_to_aha.out").read_text()
+    err = (work / "zero_to_aha.err").read_text()
+    if workflow.returncode != 0:
+        fail(f"36f: zero_to_aha.sh -d cuda exited {workflow.returncode}: "
+             f"{out.strip()[-1500:]} {err.strip()[-2500:]}")
+    log(f"36f: the resumed c_fuzz_sweep ran no seed; zero_to_aha.sh -d "
+        f"cuda mm9.c 512 exit 0 ({time.perf_counter() - t0:.1f} s waited "
+        f"for it): {out.strip().splitlines()[-1]} [{card}]")
     return tuple(launches)
 
 
@@ -5070,7 +5463,12 @@ def main() -> None:
     new_launches += [
         cli_launches,
         oom_degrade(work, "gpu", card, torch, TMR, REGISTRY, CampaignRunner,
-                    order_sensitive),
+                    order_sensitive)]
+    # Phase 36's workflow, a chain of processes each lifting a C source on
+    # the host, runs from here on beside phases 16-20: after phase 15,
+    # whose batch takes the card's memory until it fails.
+    workflow = start_workflow(work)
+    new_launches += [
         watchdog(work, "gpu", card, first),
         durability(work, "gpu", card, TMR, REGISTRY, CampaignRunner,
                    StreamLogWriter, bare)]
@@ -5109,6 +5507,7 @@ def main() -> None:
     new_launches.append(train_regions(
         "gpu", card, torch, DWC, TMR, unprotected, REGISTRY, CampaignRunner,
         hv, hc, fs))
+    close_rerun_pool()
     lap("phase 24")
     # 25. The sharded backend on the stencil.
     new_launches.append(sharded_stencil(
@@ -5156,10 +5555,17 @@ def main() -> None:
     new_launches.append(phase34)
     lap("phase 34")
     # 35. The restricted-C front end: three C sources and the fuzz tier.
-    phase35 = c_frontend_phase(work, card, TMR, DWC, CampaignRunner, hv, hc,
-                               fs)
+    t_sweep = time.perf_counter()
+    phase35, sweep = c_frontend_phase(work, card, TMR, DWC, CampaignRunner,
+                                      hv, hc, fs)
     new_launches.append(phase35)
     lap("phase 35")
+    # 36. The reliability studies of coast_tpu_torch/scripts, beside the
+    # end of phase 35's sweep.
+    phase36 = studies_phase(work, card, TMR, DWC, unprotected, REGISTRY,
+                            CampaignRunner, hv, hc, sweep, t_sweep, workflow)
+    new_launches.append(phase36)
+    lap("phase 36")
     shutil.rmtree(work)
     main_launches += sum(k1 for k1, _ in new_launches)
     fused_launches += sum(k2 for _, k2 in new_launches)
@@ -5187,6 +5593,7 @@ def main() -> None:
         "launches_phase_33": phase33[0],
         "launches_phase_34": phase34[0],
         "launches_phase_35": phase35[0],
+        "launches_phase_36": phase36[0],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -5208,6 +5615,7 @@ def main() -> None:
         "launches_phase_33": phase33[1],
         "launches_phase_34": phase34[1],
         "launches_phase_35": phase35[1],
+        "launches_phase_36": phase36[1],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from typing import Dict, List
@@ -120,10 +119,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device_mod.resolve("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    card = device_mod.card_line()
     prog = getattr(strategies, args.strategy)(REGISTRY[args.bench](),
                                               fuse_step=args.fuse_step)
     runner = CampaignRunner(prog, strategy_name=args.strategy,

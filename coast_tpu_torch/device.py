@@ -9,6 +9,9 @@ under the card's name.
 
 from __future__ import annotations
 
+import subprocess
+from typing import Optional
+
 import torch
 
 DEFAULT = "cuda"
@@ -25,3 +28,21 @@ def resolve(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
     return dev
+
+
+def card_line(timeout: float = 60) -> Optional[str]:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``); None where nvidia-smi is
+    missing or fails.  Every time measured on the card is written beside
+    this line: a card may be set below its maximum power and then runs
+    slower under load."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=timeout)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None

@@ -85,13 +85,10 @@ def _torch_meta() -> Dict[str, object]:
         meta["backend"] = "gpu"
         meta["device_count"] = int(torch.cuda.device_count())
         meta["device_name"] = torch.cuda.get_device_name(0)
-        import subprocess
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=5)
-        if out.returncode == 0 and out.stdout.strip():
-            meta["power_limit"] = out.stdout.strip().splitlines()[0]
+        from coast_tpu_torch.device import card_line
+        line = card_line(timeout=5)
+        if line:
+            meta["power_limit"] = line.rsplit(", ", 1)[-1]
     except Exception:  # noqa: BLE001 - metadata is best-effort
         pass
     return meta
