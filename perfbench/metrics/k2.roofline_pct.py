@@ -1,0 +1,12 @@
+"""K2's share of its bandwidth bound: the bytes the reference's sync plan
+makes K2's (the fused engine's vote-and-repair commits) over 3.35 TB/s,
+over K2's device time in the traced window."""
+
+from perfbench import kernels, roofline
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return roofline.share_pct(ctx.vote_bytes.get(kernels.K2, 0),
+                              ctx.trace.layer_s(kernels.K2))
