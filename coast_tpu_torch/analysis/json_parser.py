@@ -58,6 +58,8 @@ import os
 import sys
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from coast_tpu_torch.obs.spans import top_stages
+
 # Outcome classes, matching coast_tpu_torch.inject.classify codes / CLASS_NAMES.
 _CLASSES = ("success", "corrected", "sdc", "due_abort", "due_timeout",
             "invalid", "due_stack_overflow", "due_assert",
@@ -291,8 +293,10 @@ class Summary:
             # 'overlap' is a FRACTION (share of serialization work the
             # streaming writer hid under dispatch), not a seconds
             # bucket: keep it out of the percentage table and print it
-            # on its own line.
-            seconds = {k: v for k, v in self.stages.items()
+            # on its own line.  Nested spans ("<stage>/<span>") lie
+            # inside their stage's seconds: the shares are of the top
+            # level.
+            seconds = {k: v for k, v in top_stages(self.stages).items()
                        if k != "overlap"}
             total = sum(seconds.values()) or 1.0
             for stage, sec in sorted(seconds.items(),

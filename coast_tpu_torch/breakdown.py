@@ -8,13 +8,19 @@ region's and the engine's elementwise tensor work (copies, selects, casts,
 row indexing, the flip), and the K1 vote and K2 commit kernels
 (``--fuse-step`` runs the fused engine), each kernel layer with its
 launches a loop trip (one grouped launch per sync point that has sites).
-The device's busy share is the summed kernel time over the campaign's
-wall clock.  ``--fault-model SPEC`` draws flip groups
-(``inject/schedule.FaultModel``); ``--collect sparse`` runs the sparse
-collect and reads its own layers, the device generator's columns and the
-device accounting, from the profiled campaign's spans
-(``campaign.SPANS``: their kernels are elementwise ones, counted in that
-layer too).  A span's device time needs the host ops traced, so a sparse
+The device's busy time is the union of its activity intervals (kernels on
+several streams overlap), its share the busy time over the campaign's
+wall clock.  The program's spans (the runner's ``Telemetry``) are laid
+over the device's timeline through ``Telemetry.to_profiler_ns``, the
+clock the profiler stamps device activity with, and every idle stretch of
+the device is billed to the innermost span the host was in (``idle_s``;
+"(no span)" where it was in none).  ``--fault-model SPEC`` draws flip
+groups (``inject/schedule.FaultModel``); ``--collect sparse`` runs the
+sparse collect and reads its own layers, the device generator's columns
+and the device accounting, from the profiled campaign's spans
+(``campaign.SPANS``, bracketed by ``Telemetry(profiler=True)`` in the
+profiled run: their kernels are elementwise ones, counted in that layer
+too).  A span's device time needs the host ops traced, so a sparse
 profile records them, and its profiled wall is the longer for it; the rate
 comes from the unprofiled run either way.  The JSON record goes to
 ``--out``.
@@ -29,11 +35,13 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from coast_tpu_torch import device as device_mod
+from coast_tpu_torch import obs
 from coast_tpu_torch.inject import campaign as campaign_mod
 from coast_tpu_torch.inject.campaign import CampaignRunner
 from coast_tpu_torch.inject.schedule import FaultModel
@@ -50,6 +58,7 @@ LAYERS = (("K1 vote", ("vote_kernel",)),
           ("product (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
           ("memcpy/memset", ("memcpy", "memset")))
 SEED = 1   # the campaign seed chip_smoke.py uses
+NO_SPAN = "(no span)"
 
 
 def layer_of(kernel: str) -> str:
@@ -75,12 +84,21 @@ def _on_device(evt) -> bool:
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
 
 
+def _annotations(prof) -> set:
+    """Names of the profile's user annotations (``record_function``
+    brackets), whose device-side mirrors are not kernels."""
+    return ({e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
+            | set(campaign_mod.SPANS))
+
+
 def kernel_times(prof) -> List[Dict[str, object]]:
     """Per-kernel device microseconds and counts, largest first (a span's
     device-side mirror is not a kernel)."""
     rows = []
+    skip = _annotations(prof)
     for evt in prof.key_averages():
-        if not _on_device(evt) or evt.key in campaign_mod.SPANS:
+        if not _on_device(evt) or evt.key in skip:
             continue
         us = _device_us(evt)
         if us > 0:
@@ -98,6 +116,116 @@ def span_times(prof) -> Dict[str, float]:
             spans[evt.key] = (spans.get(evt.key, 0.0)
                               + _device_us(evt, own=False) / 1e6)
     return spans
+
+
+def device_intervals(prof, skip: Sequence[str] = ()
+                     ) -> List[Tuple[int, int]]:
+    """Every device activity of the profile (kernels, copies, fills) as
+    ``(start_ns, end_ns)`` on the profiler's clock; annotations and the
+    names in ``skip`` are left out."""
+    drop = _annotations(prof) | set(skip)
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA \
+                or e.name() in drop:
+            continue
+        start = int(e.start_ns())
+        out.append((start, start + int(e.duration_ns())))
+    return out
+
+
+def union(intervals: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The disjoint busy runs of possibly overlapping intervals."""
+    runs: List[List[int]] = []
+    for a, b in sorted(intervals):
+        if runs and a <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], b)
+        elif b > a:
+            runs.append([a, b])
+    return [(a, b) for a, b in runs]
+
+
+def innermost_segments(spans: Sequence[Tuple[str, int, int]]
+                       ) -> List[Tuple[int, int, str]]:
+    """Nested spans ``(label, start, end)`` cut into disjoint segments,
+    each labelled with the innermost span over it (the one opened last
+    and not yet closed); stretches in no span get none."""
+    segs: List[Tuple[int, int, str]] = []
+    stack: List[Tuple[str, int, int]] = []
+    cursor = 0
+
+    def advance(t: int) -> None:
+        nonlocal cursor
+        while stack and stack[-1][2] <= t:
+            label, _, end = stack.pop()
+            if end > cursor:
+                segs.append((cursor, end, label))
+                cursor = end
+        if stack and t > cursor:
+            segs.append((cursor, t, stack[-1][0]))
+        cursor = max(cursor, t)
+
+    for label, a, b in sorted(spans, key=lambda s: (s[1], -s[2])):
+        advance(a)
+        stack.append((label, a, b))
+    if stack:
+        advance(max(b for _, _, b in stack))
+    return segs
+
+
+def idle_by_span(busy: Sequence[Tuple[int, int]], window: Tuple[int, int],
+                 spans: Sequence[Tuple[str, int, int]]) -> Dict[str, float]:
+    """Idle seconds of the device in ``window``, the complement of the
+    disjoint sorted ``busy`` runs, each stretch billed to the innermost
+    span over it (``NO_SPAN`` where none is), largest first; every time
+    in ns on one clock."""
+    w0, w1 = window
+    gaps = [(max(a, w0), min(b, w1)) for a, b in
+            zip([w0] + [b for _, b in busy], [a for a, _ in busy] + [w1])]
+    segs = innermost_segments(spans)
+    seg_start = np.asarray([s[0] for s in segs], np.int64)
+    idle: Dict[str, float] = {}
+    for a, b in gaps:
+        if b <= a:
+            continue
+        covered = 0
+        i = max(int(np.searchsorted(seg_start, a, side="right")) - 1, 0)
+        for s0, s1, label in segs[i:]:
+            if s0 >= b:
+                break
+            part = min(b, s1) - max(a, s0)
+            if part > 0:
+                idle[label] = idle.get(label, 0.0) + part / 1e9
+                covered += part
+        if b - a > covered:
+            idle[NO_SPAN] = idle.get(NO_SPAN, 0.0) + (b - a - covered) / 1e9
+    return dict(sorted(idle.items(), key=lambda kv: -kv[1]))
+
+
+def span_intervals(tel: "obs.Telemetry", since: int = 0
+                   ) -> List[Tuple[str, int, int]]:
+    """The recorder's spans of ``events[since:]`` on the profiler's clock,
+    labelled ``"<stage>"`` at the top level and ``"<stage>/<span>"``
+    below it."""
+    spans = [e for e in tel.events[since:] if e["kind"] == "span"
+             and not (e.get("args") or {}).get("device")
+             and not (e.get("args") or {}).get("replayed")]
+    if not spans:
+        return []
+    top = min(int(e["depth"]) for e in spans)
+    out: List[Tuple[str, int, int]] = []
+    pending: List[Tuple[str, int, int]] = []
+    for e in spans:             # exit order: children before their stage
+        iv = (str(e["name"]), tel.to_profiler_ns(float(e["t0"])),
+              tel.to_profiler_ns(float(e["t1"])))
+        if int(e["depth"]) != top:
+            pending.append(iv)
+            continue
+        out.append(iv)
+        out.extend((iv[0] + obs.spans.NESTED + name, a, b)
+                   for name, a, b in pending)
+        pending.clear()
+    return out
 
 
 def main(argv=None) -> int:
@@ -122,9 +250,10 @@ def main(argv=None) -> int:
     card = device_mod.card_line()
     prog = getattr(strategies, args.strategy)(REGISTRY[args.bench](),
                                               fuse_step=args.fuse_step)
+    tel = obs.Telemetry(enabled=True)
     runner = CampaignRunner(prog, strategy_name=args.strategy,
                             fault_model=FaultModel.parse(args.fault_model),
-                            collect=args.collect)
+                            collect=args.collect, telemetry=tel)
     runner.run(args.batch_size, seed=0, batch_size=args.batch_size)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -145,15 +274,26 @@ def main(argv=None) -> int:
 
     prog.step = counting
     before = {layer: mod.LAUNCHES for layer, mod in _WRAPPERS}
+    # The profiled run brackets every span with record_function.
+    tel.profiler = True
+    mark = tel.mark()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         res = runner.run(args.n, seed=SEED, batch_size=args.batch_size)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+    tel.profiler = False
+    wall_s = t1 - t0
     launches = {layer: mod.LAUNCHES - before[layer]
                 for layer, mod in _WRAPPERS}
-    kernels = kernel_times(prof)
-    busy_us = sum(k["us"] for k in kernels)
+    spans = span_intervals(tel, mark)
+    names = {name.split(obs.spans.NESTED)[-1] for name, _, _ in spans}
+    kernels = [k for k in kernel_times(prof) if k["kernel"] not in names]
+    window = (tel.to_profiler_ns(t0), tel.to_profiler_ns(t1))
+    busy = union([(max(a, window[0]), min(b, window[1]))
+                  for a, b in device_intervals(prof, names)])
+    busy_us = sum(b - a for a, b in busy) / 1e3
+    idle = idle_by_span(busy, window, spans)
     if busy_us <= 0:
         print("breakdown: the profiler recorded no device time",
               file=sys.stderr)
@@ -161,12 +301,12 @@ def main(argv=None) -> int:
     layers: Dict[str, float] = {}
     for k in kernels:
         layers[k["layer"]] = layers.get(k["layer"], 0.0) + k["us"]
-    spans = span_times(prof)
+    span_s = span_times(prof)
     record = {
         "bench": args.bench, "strategy": args.strategy,
         "fuse_step": args.fuse_step, "fused": prog._fuse_plan is not None,
         "collect": args.collect, "fault_model": args.fault_model,
-        "transfer": res.transfer, "spans_s": spans,
+        "transfer": res.transfer, "spans_s": span_s,
         "host_ops_traced": args.collect == "sparse",
         "n": res.n,
         "batch_size": args.batch_size, "seed": SEED, "card": card,
@@ -176,6 +316,8 @@ def main(argv=None) -> int:
         "device_busy_share": busy_us / 1e6 / wall_s,
         "layers_s": {k: v / 1e6 for k, v in sorted(
             layers.items(), key=lambda kv: -kv[1])},
+        "idle_s": idle,
+        "stages": res.stages,
         "kernels": kernels[:25],
         "counts": res.counts,
         "loop_trips": trips[0],
@@ -195,9 +337,12 @@ def main(argv=None) -> int:
                      f"{launches[layer] / max(1, trips[0]):.2f} a loop "
                      f"trip ({trips[0]} trips)")
         print(line)
-    for span, s in spans.items():
+    for span, s in span_s.items():
         print(f"  of the elementwise layer, span {span}: {s:.4f} s  "
               f"{s / (busy_us / 1e6):6.1%} of device time")
+    for span, s in list(idle.items())[:8]:
+        print(f"  device idle in {span:36s} {s:.4f} s  "
+              f"{s / wall_s:6.1%} of the profiled wall")
     print(f"  transfer up {res.transfer['up']} B, down "
           f"{res.transfer['down']} B")
     for k in kernels[:12]:

@@ -43,7 +43,21 @@ splices the recorded outcomes of the rest.
 campaign as the reference counts them, plus the one copy the port's engine
 makes a batch and the reference's compiled loop does not: a bool a step,
 and one a site column and a leaf, which steps and leaves the batch's flips
-touch (``ProtectedProgram.fire_plan_bytes``).
+touch (``ProtectedProgram.fire_plan_bytes``).  Its ``reads`` counts the
+campaign's blocking device-to-host reads: the engine's fire-plan copy and
+halt reads (``ProtectedProgram.host_reads``) and the collect's copies.
+
+The runner's ``Telemetry`` times the campaign loop.  Top-level stages:
+``sparse_setup``, ``pad``, ``dispatch``, ``collect``, ``account`` (a
+collected batch's histogram, journal, stream, metrics and progress) and
+``classify``; together they cover ``run_schedule``'s wall clock.  Nested
+spans: ``setup.columns``, ``setup.weights`` and ``setup.upload`` under
+``sparse_setup``; ``campaign.device_generator`` under ``pad``; the
+engine's ``engine.upload``, ``engine.fire_read`` and ``engine.halt_read``
+and ``campaign.sparse_accounting`` under ``dispatch``; ``collect.wait``
+(the batch's first blocking copy) and ``collect.unpack`` (host decoding of
+the rows) under ``collect``.  ``CampaignResult.stages`` holds each nested
+span's seconds as ``"<stage>/<span>"``.
 """
 
 from __future__ import annotations
@@ -80,8 +94,9 @@ _COLUMNS = ("code", "errors", "corrected", "steps")
 # Journal record key of each result column.
 _RECORD_KEYS = (("code", "codes"), ("errors", "errors"),
                 ("corrected", "corrected"), ("steps", "steps"))
-# Profiler spans around the sparse collect's own layers, once a batch
-# (``breakdown.py`` reads their device time from a campaign's profile).
+# Spans around the sparse collect's own layers, once a batch
+# (``breakdown.py`` reads their device time from a campaign's profile,
+# recorded under ``Telemetry(profiler=True)``).
 SPANS = ("campaign.device_generator", "campaign.sparse_accounting")
 
 @dataclasses.dataclass
@@ -104,9 +119,11 @@ class CampaignResult:
     # reproduces ``codes``.  None for single-seed campaigns.
     chunks: Optional[List[Dict[str, int]]] = None
     # Wall-clock seconds per stage: the runner's Telemetry's top-level span
-    # totals (schedule, sparse_setup, pad, dispatch, collect, classify),
-    # plus serialize (and the ``overlap`` fraction of a streamed log) once
-    # a log writer ran; {} when telemetry is disabled.
+    # totals (schedule, sparse_setup, pad, dispatch, collect, account,
+    # classify) and the nested spans' under "<stage>/<span>"
+    # (``obs.spans.top_stages`` keeps the top level alone), plus serialize
+    # (and the ``overlap`` fraction of a streamed log) once a log writer
+    # ran; {} when telemetry is disabled.
     stages: Dict[str, float] = dataclasses.field(default_factory=dict)
     # First injection number of this campaign within its seed stream.
     start_num: int = 0
@@ -125,7 +142,8 @@ class CampaignResult:
     # ``interesting_rows``.
     collect: str = "dense"
     interesting_rows: Optional[np.ndarray] = None
-    # Host<->device bytes, {"up", "down"}.
+    # Host<->device bytes, {"up", "down"}, and the blocking device-to-host
+    # reads, "reads".
     transfer: Dict[str, int] = dataclasses.field(default_factory=dict)
     # The sharded runner's accounting (parallel/mesh.py): the mesh geometry
     # and the interesting rows each shard produced.  None on the
@@ -171,8 +189,10 @@ class CampaignResult:
 
     def summary(self) -> Dict[str, object]:
         """The reference's summary dict, key for key and in its order (the
-        log writers' header and the supervisor's output line)."""
-        stages = {k: round(v, 6) for k, v in self.stages.items()}
+        log writers' header and the supervisor's output line); its
+        ``stages`` are the top-level ones."""
+        stages = {k: round(v, 6)
+                  for k, v in obs.spans.top_stages(self.stages).items()}
         stages.setdefault("overlap", 0.0)
         out = {
             "benchmark": self.benchmark,
@@ -533,8 +553,7 @@ class CampaignRunner:
         if equiv:
             from coast_tpu_torch.analysis.equiv import (EquivPartition,
                                                         analyze_equivalence)
-            with self.telemetry.activate(), \
-                    self.telemetry.span("equiv_analysis"):
+            with self.telemetry.activate():
                 self.equiv_partition = (
                     equiv if isinstance(equiv, EquivPartition)
                     else analyze_equivalence(prog))
@@ -578,12 +597,21 @@ class CampaignRunner:
         columns, still on the device."""
         return run_classified(self.prog, fault)
 
+    def _engine_reads(self) -> int:
+        """The engine's blocking reads so far (``host_reads``)."""
+        return self.prog.host_reads
+
     @staticmethod
     def _collect(pending: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """Copy a dispatched batch's four result columns to the host, in
         one copy."""
         cols = torch.stack([pending[k] for k in _COLUMNS]).cpu().numpy()
         return {k: cols[i] for i, k in enumerate(_COLUMNS)}
+
+    @staticmethod
+    def _collect_reads(pending) -> int:
+        """The blocking copies ``_collect`` makes of ``pending``."""
+        return 1
 
     def _fire_plan_bytes(self, fault) -> int:
         t = fault["t"]
@@ -618,12 +646,27 @@ class CampaignRunner:
                 return state
             except DeviceGenError:
                 pass            # address space too large: resident path
-        arrays = {}
-        for k, v in sched.device_arrays().items():
-            v = np.pad(v, [(0, batch_size)] + [(0, 0)] * (v.ndim - 1),
-                       mode="edge")
-            arrays[k] = torch.as_tensor(v, device=self.prog.device)
-            transfer["up"] += int(v.nbytes)
+        tel = self.telemetry
+        with tel.span("setup.columns"):
+            host = {k: np.pad(v, [(0, batch_size)] + [(0, 0)] * (v.ndim - 1),
+                              mode="edge")
+                    for k, v in sched.device_arrays().items()}
+        with tel.span("setup.weights"):
+            w = self._count_weights(sched, batch_size)
+        with tel.span("setup.upload"):
+            arrays = {k: torch.as_tensor(v, device=self.prog.device)
+                      for k, v in host.items()}
+            count_w = torch.as_tensor(w, device=self.prog.device)
+        transfer["up"] += sum(int(v.nbytes) for v in host.values())
+        transfer["up"] += int(w.nbytes)
+        state.update(mode="resident", arrays=arrays, count_w=count_w)
+        return state
+
+    @staticmethod
+    def _count_weights(sched: FaultSchedule, batch_size: int) -> np.ndarray:
+        """Each row's count weight, int32, with ``batch_size`` rows of
+        headroom: its class weight (1 when unreduced), 0 for a draw that
+        never fires."""
         n = len(sched)
         if sched.class_weight is not None:
             w = sched.class_weight.astype(np.int64)
@@ -640,12 +683,8 @@ class CampaignRunner:
                     "dense (or with a smaller batch_size)")
         else:
             w = np.ones(n, np.int64)
-        w = np.pad(np.where(np.asarray(sched.t) < 0, 0, w).astype(np.int32),
-                   (0, batch_size))
-        transfer["up"] += int(w.nbytes)
-        state.update(mode="resident", arrays=arrays,
-                     count_w=torch.as_tensor(w, device=self.prog.device))
-        return state
+        return np.pad(np.where(np.asarray(sched.t) < 0, 0, w
+                               ).astype(np.int32), (0, batch_size))
 
     def _sparse_args(self, state: Dict[str, object], lo: int,
                      transfer: Dict[str, int]):
@@ -659,7 +698,7 @@ class CampaignRunner:
             rows = torch.arange(b, dtype=torch.int64,
                                 device=self.prog.device)
             rows += int(state["gen_lo"]) + lo
-            with torch.profiler.record_function(SPANS[0]):
+            with self.telemetry.span(SPANS[0]):
                 return (state["gen"].columns(state["seed"],
                                              state["stream_n"], rows), None)
         transfer["up"] += 4
@@ -675,39 +714,48 @@ class CampaignRunner:
         valid = torch.arange(b, device=self.prog.device) < n_part
         if count_w is None:
             count_w = valid.to(torch.int32)
-        with torch.profiler.record_function(SPANS[1]):
+        with self.telemetry.span(SPANS[1]):
             dev = _sparse_device_outputs(out, count_w, valid,
                                          int(state["cap"]), self._pack)
         return {"out": out, "dev": dev}
 
     def _sparse_fetch(self, state: Dict[str, object],
                       pending: Dict[str, object], n_part: int,
-                      transfer: Dict[str, int]) -> Dict[str, np.ndarray]:
-        """The sparse collect: the histogram head, then the interesting
-        rows (batch-local row numbers) -- or, when they overflow the
+                      transfer: Dict[str, int],
+                      marks: List[tuple]) -> Dict[str, np.ndarray]:
+        """The sparse collect: the histogram head (``collect.wait`` in
+        ``marks``), then the interesting rows (batch-local row numbers,
+        decoded in ``collect.unpack``) -- or, when they overflow the
         buffer, the batch's dense columns."""
         out, dev = pending["out"], pending["dev"]
         cap = int(state["cap"])
+        t0 = time.perf_counter()
         head = dev["head"].cpu().numpy()
+        marks.append(("collect.wait", t0, time.perf_counter()))
         hist = head[:cls.NUM_CLASSES].astype(np.int64)
         k, ke = int(head[-2]), int(head[-1])
         transfer["down"] += int(head.nbytes)
+        transfer["reads"] += 1
         if k > cap or ke > cap:
             # Overflow: correctness never depends on the capacity.
             cols = torch.stack([out[c] for c in _COLUMNS]).cpu().numpy()
             transfer["down"] += int(cols.nbytes)
+            transfer["reads"] += 1
             rows = np.flatnonzero(cols[0, :n_part] > cls.CORRECTED)
             return {"hist": hist, "rows": rows.astype(np.int64),
                     **{c: cols[i, rows] for i, c in enumerate(_COLUMNS)}}
         words = torch.cat([dev["mask"], dev["packed"][:k],
                            dev["exact"][:ke].flatten()]).cpu().numpy()
         transfer["down"] += int(words.nbytes)
+        transfer["reads"] += 1
+        t0 = time.perf_counter()
         n_mask = dev["mask"].shape[0]
         mask = words[:n_mask].view(np.uint32)
         packed = words[n_mask:n_mask + k].view(np.uint32)
         exact = words[n_mask + k:].reshape(ke, 3)
         code, err, cor, steps = _unpack_rows(packed, exact, self._pack)
         rows = _mask_rows(mask, n_part)
+        marks.append(("collect.unpack", t0, time.perf_counter()))
         if len(rows) != k:
             raise RuntimeError(
                 f"sparse collect: bitmask names {len(rows)} interesting "
@@ -816,6 +864,7 @@ class CampaignRunner:
                                      planned_n)
         tel = self.telemetry
         mark = tel.mark() if _telemetry_mark is None else _telemetry_mark
+        tel.anchor()
         t0 = time.perf_counter()
         prof = self.profiler
         if prof is not None:
@@ -829,7 +878,7 @@ class CampaignRunner:
             if retry is not None else {})
         sched_t = np.asarray(sched.t)
         sched_w = sched.class_weight
-        transfer: Dict[str, int] = {"up": 0, "down": 0}
+        transfer: Dict[str, int] = {"up": 0, "down": 0, "reads": 0}
         state: Optional[Dict[str, object]] = None
         if self.collect == "sparse":
             with tel.span("sparse_setup"):
@@ -866,7 +915,6 @@ class CampaignRunner:
             return counts_now()
 
         def journal_early_stop(rows: int) -> None:
-            tel.instant("early_stop", rows=rows)
             if journal is not None:
                 journal.append({
                     "kind": "early_stop",
@@ -922,7 +970,6 @@ class CampaignRunner:
                 if progress is not None:
                     progress(done, counts)
             if done:
-                tel.instant("journal_resume", rows=done)
                 flightrec.record("journal_resume", rows=int(done))
             early = next(
                 (r for r in journal.records()
@@ -969,7 +1016,9 @@ class CampaignRunner:
             args = ({"n": n_part} if int(flight["attempts"]) == 1 else
                     {"n": n_part, "retry": int(flight["attempts"])})
             td0 = time.perf_counter()
-            with tel.span("dispatch", **args):
+            reads0 = self._engine_reads()
+            # The engine records its own spans on the ambient recorder.
+            with tel.span("dispatch", **args), tel.activate():
                 transfer["down"] += self._fire_plan_bytes(fault)
                 if state is not None:
                     flight["pending"] = self._sparse_dispatch(
@@ -984,19 +1033,27 @@ class CampaignRunner:
                         if self.prog.device.type == "cuda" else None)
                     if flight["ready"] is not None:
                         flight["ready"].record()
+            transfer["reads"] += self._engine_reads() - reads0
             last_span(spans_rec)
             if prof is not None:
                 prof.dispatched(lo, n_part, td0, time.perf_counter())
 
         def collect(flight: Dict[str, object]):
             pending, n_part = flight["pending"], int(flight["n"])
+            # The fetch's nested spans, as (name, t0, t1): a watchdog runs
+            # it in another thread, so they are recorded here after it.
+            marks: List[tuple] = []
             if state is not None:
                 def fetch():
                     return self._sparse_fetch(state, pending, n_part,
-                                              transfer)
+                                              transfer, marks)
             else:
                 def fetch():
+                    t_wait = time.perf_counter()
                     got = self._collect(pending)
+                    marks.append(("collect.wait", t_wait,
+                                  time.perf_counter()))
+                    transfer["reads"] += self._collect_reads(pending)
                     transfer["down"] += sum(int(v.nbytes)
                                             for v in got.values())
                     return got
@@ -1022,6 +1079,8 @@ class CampaignRunner:
                             fetch, retry.collect_timeout)
                 else:
                     got = fetch()
+                for name, a, b in marks:
+                    tel.span_at(name, a, b, depth=tel.depth)
             last_span(flight.setdefault("spans", []))
             return got
 
@@ -1041,7 +1100,6 @@ class CampaignRunner:
             key = "retry_wedged" if kind == "wedged" else "retry_transient"
             resilience[key] += 1
             lo = int(flight["lo"])
-            tel.count(f"resilience_{key}", lo=lo, error=type(exc).__name__)
             flightrec.record("retry", lo=lo, attempt=attempts, kind=kind,
                              error=type(exc).__name__)
             if journal is not None:
@@ -1125,7 +1183,6 @@ class CampaignRunner:
                     if new_bs >= batch_size:
                         raise cause     # the shard count's floor is reached
                     resilience["oom_degrade"] += 1
-                    tel.count("resilience_oom_degrade", batch_size=new_bs)
                     flightrec.record("oom_degrade", batch_size=int(new_bs),
                                      lo=int(done))
                     batch_size = new_bs
@@ -1138,12 +1195,13 @@ class CampaignRunner:
                                         "batch_size": batch_size,
                                         "lo": journal_base + done})
                     continue
-                counts = grab(flight, got)
-                if tracker is not None:
-                    tracker.update(counts)
-                    if tracker.converged:
-                        stopped = True
-                        journal_early_stop(done)
+                with tel.span("account"):
+                    counts = grab(flight, got)
+                    if tracker is not None:
+                        tracker.update(counts)
+                        if tracker.converged:
+                            stopped = True
+                            journal_early_stop(done)
         except BaseException as e:
             # The campaign died: the live surfaces say so, and the flight
             # recorder dumps its bundle while the failing state exists.
@@ -1461,11 +1519,6 @@ class CampaignRunner:
             static_verdicts = vmap.section_verdicts()
             static_info = {"verdicts": dict(sorted(
                 static_verdicts.items()))}
-            tel.instant("delta_static_budget",
-                        sections=len(static_verdicts),
-                        sdc_possible=sum(
-                            1 for v in static_verdicts.values()
-                            if v == "sdc-possible"))
         if len(run_idx) and stop_when is None:
             sub = _rows_subset(part, run_idx)
             take(self.run_schedule(

@@ -154,7 +154,7 @@ class Console:
     def _stage_line(self) -> Optional[str]:
         if self.metrics is None:
             return None
-        stages = dict(self.metrics.stages)
+        stages = _spans.top_stages(self.metrics.stages)
         overlap = stages.pop("overlap", None)
         seconds_total = sum(stages.values())
         if not seconds_total:
@@ -227,8 +227,6 @@ class Console:
         panel = self.render(done, counts)
         self.emitted += 1
         self._write(panel)
-        tel = _spans.current()
-        tel.instant("console", done=done, total=self.total)
         return panel
 
     def final(self, done: int,

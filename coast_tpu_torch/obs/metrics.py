@@ -281,7 +281,9 @@ class CampaignMetrics:
             self.stages = {k: float(v) for k, v in stages.items()}
             self.resilience = {k: int(v) for k, v in resilience.items()}
             if transfer is not None:
-                self.transfer = {k: int(v) for k, v in transfer.items()}
+                # Bytes only: the loop's "reads" count is not a link's.
+                self.transfer = {k: int(v) for k, v in transfer.items()
+                                 if k in ("up", "down")}
             self.batches += 1
             if replayed:
                 self.replayed_batches += 1

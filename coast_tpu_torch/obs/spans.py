@@ -30,7 +30,15 @@ Spans nest (depth is recorded, Perfetto renders containment), counters
 are cumulative time series (``ph:"C"`` in the trace), instants mark
 point events (heartbeats).  ``Telemetry.stage_totals`` aggregates
 top-level span durations by name -- the ``stages`` block of
-``CampaignResult.summary()``.
+``CampaignResult.summary()`` -- and each nested span's inclusive seconds
+under ``"<top-level stage>/<span>"``; ``top_stages`` picks the top-level
+ones back out for anything that adds stages up.
+
+Span times are ``perf_counter`` seconds.  Each recorder keeps clock
+anchors, pairs of (``perf_counter_ns``, ``time_ns``) read together, and
+``to_profiler_ns`` maps a span time onto the Unix-nanosecond clock that
+``torch.profiler`` (kineto) stamps its events with, so the host spans and
+a profile's device activity lie on one timeline.
 """
 
 from __future__ import annotations
@@ -39,9 +47,31 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["Telemetry", "NULL", "current", "span", "count", "instant"]
+__all__ = ["Telemetry", "NULL", "current", "span", "count", "instant",
+           "top_stages"]
+
+#: Separator of a nested span's key in ``stage_totals``:
+#: ``"dispatch/engine.halt_read"``.
+NESTED = "/"
+
+
+def top_stages(stages: Dict[str, float]) -> Dict[str, float]:
+    """The top-level entries of a ``stages`` block alone, without the
+    nested spans' keys (``"<stage>/<span>"``, whose seconds lie inside
+    their stage's).  Whatever adds stages up or shares them out reads
+    this (and leaves out ``overlap``, a fraction, on its own)."""
+    return {k: v for k, v in stages.items() if NESTED not in k}
+
+
+def _read_anchor() -> Tuple[int, int]:
+    """One (perf_counter_ns, time_ns) pair: the wall read between two
+    perf_counter reads, paired with their midpoint."""
+    a = time.perf_counter_ns()
+    wall = time.time_ns()
+    b = time.perf_counter_ns()
+    return (a + b) // 2, wall
 
 
 def _env_enabled() -> bool:
@@ -57,6 +87,9 @@ class Telemetry:
     "instant"); timestamps are ``time.perf_counter()`` floats relative
     to nothing in particular -- ``origin`` anchors them for export, and
     ``epoch`` records the construction wall-clock for humans.
+    ``anchors`` holds the clock anchors ``to_profiler_ns`` maps through:
+    one read at construction, one at each ``anchor()`` call (every
+    campaign's start), each also a ``clock_anchor`` instant event.
     """
 
     def __init__(self, enabled: Optional[bool] = None,
@@ -70,6 +103,41 @@ class Telemetry:
         self.epoch = time.time()
         self._depth = 0
         self._trace_annotation = None     # resolved lazily, cached
+        self.anchors: List[Tuple[int, int]] = []
+        self.anchor()
+
+    # -- the shared clock ----------------------------------------------------
+    def anchor(self) -> None:
+        """Read one clock anchor and record it as a ``clock_anchor``
+        instant (none on a disabled recorder, past the construction
+        anchor every recorder keeps)."""
+        if self.anchors and not self.enabled:
+            return
+        perf_ns, unix_ns = _read_anchor()
+        self.anchors.append((perf_ns, unix_ns))
+        if self.enabled:
+            self.events.append({"kind": "instant", "name": "clock_anchor",
+                                "t": perf_ns / 1e9,
+                                "args": {"perf_ns": perf_ns,
+                                         "unix_ns": unix_ns}})
+
+    def to_profiler_ns(self, t: float) -> int:
+        """A span time (``perf_counter`` seconds) as Unix nanoseconds, the
+        clock ``torch.profiler`` stamps host and device events with,
+        through the newest anchor read at or before ``t`` (the first
+        anchor for an earlier time)."""
+        t_ns = int(round(t * 1e9))
+        perf_ns, unix_ns = self.anchors[0]
+        for a_perf, a_unix in reversed(self.anchors):
+            if a_perf <= t_ns:
+                perf_ns, unix_ns = a_perf, a_unix
+                break
+        return t_ns - perf_ns + unix_ns
+
+    @property
+    def depth(self) -> int:
+        """The nesting level a span opened now would record."""
+        return self._depth
 
     # -- spans ---------------------------------------------------------------
     @contextlib.contextmanager
@@ -165,9 +233,14 @@ class Telemetry:
     def stage_totals(self, since: int = 0) -> Dict[str, float]:
         """Wall-clock seconds per span name over events[since:].
 
-        Only *top-level* spans in the window count (minimum recorded
-        depth), so a nested helper span never double-bills its parent
-        stage.  Multiple same-name spans (one per batch) sum.
+        *Top-level* spans in the window (minimum recorded depth) count
+        under their own names, so a nested helper span never double-bills
+        its parent stage; every nested span's inclusive seconds count
+        under ``"<top-level stage>/<span>"`` (``top_stages`` drops them
+        again).  Multiple same-name spans (one per batch) sum.  Events
+        are exit-ordered, so a nested span belongs to the next top-level
+        span that closes after it; one whose stage has not closed in the
+        window counts nowhere.
 
         Journal-replayed spans (``span_at(..., replayed=True)``) are
         excluded: they exist for trace continuity, but their seconds
@@ -186,11 +259,18 @@ class Telemetry:
             return {}
         top = min(e["depth"] for e in spans)     # type: ignore[type-var]
         totals: Dict[str, float] = {}
+        nested: List[Tuple[str, float]] = []
         for e in spans:
-            if e["depth"] == top:
-                name = str(e["name"])
-                totals[name] = totals.get(name, 0.0) + (
-                    float(e["t1"]) - float(e["t0"]))    # type: ignore[arg-type]
+            seconds = float(e["t1"]) - float(e["t0"])  # type: ignore[arg-type]
+            if e["depth"] != top:
+                nested.append((str(e["name"]), seconds))
+                continue
+            name = str(e["name"])
+            totals[name] = totals.get(name, 0.0) + seconds
+            for child, sec in nested:
+                key = name + NESTED + child
+                totals[key] = totals.get(key, 0.0) + sec
+            nested.clear()
         return totals
 
     def reset(self) -> None:

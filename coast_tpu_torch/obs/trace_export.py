@@ -13,7 +13,13 @@ Emits the JSON Object Format of the Trace Event spec (the format both
 
 Timestamps are relative to the recorder's ``origin`` so a trace always
 starts near t=0; the construction wall-clock is carried in
-``otherData.epoch_unix_s`` for correlation with logs.
+``otherData.epoch_unix_s`` for correlation with logs.  The recorder's
+clock anchors ride along too: ``otherData.clock_anchors`` (pairs of
+``perf_counter_ns``, Unix ns) and ``baseTimeNanoseconds``, the Unix
+nanoseconds of the trace's t=0 (``Telemetry.to_profiler_ns``) -- the key
+under which a ``torch.profiler`` chrome trace states its own zero, so the
+two open on one timeline: a profile event at ``ts`` µs lies at
+``ts + (its base - this base) / 1e3`` here.
 """
 
 from __future__ import annotations
@@ -107,7 +113,10 @@ def to_trace_doc(telemetry: Telemetry,
     return {
         "traceEvents": to_trace_events(telemetry, process_name),
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": telemetry.to_profiler_ns(
+            _origin(telemetry)),
         "otherData": {"epoch_unix_s": round(telemetry.epoch, 6),
+                      "clock_anchors": [list(a) for a in telemetry.anchors],
                       **(metadata or {})},
     }
 

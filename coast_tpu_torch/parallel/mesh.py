@@ -33,6 +33,7 @@ Meshes:
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -177,11 +178,6 @@ class ShardedCampaignRunner(CampaignRunner):
                 f"was built on {prog.device}; build both on one device type")
         super().__init__(prog, **kw)
         self.mesh = mesh
-        # Geometry on the record: the trace names the mesh it ran on.
-        self.telemetry.instant(
-            "mesh_geometry", devices=int(mesh.devices.size),
-            axes={name: int(n) for name, n
-                  in zip(mesh.axis_names, mesh.devices.shape)})
         self._local = mesh.local_shards()
         self._progs = {_key(prog.device): prog}
         self._shard_ledger: Optional[np.ndarray] = None
@@ -250,12 +246,19 @@ class ShardedCampaignRunner(CampaignRunner):
         return [run_classified(self._prog_on(dev), block)
                 for _, dev, block in self._blocks(fault, per)]
 
+    def _engine_reads(self) -> int:
+        return sum(p.host_reads for p in self._progs.values())
+
     def _collect(self, pending) -> Dict[str, np.ndarray]:
         """One copy a shard; the shards' columns joined in row order."""
         cols = np.concatenate(
             [torch.stack([out[k] for k in _COLUMNS]).cpu().numpy()
              for out in pending], axis=1)
         return {k: cols[i] for i, k in enumerate(_COLUMNS)}
+
+    @staticmethod
+    def _collect_reads(pending) -> int:
+        return len(pending)
 
     def _fire_plan_bytes(self, fault) -> int:
         first = fault[0][0] if isinstance(fault, list) else fault
@@ -333,14 +336,19 @@ class ShardedCampaignRunner(CampaignRunner):
 
     def _sparse_fetch(self, state: Dict[str, object],
                       pending: Dict[str, object], n_part: int,
-                      transfer: Dict[str, int]) -> Dict[str, np.ndarray]:
-        """The heads of every shard (the histogram summed over shards),
-        then each shard's interesting rows; a shard whose rows overflow its
+                      transfer: Dict[str, int],
+                      marks: List[tuple]) -> Dict[str, np.ndarray]:
+        """The heads of every shard (the histogram summed over shards;
+        ``collect.wait``), then each shard's interesting rows
+        (``collect.unpack`` decodes them); a shard whose rows overflow its
         buffer makes the whole batch a dense fetch."""
         per, cap = int(state["per_shard"]), int(state["cap"])
         shards = pending["shards"]
+        t0 = time.perf_counter()
         heads = [dev["head"].cpu().numpy() for _, dev in shards]
+        marks.append(("collect.wait", t0, time.perf_counter()))
         transfer["down"] += sum(int(h.nbytes) for h in heads)
+        transfer["reads"] += len(heads)
         hist = np.sum([h[:cls.NUM_CLASSES] for h in heads],
                       axis=0).astype(np.int64)
         if any(int(h[-2]) > cap or int(h[-1]) > cap for h in heads):
@@ -348,6 +356,7 @@ class ShardedCampaignRunner(CampaignRunner):
                 [torch.stack([out[c] for c in _COLUMNS]).cpu().numpy()
                  for out, _ in shards], axis=1)
             transfer["down"] += int(cols.nbytes)
+            transfer["reads"] += len(shards)
             rows = np.flatnonzero(cols[0, :n_part] > cls.CORRECTED)
             self._ledger_rows(rows, per)
             return {"hist": hist, "rows": rows.astype(np.int64),
@@ -358,11 +367,14 @@ class ShardedCampaignRunner(CampaignRunner):
             words = torch.cat([dev["mask"], dev["packed"][:k],
                                dev["exact"][:ke].flatten()]).cpu().numpy()
             transfer["down"] += int(words.nbytes)
+            transfer["reads"] += 1
+            t0 = time.perf_counter()
             n_mask = dev["mask"].shape[0]
             code, err, cor, steps = _unpack_rows(
                 words[n_mask:n_mask + k].view(np.uint32),
                 words[n_mask + k:].reshape(ke, 3), self._pack)
             rows = _mask_rows(words[:n_mask].view(np.uint32), per)
+            marks.append(("collect.unpack", t0, time.perf_counter()))
             if len(rows) != k:
                 raise RuntimeError(
                     f"sparse collect: shard {s}'s bitmask names {len(rows)} "

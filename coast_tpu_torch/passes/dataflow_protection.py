@@ -44,6 +44,14 @@ leaves a step can change, the bounded loop when ``max_steps ==
 nominal_steps``, and the TMR votes a repair follows (the pre-step load
 sync, the whole-leaf commit votes) as one fused commit per sync point,
 one K2 launch on the card.  Its run records equal the unfused engine's.
+
+``run_batch`` records its host work on the ambient span recorder
+(``obs.current()``, which the campaign runner activates around its
+``dispatch`` stage): ``engine.upload`` (host fault columns copied to the
+device), ``engine.fire_read`` (the fire plan's one blocking copy) and
+``engine.halt_read`` (each blocking read of the halt flags).  Every such
+blocking device-to-host read also adds one to ``host_reads``, whether a
+recorder is active or not.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from coast_tpu_torch.interop import fault_from_numpy
 from coast_tpu_torch.ir.region import (KIND_CTRL, KIND_MEM, KIND_OPT_STATE,
                                        KIND_PARAM, KIND_RO, KIND_STACK,
                                        FnNamespace, Region, State, rows)
+from coast_tpu_torch.obs import spans as obs_spans
 from coast_tpu_torch.ops import (bitflip, fused_step, hopper_voters,
                                  site_table, voters)
 from coast_tpu_torch.ops.voters import Site
@@ -313,6 +322,9 @@ class ProtectedProgram:
                 "cross-lane call-boundary sync of function scope classes "
                 f"for {sorted(cross_lane)}; use interleaved (-i) scheduling")
         self.leaf_order = [n for n in region.spec if region.spec[n].inject]
+        # Blocking device-to-host reads run_batch has made (the fire plan's
+        # copy, the halt reads): the campaign runner's transfer["reads"].
+        self.host_reads = 0
         self._guarded = (region.stack_guard is not None
                          or region.assert_guard is not None)
         one = {k: v.unsqueeze(0) for k, v in image.items()}
@@ -900,7 +912,9 @@ class ProtectedProgram:
         return view, mis.sum(dim=0)
 
     def _all_halted(self, flags: Flags) -> bool:
-        return bool(self._halted(flags).all())
+        self.host_reads += 1
+        with obs_spans.current().span("engine.halt_read"):
+            return bool(self._halted(flags).all())
 
     def fire_plan_bytes(self, sites: int = 1) -> int:
         """Bytes of the one device-to-host copy :meth:`run_batch` makes a
@@ -916,9 +930,12 @@ class ProtectedProgram:
         one small copy (:meth:`fire_plan_bytes`): which steps any row
         fires at, and which leaves each site column targets."""
         cols = {k: fault[k] for k in ("leaf_id", "lane", "word", "bit", "t")}
-        cols.update(fault_from_numpy(
-            {k: v for k, v in cols.items() if not isinstance(v, torch.Tensor)},
-            self.device))
+        host = {k: v for k, v in cols.items()
+                if not isinstance(v, torch.Tensor)}
+        tel = obs_spans.current()
+        if host:
+            with tel.span("engine.upload"):
+                cols.update(fault_from_numpy(host, self.device))
         cols = {k: v.to(device=self.device, dtype=torch.int32
                         ).reshape(v.shape[0], -1) for k, v in cols.items()}
         n_sites = cols["t"].shape[1]
@@ -936,7 +953,9 @@ class ProtectedProgram:
         flags.scatter_(0, torch.where((leaf >= 0) & (leaf < n_leaves),
                                       steps + column + leaf, sink).flatten(),
                        True)
-        flags = flags[:sink].cpu().numpy()
+        self.host_reads += 1
+        with tel.span("engine.fire_read"):
+            flags = flags[:sink].cpu().numpy()
         fire_at = frozenset(np.flatnonzero(flags[:steps]).tolist())
         targeted = flags[steps:].reshape(n_sites, n_leaves)
         lane_words = {k: self.lane_words(k) for k in self.leaf_order}

@@ -50,6 +50,7 @@ import sys
 import time
 
 from coast_tpu_torch import device as device_mod
+from coast_tpu_torch.obs.spans import top_stages
 from coast_tpu_torch.scripts import common
 
 BENCH_ALIASES = {"mm": "matrixMultiply", "mm256": "matrixMultiply256"}
@@ -304,8 +305,8 @@ def main(argv=None) -> int:
                           "achieved_ops_per_s", "peak_source")}
             mfu_cols[strat]["device_busy_fraction"] = (
                 (res.profile or {}).get("device_busy_fraction"))
-            stage_blocks[strat] = {k: round(v, 6)
-                                   for k, v in res.stages.items()}
+            stage_blocks[strat] = {
+                k: round(v, 6) for k, v in top_stages(res.stages).items()}
             # Mean guest runtime over completed runs (success/corrected/
             # sdc), NaN with a warning where none completed.
             completed = cls.completed_mask(res.codes)
@@ -320,9 +321,9 @@ def main(argv=None) -> int:
                 seconds=runtimes[strat] * res.n,
                 mean_steps=mean_steps,
                 stages=res.stages or None)
-            # 'overlap' is a fraction, not a seconds bucket: keep it out
-            # of the dominant-stage ranking.
-            stage_s = {k: v for k, v in res.stages.items()
+            # 'overlap' is a fraction, not a seconds bucket, and a nested
+            # span lies inside its stage: the ranking is of the top level.
+            stage_s = {k: v for k, v in top_stages(res.stages).items()
                        if k != "overlap"}
             dominant = max(stage_s, key=stage_s.get) if stage_s else "?"
             print(f"#   {name}-{strat} stages: " + " ".join(

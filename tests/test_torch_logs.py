@@ -118,7 +118,7 @@ def test_summary_equal_outside_volatile_keys(campaigns):
         assert json.dumps(a) == json.dumps(b)
         assert set(res.summary()["stages"]) <= {
             "schedule", "sparse_setup", "pad", "dispatch", "collect",
-            "classify", "serialize", "overlap"}
+            "account", "classify", "serialize", "overlap"}
 
 
 def feed_all(w, res, bs):

@@ -356,8 +356,10 @@ def test_device_gen_runs_on_the_card_unless_asked_for_the_cpu():
 def test_sparse_layers_are_profiler_spans_once_a_batch():
     """The generator and the device accounting each run inside their
     ``campaign.SPANS`` span, once a batch, so a profile of the campaign
-    itself attributes their device time (``breakdown.py``)."""
-    run = runner(spec="multibit(k=4)", collect="sparse")
+    itself attributes their device time (``breakdown.py``): the runner's
+    recorder brackets its spans for the profiler when asked to."""
+    run = runner(spec="multibit(k=4)", collect="sparse",
+                 telemetry=ct.obs.Telemetry(profiler=True))
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
         run.run(150, seed=2, batch_size=64)
