@@ -46,6 +46,9 @@ and one a site column and a leaf, which steps and leaves the batch's flips
 touch (``ProtectedProgram.fire_plan_bytes``).  Its ``reads`` counts the
 campaign's blocking device-to-host reads: the engine's fire-plan copy and
 halt reads (``ProtectedProgram.host_reads``) and the collect's copies.
+``freeze_run`` and ``freeze_skipped`` count the engine's halt-freeze
+selects of one leaf made and left out (``ProtectedProgram.freeze_run``,
+``freeze_skipped``).
 
 The runner's ``Telemetry`` times the campaign loop.  Top-level stages:
 ``sparse_setup``, ``pad``, ``dispatch``, ``collect``, ``account`` (a
@@ -597,9 +600,14 @@ class CampaignRunner:
         columns, still on the device."""
         return run_classified(self.prog, fault)
 
-    def _engine_reads(self) -> int:
-        """The engine's blocking reads so far (``host_reads``)."""
-        return self.prog.host_reads
+    #: The engine's counters that ``transfer`` accumulates, by key.
+    ENGINE_COUNTERS = {"reads": "host_reads", "freeze_run": "freeze_run",
+                       "freeze_skipped": "freeze_skipped"}
+
+    def _engine_counters(self) -> Dict[str, int]:
+        """The engine's counters so far, under their ``transfer`` keys."""
+        return {key: getattr(self.prog, attr)
+                for key, attr in self.ENGINE_COUNTERS.items()}
 
     @staticmethod
     def _collect(pending: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -878,7 +886,8 @@ class CampaignRunner:
             if retry is not None else {})
         sched_t = np.asarray(sched.t)
         sched_w = sched.class_weight
-        transfer: Dict[str, int] = {"up": 0, "down": 0, "reads": 0}
+        transfer: Dict[str, int] = {"up": 0, "down": 0,
+                                    **dict.fromkeys(self.ENGINE_COUNTERS, 0)}
         state: Optional[Dict[str, object]] = None
         if self.collect == "sparse":
             with tel.span("sparse_setup"):
@@ -1016,7 +1025,7 @@ class CampaignRunner:
             args = ({"n": n_part} if int(flight["attempts"]) == 1 else
                     {"n": n_part, "retry": int(flight["attempts"])})
             td0 = time.perf_counter()
-            reads0 = self._engine_reads()
+            engine0 = self._engine_counters()
             # The engine records its own spans on the ambient recorder.
             with tel.span("dispatch", **args), tel.activate():
                 transfer["down"] += self._fire_plan_bytes(fault)
@@ -1033,7 +1042,8 @@ class CampaignRunner:
                         if self.prog.device.type == "cuda" else None)
                     if flight["ready"] is not None:
                         flight["ready"].record()
-            transfer["reads"] += self._engine_reads() - reads0
+            for key, value in self._engine_counters().items():
+                transfer[key] += value - engine0[key]
             last_span(spans_rec)
             if prof is not None:
                 prof.dispatched(lo, n_part, td0, time.perf_counter())

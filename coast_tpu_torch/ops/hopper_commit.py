@@ -49,7 +49,10 @@ def commit_sites(sites: Sequence[CommitSite], num_clones: int
     """K2 over every site of one sync point in one launch -> ``(repaired
     [R, n, *leaf] per site, voted [R, *leaf] per site, flags int32
     [S, R])``.  All sites share R and n; widths, types and masks may
-    differ.  Every output is a view of one fresh buffer, never an input."""
+    differ.  Each repaired replica set is a fresh tensor of its own (the
+    engine may commit it as state, which then holds no other output's
+    bytes); the voted values and flags are views of one fresh buffer.
+    No output is an input."""
     global LAUNCHES
     site_table.check_group("K2", len(sites), num_clones)
     first = sites[0][0]
@@ -64,12 +67,11 @@ def commit_sites(sites: Sequence[CommitSite], num_clones: int
             raise ValueError(
                 "masks must be a contiguous int32 tensor of the replica "
                 f"set's shape {tuple(lanes.shape)} on its device")
-        plan.append((width, out.take(lanes.numel()),
-                     out.take(rows * width)))
+        plan.append((width, torch.empty_like(lanes), out.take(rows * width)))
     base = out.allocate(device)
     table = site_table.pack([
         (lanes.data_ptr(), 0 if masks is None else masks.data_ptr(),
-         base + 4 * rep, base + 4 * vot, 0, base + 4 * s * rows, width,
+         rep.data_ptr(), base + 4 * vot, 0, base + 4 * s * rows, width,
          width, num_clones * width, 0, 0, int(lanes.dtype == torch.float32),
          0)
         for s, ((lanes, masks), (width, rep, vot))
@@ -81,9 +83,6 @@ def commit_sites(sites: Sequence[CommitSite], num_clones: int
             f"K2 commit launch failed: cudaError {err} for sites "
             f"{[tuple(lanes.shape) for lanes, _ in sites]}")
     LAUNCHES += 1
-    repaired, voted = [], []
-    for (lanes, _), (width, rep, vot) in zip(sites, plan):
-        repaired.append(out.view(lanes.shape, rep, lanes.dtype))
-        voted.append(out.view((rows,) + tuple(lanes.shape[2:]), vot,
-                              lanes.dtype))
-    return repaired, voted, out.flags(len(sites), rows)
+    voted = [out.view((rows,) + tuple(lanes.shape[2:]), vot, lanes.dtype)
+             for (lanes, _), (_, _, vot) in zip(sites, plan)]
+    return [rep for _, rep, _ in plan], voted, out.flags(len(sites), rows)

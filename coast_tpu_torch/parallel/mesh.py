@@ -246,8 +246,9 @@ class ShardedCampaignRunner(CampaignRunner):
         return [run_classified(self._prog_on(dev), block)
                 for _, dev, block in self._blocks(fault, per)]
 
-    def _engine_reads(self) -> int:
-        return sum(p.host_reads for p in self._progs.values())
+    def _engine_counters(self) -> Dict[str, int]:
+        return {key: sum(getattr(p, attr) for p in self._progs.values())
+                for key, attr in self.ENGINE_COUNTERS.items()}
 
     def _collect(self, pending) -> Dict[str, np.ndarray]:
         """One copy a shard; the shards' columns joined in row order."""

@@ -52,10 +52,19 @@ device), ``engine.fire_read`` (the fire plan's one blocking copy) and
 ``engine.halt_read`` (each blocking read of the halt flags).  Every such
 blocking device-to-host read also adds one to ``host_reads``, whether a
 recorder is active or not.
+
+The halt read counts the halted rows.  A step that starts with none
+(``init_pstate``'s flags, or a read that counted 0: the flags come as
+:class:`NoneHalted`) and can halt none in the step (no CFCSS hook, not
+DWC) commits a written leaf without its halt-freeze select, which would
+copy it unchanged, when the leaf is a contiguous tensor of its own.
+``freeze_run`` and ``freeze_skipped`` count the leaf freezes made and
+left out.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import (Callable, Dict, FrozenSet, Iterator, List, Mapping,
@@ -222,6 +231,37 @@ def _grouped(fn, sites: list, num_clones: int):
     return (*lists, torch.cat([part[-1] for part in parts]))
 
 
+class NoneHalted(dict):
+    """Step flags of which the caller knows that no row has halted
+    (``ProtectedProgram._halted`` all false): the fresh flags of
+    ``init_pstate``, or flags whose halt read counted 0.  A plain dict
+    says nothing, so every select of the freeze runs."""
+
+
+def _own_leaves(pstate: State, new_state: State,
+                names: List[str]) -> FrozenSet[str]:
+    """Of ``names``, the leaves of ``new_state`` that a halt-freeze select
+    would only copy: contiguous, of the pre-step leaf's shape and dtype,
+    and alone in a storage that no tensor of ``pstate`` and no other of
+    ``names``' leaves uses.  An in-place flip of such a leaf reaches no
+    other leaf of either state, and committing it keeps no other tensor's
+    bytes alive."""
+    def storage(x: torch.Tensor) -> int:
+        return x.untyped_storage().data_ptr()
+
+    uses = collections.Counter(storage(new_state[name]) for name in names)
+    old = {storage(x) for x in pstate.values()}
+
+    def own(name: str) -> bool:
+        new, pre = new_state[name], pstate[name]
+        return (new.is_contiguous() and new.shape == pre.shape
+                and new.dtype == pre.dtype
+                and new.untyped_storage().nbytes() == new.nbytes
+                and uses[storage(new)] == 1 and storage(new) not in old)
+
+    return frozenset(filter(own, names))
+
+
 class _Window(NamedTuple):
     """A store-slice window: per-row start block, block count, words a
     block and the per-row ``active`` flag (None: every row stored)."""
@@ -325,6 +365,10 @@ class ProtectedProgram:
         # Blocking device-to-host reads run_batch has made (the fire plan's
         # copy, the halt reads): the campaign runner's transfer["reads"].
         self.host_reads = 0
+        # Halt-freeze selects of one leaf made and left out by step():
+        # transfer["freeze_run"] / ["freeze_skipped"].
+        self.freeze_run = 0
+        self.freeze_skipped = 0
         self._guarded = (region.stack_guard is not None
                          or region.assert_guard is not None)
         one = {k: v.unsqueeze(0) for k, v in image.items()}
@@ -586,15 +630,19 @@ class ProtectedProgram:
         return out
 
     # -- one protected step -------------------------------------------------
-    def _halted(self, flags: Flags) -> torch.Tensor:
+    def _halted(self, flags: Flags,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Rows that stopped evolving: completed, aborted (DWC or CFCSS) or
-        tripped by a kernel guard."""
+        tripped by a kernel guard.  ``out``: an int32 ``[B]`` tensor the
+        last op writes them into as 0 / 1."""
         if "latch" in flags:
-            return flags["latch"] != 0
-        halted = flags["done"] | flags["dwc_fault"]
-        for name in _OPTIONAL_FAULTS:
-            if name in flags:
-                halted = halted | flags[name]
+            return torch.ne(flags["latch"], 0, out=out)
+        faults = [flags[name] for name in ("dwc_fault", *_OPTIONAL_FAULTS)
+                  if name in flags]
+        halted = flags["done"]
+        for j, fault in enumerate(faults):
+            halted = torch.bitwise_or(
+                halted, fault, out=out if j == len(faults) - 1 else None)
         return halted
 
     def _guard_trips(self, region_state: State, laned: State, batch: int,
@@ -649,11 +697,17 @@ class ProtectedProgram:
                          for x, k in zip(lanes, tags)], 3)
 
     def step(self, pstate: State, flags: Flags, t: int) -> Tuple[State, Flags]:
+        """One protected step of every row.  ``flags`` as
+        :class:`NoneHalted`: no row has halted, so where the step can
+        halt none (no CFCSS hook, not DWC) a leaf of its own is committed
+        without the halt-freeze select."""
         cfg = self.cfg
         n = cfg.num_clones
         plan = self._fuse_plan
         batch = flags["steps"].shape[0]
         halted = self._halted(flags)
+        halt_free = (isinstance(flags, NoneHalted)
+                     and self._cfcss_step is None and n != 2)
         region_state = {name: pstate[name] for name in self.region.spec}
         # One int32 [S, R] flag block per grouped vote, a row per site.
         miscompares: List[torch.Tensor] = []
@@ -863,13 +917,24 @@ class ProtectedProgram:
         # Freeze halted rows: the row's image stops evolving the step it
         # halts (and a DWC fault step never commits).  The fused build
         # freezes only the leaves a step can change and commits the rest's
-        # pre-step tensors.
-        for name, new in new_state.items():
-            if plan is not None and name not in plan.frozen_leaves:
+        # pre-step tensors.  On a halt-free step commit_halt is all false
+        # and the select would copy ``new``: a leaf of its own commits as
+        # it is.
+        frozen = [name for name, new in new_state.items()
+                  if (plan is None or name in plan.frozen_leaves)
+                  and new is not pstate[name]]
+        own = (_own_leaves(pstate, new_state, frozen) if halt_free
+               else frozenset())
+        for name in new_state:
+            if name in own:
+                self.freeze_skipped += 1
+            elif name in frozen:
+                self.freeze_run += 1
+                new_state[name] = torch.where(
+                    rows(commit_halt, new_state[name]), pstate[name],
+                    new_state[name])
+            elif plan is not None:
                 new_state[name] = pstate[name]
-            elif new is not pstate[name]:
-                new_state[name] = torch.where(rows(commit_halt, new),
-                                              pstate[name], new)
         return new_state, flags
 
     # -- whole-program runners ---------------------------------------------
@@ -911,10 +976,15 @@ class ProtectedProgram:
         view.update(zip(names, voted))
         return view, mis.sum(dim=0)
 
-    def _all_halted(self, flags: Flags) -> bool:
+    def _halted_count(self, flags: Flags) -> int:
+        """The number of halted rows: one blocking read.  The rows are
+        written as int32 so that one reduction counts them (a bool sum
+        would cast to int64 first)."""
         self.host_reads += 1
         with obs_spans.current().span("engine.halt_read"):
-            return bool(self._halted(flags).all())
+            out = torch.empty(flags["steps"].shape, dtype=torch.int32,
+                              device=self.device)
+            return int(self._halted(flags, out=out).sum(dtype=torch.int32))
 
     def fire_plan_bytes(self, sites: int = 1) -> int:
         """Bytes of the one device-to-host copy :meth:`run_batch` makes a
@@ -996,8 +1066,11 @@ class ProtectedProgram:
 
         # The bounded loop (fused, max_steps == nominal_steps) runs every
         # trip with no host sync; the others stop once every row halted.
+        # The halt read's count of 0 tells the next step that no row has
+        # halted, as init_pstate's all-zero flags tell the first.
         bounded = (trace or self._fuse_plan is not None
                    and self._fuse_plan.bounded_scan)
+        flags = NoneHalted(flags)
         blocks, lives = [], []
         for t in range(self.region.max_steps):
             if t in fire_at or trace:
@@ -1012,8 +1085,12 @@ class ProtectedProgram:
                 blocks.append(self._trace_block(pstate, batch))
                 lives.append(live)
             pstate, flags = self.step(pstate, flags, t)
-            if not bounded and self._all_halted(flags):
-                break
+            if not bounded:
+                halted = self._halted_count(flags)
+                if halted == batch:
+                    break
+                if halted == 0:
+                    flags = NoneHalted(flags)
 
         # Region-boundary sync: every replicated leaf is compared/voted
         # once when the result escapes the SoR; only a row that completed
