@@ -56,8 +56,9 @@ collected batch's histogram, journal, stream, metrics and progress) and
 ``classify``; together they cover ``run_schedule``'s wall clock.  Nested
 spans: ``setup.columns``, ``setup.weights`` and ``setup.upload`` under
 ``sparse_setup``; ``campaign.device_generator`` under ``pad``; the
-engine's ``engine.upload``, ``engine.fire_read`` and ``engine.halt_read``
-and ``campaign.sparse_accounting`` under ``dispatch``; ``collect.wait``
+engine's ``engine.upload``, ``engine.fire_read``, ``engine.halt_read``,
+``step.region`` and ``engine.commit`` and ``campaign.sparse_accounting``
+under ``dispatch``; ``collect.wait``
 (the batch's first blocking copy) and ``collect.unpack`` (host decoding of
 the rows) under ``collect``.  ``CampaignResult.stages`` holds each nested
 span's seconds as ``"<stage>/<span>"``.

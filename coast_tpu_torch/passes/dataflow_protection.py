@@ -48,8 +48,11 @@ one K2 launch on the card.  Its run records equal the unfused engine's.
 ``run_batch`` records its host work on the ambient span recorder
 (``obs.current()``, which the campaign runner activates around its
 ``dispatch`` stage): ``engine.upload`` (host fault columns copied to the
-device), ``engine.fire_read`` (the fire plan's one blocking copy) and
-``engine.halt_read`` (each blocking read of the halt flags).  Every such
+device), ``engine.fire_read`` (the fire plan's one blocking copy),
+``engine.halt_read`` (each blocking read of the halt flags), and in every
+trip ``step.region`` (the region's own step over the lanes) and
+``engine.commit`` (the commit sync point's votes and repairs: the K2
+commit and any K1 sites on the fused engine, K1 on the unfused).  Every such
 blocking device-to-host read also adds one to ``host_reads``, whether a
 recorder is active or not.
 
@@ -758,7 +761,9 @@ class ProtectedProgram:
             halted = halted | cfc
             pstate = {**pstate, **updates}
 
-        laned, call_mis = self._run_lanes(region_state, t, batch)
+        tel = obs_spans.current()
+        with tel.span("step.region"):
+            laned, call_mis = self._run_lanes(region_state, t, batch)
         trip_now = None
         if self._guarded:
             trip_stack, trip_assert = self._guard_trips(region_state, laned,
@@ -840,30 +845,31 @@ class ProtectedProgram:
                                   tag=f"sor_crossing:{name}"))
                 roles.append((name, None))
                 syncs += 1
-        if repair:
-            repaired, voted, mis = self._vote_repair(
-                [new_state[name] for name in repair],
-                [f"{self._sync_class_of(name)}:{name}" for name in repair])
-            for name, lanes, value in zip(repair, repaired, voted):
-                new_state[name] = lanes
-                commits[name] = value
-            miscompares.append(mis)
-        if sites:
-            voted, mis = _grouped(hopper_voters.vote_sites, sites, n)
-            for j, ((name, window), value) in enumerate(zip(roles, voted)):
-                if window is not None:
-                    if n == 3:
-                        new_state[name] = self._slice_repair(
-                            name, new_state[name], name in laned, window,
-                            value)
-                    if window.active is not None:
-                        mis[j] &= window.active
-                elif not self.replicated[name]:
-                    new_state[name] = value
-                elif n == 3:
-                    new_state[name] = _repair(value, new_state[name].shape)
+        with tel.span("engine.commit"):
+            if repair:
+                repaired, voted, mis = self._vote_repair(
+                    [new_state[name] for name in repair],
+                    [f"{self._sync_class_of(name)}:{name}" for name in repair])
+                for name, lanes, value in zip(repair, repaired, voted):
+                    new_state[name] = lanes
                     commits[name] = value
-            miscompares.append(mis)
+                miscompares.append(mis)
+            if sites:
+                voted, mis = _grouped(hopper_voters.vote_sites, sites, n)
+                for j, ((name, window), value) in enumerate(zip(roles, voted)):
+                    if window is not None:
+                        if n == 3:
+                            new_state[name] = self._slice_repair(
+                                name, new_state[name], name in laned, window,
+                                value)
+                        if window.active is not None:
+                            mis[j] &= window.active
+                    elif not self.replicated[name]:
+                        new_state[name] = value
+                    elif n == 3:
+                        new_state[name] = _repair(value, new_state[name].shape)
+                        commits[name] = value
+                miscompares.append(mis)
 
         # Latch fault/correction accounting.  DWC checks before the store
         # commits: a miscompare this step freezes the row at its pre-step

@@ -28,8 +28,9 @@ torch.set_num_threads(1)
 ANCHOR = "clock_anchor"
 PORT_STAGES = {"account"}
 PORT_NESTED = {"engine.upload", "engine.fire_read", "engine.halt_read",
-               "setup.columns", "setup.weights", "setup.upload",
-               "collect.wait", "collect.unpack",
+               "step.region", "engine.commit", "setup.columns",
+               "setup.weights", "setup.upload", "collect.wait",
+               "collect.unpack",
                "campaign.device_generator", "campaign.sparse_accounting"}
 
 
@@ -261,7 +262,8 @@ def test_supervisor_trace_out_through_both_packages(tmp_path):
     assert [s for s in got if s[0] not in PORT_STAGES | PORT_NESTED] == want
     assert {s[0] for s in got} - {s[0] for s in want} \
         == {"account", "engine.upload", "engine.halt_read",
-            "engine.fire_read", "collect.wait"}
+            "engine.fire_read", "step.region", "engine.commit",
+            "collect.wait"}
     assert doc["otherData"]["benchmark"] == "matrixMultiply"
     assert doc["traceEvents"][0]["args"]["name"] \
         == jdoc["traceEvents"][0]["args"]["name"]

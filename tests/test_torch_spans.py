@@ -5,7 +5,9 @@ loop, on the profiler's clock (``obs/spans.py``, ``inject/campaign.py``,
 A 9x9 matrixMultiply campaign under TMR with the fused engine runs dense,
 sparse and under ``multibit(k=4)`` on the CPU: its top-level stages cover
 the campaign's wall clock, its nested spans sit under their stages, and
-its blocking device-to-host reads are counted one by one.  A span's time
+its blocking device-to-host reads are counted one by one.  Every trip's
+region step and commit group are spans of their own, on both engines and
+on CHStone blowfish's 1,171 trips.  A span's time
 maps onto ``torch.profiler``'s clock through the recorder's anchors, and
 ``breakdown.py`` lays spans over device intervals to bill idle time to
 the innermost span.
@@ -19,20 +21,22 @@ import torch
 from coast_tpu_torch import TMR, breakdown, obs
 from coast_tpu_torch.inject.campaign import SPANS, CampaignRunner
 from coast_tpu_torch.inject.schedule import FaultModel, generate
-from coast_tpu_torch.models import mm
+from coast_tpu_torch.models import REGISTRY, mm
 from coast_tpu_torch.obs import spans as tspans
 
 torch.set_num_threads(1)
 
 CASES = {"dense": ("dense", "single"), "sparse": ("sparse", "single"),
          "multibit4": ("sparse", "multibit(k=4)")}
+# The engine's spans of every trip, nested in ``dispatch``.
+TRIP = {"dispatch/step.region", "dispatch/engine.commit"}
 NESTED = {
     "dense": {"dispatch/engine.upload", "dispatch/engine.fire_read",
-              "dispatch/engine.halt_read", "collect/collect.wait"},
+              "dispatch/engine.halt_read", "collect/collect.wait", *TRIP},
     "sparse": {"sparse_setup/setup.columns", "sparse_setup/setup.weights",
                "sparse_setup/setup.upload", "dispatch/engine.fire_read",
                "dispatch/engine.halt_read",
-               "dispatch/campaign.sparse_accounting",
+               "dispatch/campaign.sparse_accounting", *TRIP,
                "collect/collect.wait", "collect/collect.unpack"},
 }
 NESTED["multibit4"] = NESTED["sparse"]
@@ -170,6 +174,43 @@ def test_sparse_layer_spans_nest_in_their_stages():
     assert f"dispatch/{SPANS[1]}" in res.stages
 
 
+def _trip_campaign(program, telemetry=None):
+    """A dense campaign of ``program`` (``"mm9-fused"``, ``"mm9-unfused"``
+    or ``"blowfish"``, CHStone blowfish under fused TMR at 8 rows: all
+    1,171 trips of its key schedule and CFB64 run on the CPU)."""
+    if program == "blowfish":
+        prog = TMR(REGISTRY["chstone_blowfish"](), device="cpu",
+                   fuse_step=True)
+        rows, batch = 8, 8
+    else:
+        prog = TMR(mm.make_region(), device="cpu",
+                   fuse_step=program == "mm9-fused")
+        rows, batch = 150, 64
+    runner = CampaignRunner(prog, collect="dense", telemetry=telemetry)
+    sched = generate(runner.mmap, rows, 7, prog.region.nominal_steps,
+                     model=runner.fault_model)
+    sched.gen_stream_n = None
+    return runner.run_schedule(sched, batch_size=batch)
+
+
+@pytest.mark.parametrize("program", ["mm9-fused", "mm9-unfused",
+                                     "blowfish"])
+def test_region_step_and_commit_spans_nest_in_dispatch(program):
+    """``step.region`` and ``engine.commit`` time every trip's region step
+    and commit group on both engines, inside ``dispatch``; switched off,
+    the campaign's records are bit-identical."""
+    on = _trip_campaign(program)
+    assert TRIP <= set(on.stages)
+    inner = [on.stages[k] for k in sorted(TRIP)]
+    for seconds in inner:
+        assert 0 < seconds <= on.stages["dispatch"]
+    assert sum(inner) < on.stages["dispatch"]
+    off = _trip_campaign(program, telemetry=obs.Telemetry(enabled=False))
+    assert off.stages == {} and off.counts == on.counts
+    for k in ("codes", "errors", "corrected", "steps"):
+        assert getattr(off, k).tolist() == getattr(on, k).tolist()
+
+
 def test_breakdown_bills_idle_time_to_the_innermost_span():
     spans = [("dispatch", 0, 100), ("dispatch/engine.halt_read", 10, 20),
              ("dispatch/engine.halt_read", 30, 40), ("account", 120, 150)]
@@ -219,8 +260,9 @@ AUDITED = {
     "span": {"memory_map", "schedule", "sparse_setup", "pad", "dispatch",
              "collect", "account", "classify", "setup.columns",
              "setup.weights", "setup.upload", "engine.upload",
-             "engine.fire_read", "engine.halt_read", "collect.wait",
-             "collect.unpack", "campaign.device_generator",
+             "engine.fire_read", "engine.halt_read", "step.region",
+             "engine.commit", "collect.wait", "collect.unpack",
+             "campaign.device_generator",
              "campaign.sparse_accounting"},
     "counter": {"pad_waste_rows"},
     "instant": {"clock_anchor"},
